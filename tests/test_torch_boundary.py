@@ -1,0 +1,101 @@
+"""The port's package boundary and its no-fallback device rule.
+
+- No module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax``
+  or anything of the JAX package ``repro``: a fresh interpreter imports
+  them all and inspects ``sys.modules``.
+- Entry points called without ``device=`` run on CUDA; where there is no
+  card they raise instead of falling back to the CPU.
+- ``chip_smoke.py`` exits non-zero and prints no result without a card,
+  and in a directory that holds nothing else of the repo.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+SRC = ROOT / "src"
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def _env():
+    return {**os.environ, "PYTHONPATH": str(SRC)}
+
+
+def test_port_imports_nothing_of_jax_or_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL, str(ROOT)], env=_env(), cwd=ROOT,
+        capture_output=True, text=True, timeout=300, check=True,
+    )
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "repro_torch.kernels.alloc" in got["modules"]
+    assert "repro_torch.core.sweeps" in got["modules"]
+    assert got["bad"] == []
+
+
+def _entry_points():
+    from repro_torch import lanes
+    from repro_torch.core import arrivals, flowtime, scenarios, simulator, sweeps
+    from repro_torch.core.policies import hesrpt
+
+    spec = sweeps.Sweep.create(("hesrpt",), (1.0,), n_jobs=4, n_seeds=1)
+    x, a = [2.0, 1.0], [0.0, 0.5]
+    return {
+        "run_sweep": lambda: sweeps.run_sweep(spec),
+        "simulate_cells": lambda: sweeps.simulate_cells(spec, [[x]], [[a]]),
+        "run_lanes": lambda: lanes.run_lanes(smoke=True),
+        "simulate_online": lambda: arrivals.simulate_online(x, a, 0.5, 4.0, hesrpt),
+        "simulate_online_quantized": lambda: arrivals.simulate_online_quantized(
+            x, a, 0.5, 4, hesrpt
+        ),
+        "simulate": lambda: simulator.simulate(x, 0.5, 4.0, hesrpt),
+        "tape_from_numpy": lambda: scenarios.tape_from_numpy(x, a),
+        "seed_generator": lambda: scenarios.seed_generator(0, 0),
+        "omega_star": lambda: flowtime.omega_star(4, 0.5),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_points_default_to_cuda_and_do_not_fall_back(name):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_points()[name]()
+
+
+def _smoke(cwd):
+    return subprocess.run(
+        [sys.executable, str(Path(cwd) / "chip_smoke.py")], cwd=cwd, env=_env(),
+        capture_output=True, text=True, timeout=300,
+    )
+
+
+def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: chip_smoke.py would run")
+    lone = tmp_path / "lone"
+    lone.mkdir()
+    shutil.copy(ROOT / "chip_smoke.py", lone)
+    for cwd in (ROOT, lone):
+        out = _smoke(cwd)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
