@@ -2,12 +2,13 @@
 """Quickest proof that the PyTorch/CUDA port runs on a GPU.
 
 ``python3 chip_smoke.py`` from the repo root, on a machine with one NVIDIA
-card (sm_90a, nvcc under ``CUDA_HOME``).  It builds the fused-allocate
-kernel from ``src/repro_torch/kernels/csrc/alloc.cu`` and runs, in order
-(any failure raises, and the exit code is not 0):
+card (sm_90a, nvcc under ``CUDA_HOME``).  It builds the port's two kernels,
+``src/repro_torch/kernels/csrc/alloc.cu`` (the fused allocate) and
+``csrc/flash_attention.cu``, with one nvcc each, started together, and runs,
+in order (any failure raises, and the exit code is not 0):
 
 1. environment: the card's name and power limit, torch and CUDA versions,
-   the kernel's build time;
+   the allocate kernel's build time;
 2. the kernel against its plain PyTorch version on the card, bit for bit
    (theta bitwise, chips equal) over sizes with zeros and exact ties, f64
    and f32, plus the reference behaviours ROADMAP.md's Queue C records;
@@ -19,7 +20,24 @@ kernel from ``src/repro_torch/kernels/csrc/alloc.cu`` and runs, in order
    within 1e-12 relative, chips equal at every event;
 5. Thm 8: a batch heSRPT tape simulated on the card against the closed form;
 6. kernel timing at the lane shape [192, 1000] (CUDA events) beside the
-   plain version's and the bound.
+   plain version's and the bound;
+7. the flash-attention kernel's build time, and the kernel against its plain
+   version on the card, float32 within 2e-5 and bfloat16 within 5e-2 (the
+   tolerances of ``tests/test_kernels.py``): the shapes of that file, non-
+   causal, windows 16 and 100, head dims 16, 128 and 256, the model's
+   transposed views, and the phi4-mini prefill shape [4, 24, 1000, 128];
+8. the serving path at full width: phi4-mini-3.8b (32 layers, d_model 3072,
+   vocab 200064, 4.45e9 float32 parameters drawn on the card from a seed)
+   serves batch 4 x 1000 prompt tokens + 32 greedy tokens through
+   ``launch/serve.py::generate``; the flash count is zeroed just before and
+   read just after and must be 32 (one per layer of the one prefill); the
+   prefill's last logits match the same prefill with ``attn_impl="ref"``;
+9. the smoke-size phi4-mini on the same weights on the CPU and on the card:
+   prefill and teacher-forced decode logits within 2e-4;
+10. flash timing at [4, 24, 1000, 128] / [4, 8, 1000, 128], causal, float32
+    and bfloat16 (CUDA events): the kernel, its plain version and PyTorch's
+    ``scaled_dot_product_attention`` (timed as a yardstick only; the port
+    never calls it), beside the kernel's bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -34,6 +52,7 @@ import math
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -43,6 +62,16 @@ ROOT = Path(__file__).resolve().parent
 # float64 row; the f64 rate is lower, so this understates no bound).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+# Dense bf16 tensor-core rate: the least time for attention's products on
+# bf16 inputs, whatever unit a kernel uses.
+PEAK_BF16_OPS_PER_S = 989e12
+
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "phi4-mini-3.8b", 4, 1000, 32
+# Logits of two float32 runs that differ only in summation order (kernel vs
+# plain attention; CPU vs card): the bar of tests/test_models.py.  Computing
+# any part in bf16 moves them by ~1e-2.
+LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
+FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
 
 
 def _card() -> str:
@@ -212,6 +241,192 @@ def phase_timing(alloc, device) -> dict:
             "bytes": n_bytes, "ops": n_ops}
 
 
+def phase_flash_vs_plain(flash, ref, device) -> dict:
+    """Phase 7: the flash kernel against its plain version on the card;
+    returns the max |error| per dtype."""
+    import torch
+
+    cases = [  # (b, hq, hkv, sq, skv, d, causal, window, transposed views)
+        (1, 4, 4, 128, 128, 64, True, 0, False), (2, 4, 2, 256, 256, 64, True, 0, False),
+        (1, 8, 1, 128, 128, 32, True, 0, False), (2, 4, 2, 130, 190, 64, True, 0, False),
+        (1, 2, 2, 64, 64, 128, True, 0, False), (2, 2, 2, 128, 192, 64, False, 0, False),
+        (1, 4, 2, 256, 256, 64, True, 16, False), (1, 4, 2, 256, 256, 64, True, 100, False),
+        (1, 4, 2, 300, 300, 16, False, 100, False), (2, 4, 2, 190, 190, 16, True, 0, True),
+        (2, 6, 3, 200, 260, 256, True, 0, False), (1, 8, 1, 333, 333, 256, True, 100, True),
+        (4, 24, 8, 1000, 1000, 128, True, 0, True),
+    ]
+    gen = torch.Generator(device=device).manual_seed(7)
+    worst = {}
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        worst[dtype] = 0.0
+        for b, hq, hkv, sq, skv, d, causal, window, views in cases:
+            def make(h, s):
+                if views:  # [B, S, H, D] memory, as the model's projections
+                    x = torch.randn((b, s, h, d), generator=gen, device=device)
+                    return x.to(dt).transpose(1, 2)
+                return torch.randn((b, h, s, d), generator=gen, device=device).to(dt)
+            q, k, v = make(hq, sq), make(hkv, skv), make(hkv, skv)
+            kw = dict(causal=causal, window=window, q_offset=max(skv - sq, 0))
+            got = flash.flash_attention(q, k, v, **kw)
+            want = ref.attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+            worst[dtype] = max(worst[dtype], err)
+    print(f"phase 7: flash kernel == plain version on {len(cases)} shapes x 2 dtypes: "
+          f"max |err| float32 {worst['float32']:.3e}, bfloat16 {worst['bfloat16']:.3e}",
+          flush=True)
+    return worst
+
+
+def phase_serve(flash, device) -> dict:
+    """Phase 8: phi4-mini-3.8b at full width through ``generate``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(SERVE_ARCH)
+    model = build_model(cfg, ModelOptions(activation_dtype="float32"), device=device)
+    plain = build_model(cfg, ModelOptions(attn_impl="ref", activation_dtype="float32"),
+                        device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)),
+                             device=device)
+    batch = {"tokens": tokens}
+
+    timings = {}
+    torch.cuda.synchronize()
+    flash.LAUNCHES = 0
+    ids = generate(model, params, batch, gen_len=SERVE_GEN, timings=timings)
+    torch.cuda.synchronize()
+    launches = flash.LAUNCHES
+    assert launches == cfg.n_layers, f"{launches} flash launches in one prefill, not {cfg.n_layers}"
+    assert ids.shape == (SERVE_BATCH, SERVE_GEN) and int(ids.min()) >= 0
+    assert int(ids.max()) < cfg.vocab_size
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    got, _ = model.prefill_fn(params, batch)
+    want, _ = plain.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and got.shape == (SERVE_BATCH, cfg.vocab_size)
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, **LOGIT_TOL)
+    decode_tps = SERVE_BATCH * SERVE_GEN / timings["decode_s"]
+    print(f"phase 8: {cfg.name} full width ({n_params} parameters, init {init_s:.2f} s): "
+          f"batch {SERVE_BATCH} x prompt {SERVE_PROMPT} + {SERVE_GEN} tokens; prefill "
+          f"{timings['prefill_s']:.4f} s, decode {timings['decode_s']:.4f} s "
+          f"({decode_tps:.1f} tok/s), peak memory {peak_gb:.2f} GB; flash launches {launches}; "
+          f"last logits kernel vs plain attention max |err| {err:.3e} "
+          f"(max |logit| {want.abs().max().item():.3f})", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "params": n_params, "batch": SERVE_BATCH,
+            "prompt_len": SERVE_PROMPT, "gen_len": SERVE_GEN, "init_s": init_s,
+            "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
+            "decode_tok_s": decode_tps, "peak_mem_gb": peak_gb, "flash_launches": launches,
+            "logits_max_abs_err_vs_plain": err, "sample_ids": ids[0, :16].tolist()}
+
+
+def phase_serve_cpu_vs_cuda(device) -> float:
+    """Phase 9: the smoke-size phi4-mini, same weights, CPU vs card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+
+    cfg = smoke_config(SERVE_ARCH)
+    opts = ModelOptions(activation_dtype="float32")
+    cpu, gpu = build_model(cfg, opts, device="cpu"), build_model(cfg, opts, device=device)
+    params = cpu.init(torch.Generator().manual_seed(9))
+    params_gpu = _tree_to(params, device)
+    toks = torch.as_tensor(np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 80)))
+    p0, end = 70, 80
+    lc, cc = cpu.prefill_fn(params, {"tokens": toks[:, :p0]}, max_len=end)
+    lg, cg = gpu.prefill_fn(params_gpu, {"tokens": toks[:, :p0].to(device)}, max_len=end)
+    pairs = [(lc, lg)]
+    for t in range(p0, end):
+        lc, cc = cpu.decode_fn(params, toks[:, t:t + 1], cc, t)
+        lg, cg = gpu.decode_fn(params_gpu, toks[:, t:t + 1].to(device), cg, t)
+        pairs.append((lc, lg))
+    worst = 0.0
+    for a, b in pairs:
+        torch.testing.assert_close(b.cpu(), a, **LOGIT_TOL)
+        worst = max(worst, (b.cpu() - a).abs().max().item())
+    print(f"phase 9: smoke {cfg.name} CPU vs card on the same weights: prefill + "
+          f"{end - p0} teacher-forced decode steps, max |logit gap| {worst:.3e}", flush=True)
+    return worst
+
+
+def _leaves(tree):
+    """The tensors of a parameter tree (dicts and lists of tensors)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        return [t for sub in tree for t in _leaves(sub)]
+    return [tree]
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def phase_flash_timing(flash, ref, device) -> dict:
+    """Phase 10: the kernel, its plain version and SDPA at the prefill shape."""
+    import torch
+    import torch.nn.functional as F
+
+    b, hq, hkv, s, d = SERVE_BATCH, 24, 8, SERVE_PROMPT, 128
+    gen = torch.Generator(device=device).manual_seed(10)
+    out = {}
+    before = flash.LAUNCHES
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        q = torch.randn((b, hq, s, d), generator=gen, device=device).to(dt)
+        k = torch.randn((b, hkv, s, d), generator=gen, device=device).to(dt)
+        v = torch.randn((b, hkv, s, d), generator=gen, device=device).to(dt)
+        ms = _time_ms(lambda: flash.flash_attention(q, k, v, causal=True), 20)
+        plain_ms = _time_ms(lambda: ref.attention(q, k, v, causal=True), 5)
+        sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), 20)
+        # Least time: two products of 2 * D flops for each allowed (query,
+        # key) pair, S (S + 1) / 2 per head when causal, at the peak rate of
+        # the input type; or q, k, v read once and o written once.
+        pairs = s * (s + 1) // 2
+        n_ops = 4 * d * pairs * b * hq
+        n_bytes = (2 * b * hq + 2 * b * hkv) * s * d * q.element_size()
+        peak = PEAK_OPS_PER_S if dtype == "float32" else PEAK_BF16_OPS_PER_S
+        t_ops, t_bytes = n_ops / peak * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+        out[dtype] = {"ms": ms, "plain_ms": plain_ms, "library_ms": sdpa_ms,
+                      "bound_ms": max(t_ops, t_bytes),
+                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                      "ops": n_ops, "bytes": n_bytes,
+                      "tflops": n_ops / ms / 1e9}
+        print(f"phase 10: flash {dtype} [{b}, {hq}, {s}, {d}] / [{b}, {hkv}, {s}, {d}] causal: "
+              f"kernel {ms:.4f} ms ({n_ops / ms / 1e9:.2f} TFLOP/s), plain version "
+              f"{plain_ms:.4f} ms, SDPA {sdpa_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
+              f"({out[dtype]['bound_by']}: {n_ops:.4e} flop, {n_bytes} bytes)", flush=True)
+    flash.LAUNCHES = before  # timing launches are not the main path's
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -221,14 +436,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a GPU", file=sys.stderr)
         return 1
-    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc" / "alloc.cu").is_file():
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    if not all((csrc / f).is_file() for f in ("alloc.cu", "flash_attention.cu")):
         print("chip_smoke: run it from a checkout of the repo (src/repro_torch missing)",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import lanes
     from repro_torch.core import engine, flowtime, policies, simulator, sweeps
-    from repro_torch.kernels import alloc
+    from repro_torch.kernels import alloc, flash_attention, ref
+
+    # Float32 products in full float32 (these are PyTorch's defaults, stated).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     t_start = time.perf_counter()
     device = torch.device("cuda", 0)
@@ -236,7 +456,10 @@ def main() -> int:
     print(card, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
-    alloc.load_library()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
+        builds = [pool.submit(alloc.load_library), pool.submit(flash_attention.load_library)]
+        for b in builds:
+            b.result()
     print(f"phase 1: built {alloc._SRC.name} in {alloc.BUILD_SECONDS:.2f} s "
           f"(nvcc {' '.join(alloc.NVCC_FLAGS)})", flush=True)
 
@@ -245,6 +468,14 @@ def main() -> int:
     cpu_gap = phase_cpu_vs_cuda(lanes, sweeps, engine, policies, device)
     thm8_gap = phase_theorem8(simulator, flowtime, policies, device)
     timing = phase_timing(alloc, device)
+    print(f"phase 7: built {flash_attention._SRC.name} in "
+          f"{flash_attention.BUILD_SECONDS:.2f} s (in parallel with phase 1's build)",
+          flush=True)
+    flash_err = phase_flash_vs_plain(flash_attention, ref, device)
+    serve = phase_serve(flash_attention, device)
+    serve_cpu_gap = phase_serve_cpu_vs_cuda(device)
+    flash_timing = phase_flash_timing(flash_attention, ref, device)
+    f32 = flash_timing["float32"]
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -258,17 +489,35 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "flash_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33",
+        "launches": serve["flash_launches"],
+        "max_abs_err": flash_err["float32"],
+        "max_abs_err_bf16": flash_err["bfloat16"],
+        "ms": f32["ms"],
+        "plain_ms": f32["plain_ms"],
+        "bound_ms": f32["bound_ms"],
+        "bound_by": f32["bound_by"],
+        "library_ms": f32["library_ms"],
     }]
     detail = {
         "card": card,
         "torch": torch.__version__,
         "cuda": torch.version.cuda,
         "build_s": alloc.BUILD_SECONDS,
+        "flash_build_s": flash_attention.BUILD_SECONDS,
         "kernels": kernels,
         "timing": timing,
         "lanes": lanes.lane_records(results),
         "cpu_vs_cuda_max_rel": cpu_gap,
         "thm8_max_rel": thm8_gap,
+        "flash_max_abs_err": flash_err,
+        "flash_timing": flash_timing,
+        "serve": serve,
+        "serve_cpu_vs_cuda_max_abs": serve_cpu_gap,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -1,0 +1,43 @@
+"""Architecture registry of the port, a copy of ``repro.configs``' dense part.
+
+``get_config(arch_id)`` returns the published full-size config;
+``smoke_config(arch_id)`` a reduced config of the same family that runs a
+prefill and decode on the CPU in a test.  The registry holds the dense
+decoder family, the one the port serves so far; the other families' configs
+come with their slices (ROADMAP.md Queue A).
+"""
+
+from __future__ import annotations
+
+from repro_torch.configs import phi4_mini, qwen15_110b, qwen25_14b, stablelm_12b
+from repro_torch.configs.base import ModelConfig
+
+_REGISTRY = {m.CONFIG.name: m.CONFIG for m in (qwen25_14b, phi4_mini, stablelm_12b, qwen15_110b)}
+
+ARCH_IDS = tuple(_REGISTRY)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    try:
+        return _REGISTRY[arch_id]
+    except KeyError:
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}") from None
+
+
+def smoke_config(arch_id: str) -> ModelConfig:
+    """Reduced config of the same family: 2 layers, width 64, 4 query heads
+    of dim 16 (at most 2 KV heads), vocab 256, as ``repro.configs``."""
+    cfg = get_config(arch_id)
+    return cfg.scaled(
+        n_layers=2,
+        d_model=64,
+        d_ff=128,
+        vocab_size=256,
+        rope_theta=10000.0,
+        n_heads=4,
+        n_kv_heads=max(1, min(cfg.n_kv_heads, 2)),
+        head_dim=16,
+    )
+
+
+__all__ = ["ARCH_IDS", "ModelConfig", "get_config", "smoke_config"]

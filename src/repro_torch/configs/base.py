@@ -1,0 +1,92 @@
+"""The model configuration dataclass, a copy of ``repro.configs.base``.
+
+``ModelConfig`` is the single source of truth a model is built from:
+``models.model.build_model(cfg)`` dispatches on ``cfg.family``.  The port
+keeps its own copy (it imports nothing of the JAX package); the fields and
+the analytic parameter count are the reference's, field for field.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """One architecture.  Field semantics:
+
+    - ``family``: dispatch key — dense | moe | ssm | hybrid | vlm | audio.
+    - ``n_heads`` / ``n_kv_heads``: GQA query / key-value head counts.
+    - ``head_dim``: per-head dim (decoupled from ``d_model // n_heads``).
+    - ``d_ff``: MLP hidden (for MoE: the *per-expert* hidden).
+    - ``window``: sliding-window size for SWA / local attention; 0 = full.
+    - ``layer_pattern``: repeating mixer pattern for hybrids, e.g.
+      ``("rglru", "rglru", "attn")`` for recurrentgemma's 2:1.
+    - ``encoder_layers`` / ``encoder_seq``: whisper-style encoder stack.
+    - ``n_patches``: vlm stub — patch embeddings prepended to the tokens.
+    """
+
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 128
+    qkv_bias: bool = False
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    # SSM (mamba2 SSD)
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    # hybrid (recurrentgemma)
+    layer_pattern: tuple[str, ...] = ()
+    lru_width: int = 0
+    # attention variant
+    window: int = 0
+    rope_theta: float = 10000.0
+    # encoder-decoder (whisper)
+    encoder_layers: int = 0
+    encoder_seq: int = 0
+    # vlm
+    n_patches: int = 0
+    # numerics
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    param_dtype: str = "float32"  # master copy
+    source: str = ""  # provenance tag: [hf:... | arXiv:... ; tier]
+
+    def __post_init__(self):
+        if self.family not in FAMILIES:
+            raise ValueError(f"unknown family {self.family!r}")
+        if self.family == "hybrid" and not self.layer_pattern:
+            raise ValueError("hybrid family needs a layer_pattern")
+
+    def param_count(self) -> int:
+        """Analytic parameter count of the dense decoder: embedding, LM head
+        (unless tied), final norm, and per layer the attention projections
+        (+ QKV bias), the SwiGLU MLP and two norms."""
+        if self.family != "dense":
+            raise NotImplementedError(
+                f"param_count covers the dense family; {self.family!r} comes with its "
+                "slice (ROADMAP.md Queue A)"
+            )
+        d, hd = self.d_model, self.head_dim
+        attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        if self.qkv_bias:
+            attn += (self.n_heads + 2 * self.n_kv_heads) * hd
+        per_layer = attn + 2 * d + 3 * d * self.d_ff
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        return self.vocab_size * d + head + d + self.n_layers * per_layer
+
+    def scaled(self, **overrides) -> ModelConfig:
+        """A reduced-config variant of the same family (for smoke tests)."""
+        return dataclasses.replace(self, **overrides)

@@ -1,0 +1,16 @@
+"""phi4-mini-3.8b — dense, RoPE SwiGLU GQA(24q/8kv). [arXiv:2412.08905; hf]"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="phi4-mini-3.8b",
+    family="dense",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=8192,
+    vocab_size=200064,
+    source="[arXiv:2412.08905; hf]",
+)

@@ -23,23 +23,21 @@ intrinsics nvcc never contracts into a multiply-add, and
 
 The kernel is compiled by ``nvcc`` at first use (and again when its source
 changes) into ``build/repro_torch/`` at the repo root and loaded with
-``ctypes``; nothing is built when this module is imported.
+``ctypes`` (``kernels/build.py``); nothing is built when this module is
+imported.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
-import time
 from pathlib import Path
 
 import torch
 
 from repro_torch.core.policies import hesrpt, hesrpt_theta_from_ranks
 from repro_torch.core.ranking import inv_rank, ranks_from_order, size_order_desc
+# NVCC_FLAGS is read from here by chip_smoke.py and tools/alloc_fmad_check.py.
+from repro_torch.kernels.build import NVCC_FLAGS, KernelLibrary  # noqa: F401
 
 #: Launches of the CUDA kernel since the last reset (``chip_smoke.py``
 #: zeroes it before the main path and reads it after).
@@ -49,13 +47,6 @@ LAUNCHES = 0
 MAX_JOBS = 1024
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "alloc.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-_LIB = None
-_LIB_LOCK = threading.Lock()
 #: Seconds the last build took (0.0 when the library was already built).
 BUILD_SECONDS = 0.0
 
@@ -153,46 +144,23 @@ def hesrpt_alloc_fused_ref(x: torch.Tensor, p, n_chips: int, *, min_chips: int =
 
 
 # -------------------------------------------------------------- CUDA kernel
-def _build() -> Path:
-    """Compile ``csrc/alloc.cu`` into a shared library named by the hash of
-    source and flags (built once per content)."""
-    global BUILD_SECONDS
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = _BUILD_DIR / f"alloc_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        BUILD_SECONDS = 0.0
-        return out
-    nvcc = Path(CUDA_HOME or "/usr/local/cuda") / "bin" / "nvcc"
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    subprocess.run(
-        [str(nvcc), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-        check=True, capture_output=True, text=True,
-    )
-    os.replace(tmp, out)
-    BUILD_SECONDS = time.perf_counter() - t0
-    return out
+_LIBRARY = KernelLibrary(_SRC, {
+    name: [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    for name in ("hesrpt_alloc_f64", "hesrpt_alloc_f32")
+})
 
 
 def load_library() -> ctypes.CDLL:
     """The kernel's shared library, built on first use, with its C
     signatures declared."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(_build()))
-            for fn in (lib.hesrpt_alloc_f64, lib.hesrpt_alloc_f32):
-                fn.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                ]
-                fn.restype = ctypes.c_int
-            _LIB = lib
-        return _LIB
+    global BUILD_SECONDS
+    lib = _LIBRARY.load()
+    BUILD_SECONDS = _LIBRARY.build_seconds
+    return lib
 
 
 def _alloc_cuda(x: torch.Tensor, p, n_chips: int, min_chips: int):

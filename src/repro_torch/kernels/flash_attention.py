@@ -1,0 +1,99 @@
+"""Flash-attention forward as a hand-written CUDA kernel for Hopper.
+
+The kernel (``csrc/flash_attention.cu``) replaces the TPU kernel
+``repro/kernels/flash_attention.py::_flash_kernel``: causal attention with a
+query offset, a sliding window and GQA/MQA, by tiles with an online softmax
+in float32.  Its plain PyTorch version is ``kernels.ref.attention``;
+``kernels.ops.attention`` picks between the two by where the tensor lies.
+
+:func:`flash_attention` takes CUDA tensors only, float32 or bfloat16, head
+dim 16, 32, 64, 128 or 256, in any strides whose last dim is unit-stride
+(the model hands it transposed views of its projections; the output takes
+``q``'s strides, so the model's transpose back is free).  It raises on
+anything else; it never falls back to the plain version.  The kernel is
+compiled at first use (``kernels/build.py``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels.build import KernelLibrary
+
+#: Launches of the CUDA kernel since the last reset (``chip_smoke.py``
+#: zeroes it before the main path and reads it after).
+LAUNCHES = 0
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+
+#: Seconds the last build took (0.0 when the library was already built).
+BUILD_SECONDS = 0.0
+
+_SRC = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+_LIBRARY = KernelLibrary(_SRC, {
+    name: [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    for name in ("flash_attention_f32", "flash_attention_bf16")
+})
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel's shared library, built on first use."""
+    global BUILD_SECONDS
+    lib = _LIBRARY.load()
+    BUILD_SECONDS = _LIBRARY.build_seconds
+    return lib
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Hq, Sq, D]
+    k: torch.Tensor,  # [B, Hkv, Skv, D]
+    v: torch.Tensor,  # [B, Hkv, Skv, D]
+    *,
+    causal: bool = True,
+    window: int = 0,
+    q_offset: int = 0,
+) -> torch.Tensor:
+    """Attention by the CUDA kernel, logits scaled by ``D ** -0.5``; the
+    output is in q's dtype and layout."""
+    global LAUNCHES
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"the flash kernel takes CUDA tensors, got {name} on {t.device}")
+        if t.dim() != 4:
+            raise ValueError(f"the flash kernel takes [B, H, S, D] tensors, got {name} {t.shape}")
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the flash kernel takes float32 or bfloat16, got {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    if k.shape != (B, Hkv, Skv, D) or v.shape != k.shape or Hq % Hkv:
+        raise ValueError(f"shapes q {q.shape}, k {k.shape}, v {v.shape} do not fit GQA")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"the flash kernel takes head dim in {HEAD_DIMS}, got {D}")
+    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    o = torch.empty_like(q)  # dense q keeps its strides, so o's layout is q's
+    if o.numel() == 0:
+        return o
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, o) for s in t.stride()[:3])
+    )
+    lib = load_library()
+    fn = lib.flash_attention_f32 if q.dtype == torch.float32 else lib.flash_attention_bf16
+    with torch.cuda.device(q.device):
+        LAUNCHES += 1
+        err = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            B, Hq, Hkv, Sq, Skv, D, strides, D ** -0.5, int(causal), int(window),
+            int(q_offset), torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
+    return o

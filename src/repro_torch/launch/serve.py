@@ -1,0 +1,93 @@
+"""Serving entry point: batched prefill, then a greedy decode loop over KV
+caches.  Port of ``repro.launch.serve``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
+        --batch 4 --prompt-len 1000 --gen-len 32          # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
+        --smoke --device cpu                               # plain PyTorch on the CPU
+
+Parameters are random, drawn by the port's own ``init`` on the device from a
+seeded ``torch.Generator`` (the JAX package's threefry streams cannot be
+reproduced, and the repo has no published weights).  Activations are
+float32, as in the JAX entry point.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config, smoke_config
+from repro_torch.device import resolve_device
+from repro_torch.models.common import ModelOptions
+from repro_torch.models.model import build_model
+from repro_torch.train.serve_step import make_decode_step, make_prefill_step
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(model, params, batch, *, gen_len: int, timings: dict | None = None):
+    """Prefill on the prompt, then decode ``gen_len`` tokens greedily.
+    Returns ``[B, gen_len]`` generated ids.
+
+    With ``timings`` (a dict), the device is synchronised at the end of the
+    prefill and of the decode loop and the two wall times are stored under
+    ``"prefill_s"`` and ``"decode_s"``; without it nothing waits for the
+    device until the caller reads the ids.
+    """
+    prefill, decode = make_prefill_step(model), make_decode_step(model)
+    prompt_len = batch["tokens"].shape[1]
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, batch, max_len=prompt_len + gen_len)
+    tok = logits.argmax(-1, keepdim=True)
+    if timings is not None:
+        _sync(model.device)
+        t1 = time.perf_counter()
+        timings["prefill_s"] = t1 - t0
+    out = []
+    for i in range(gen_len):
+        out.append(tok)
+        logits, caches = decode(params, tok, caches, prompt_len + i)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+    if timings is not None:
+        _sync(model.device)
+        timings["decode_s"] = time.perf_counter() - t1
+    return torch.cat(out, dim=1)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen-len", type=int, default=32)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    model = build_model(cfg, ModelOptions(activation_dtype="float32"), device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    batch = {"tokens": torch.as_tensor(tokens, device=device)}
+
+    timings = {}
+    ids = generate(model, params, batch, gen_len=args.gen_len, timings=timings)
+    where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    print(f"{cfg.name} on {where}: generated {tuple(ids.shape)}; prefill "
+          f"{timings['prefill_s']:.3f} s, decode {timings['decode_s']:.3f} s "
+          f"({args.batch * args.gen_len / timings['decode_s']:.1f} tok/s)")
+    print("sample:", ids[0, :16].tolist())
+    return ids
+
+
+if __name__ == "__main__":
+    main()

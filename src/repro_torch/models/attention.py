@@ -1,0 +1,133 @@
+"""GQA self-attention block: full sequence (prefill) through
+``kernels.ops.attention``, and single-token decode against a (possibly
+ring-buffered) KV cache.  Port of ``repro.models.attention``; cross
+attention comes with the encoder-decoder slice.
+
+KV caches are dicts ``{"k": [B, Hkv, C, hd], "v": [B, Hkv, C, hd]}`` where
+``C`` is the capacity.  For sliding-window archs ``C = window`` and the cache
+is a ring buffer.  RoPE is applied to K at insert time (absolute positions),
+so ring slots never need re-rotation.  Unlike the JAX package's functional
+update, :func:`_ring_insert` writes the new step into the cache in place: a
+decode step then touches one slot instead of copying the cache.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF
+from repro_torch.models.layers import rope, uniform_scale_init
+
+
+def attn_init(generator: torch.Generator, cfg, dtype=torch.float32):
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    p = {
+        "wq": uniform_scale_init(generator, (hq * hd, d), dtype),
+        "wk": uniform_scale_init(generator, (hkv * hd, d), dtype),
+        "wv": uniform_scale_init(generator, (hkv * hd, d), dtype),
+        "wo": uniform_scale_init(generator, (d, hq * hd), dtype),
+    }
+    if cfg.qkv_bias:
+        dev = generator.device
+        p["bq"] = torch.zeros(hq * hd, dtype=dtype, device=dev)
+        p["bk"] = torch.zeros(hkv * hd, dtype=dtype, device=dev)
+        p["bv"] = torch.zeros(hkv * hd, dtype=dtype, device=dev)
+    return p
+
+
+def cache_capacity(cfg, seq_len: int, window: int) -> int:
+    return min(seq_len, window) if window > 0 else seq_len
+
+
+def init_cache(cfg, batch: int, capacity: int, dtype, device):
+    shape = (batch, cfg.n_kv_heads, capacity, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def _slot_positions(capacity: int, length: int, device) -> torch.Tensor:
+    """Absolute position held by each ring slot after ``length`` inserts.
+    Slots not yet written get -1 (masked)."""
+    j = torch.arange(capacity, device=device)
+    if length <= capacity:
+        pos = j
+    else:
+        pos = length - 1 - torch.remainder(length - 1 - j, capacity)
+    return torch.where(j < min(length, capacity), pos, -1)
+
+
+def _project(p, x, name, heads, hd):
+    b = p.get("b" + name)
+    out = F.linear(x, p["w" + name].to(x.dtype), None if b is None else b.to(x.dtype))
+    B, S, _ = out.shape
+    return out.reshape(B, S, heads, hd)
+
+
+def apply_attn(
+    p,
+    x: torch.Tensor,  # [B, S, D]
+    *,
+    cfg,
+    positions: torch.Tensor,  # [S] absolute positions of the query tokens
+    window: int = 0,
+    impl: str = "auto",
+    cache: dict | None = None,
+    cache_length: int | None = None,  # tokens already in the cache
+):
+    """Causal self-attention with RoPE.  Returns ``(out [B, S, D], cache)``.
+
+    - prefill: ``cache`` None; the returned cache holds this call's K/V;
+    - decode: ``cache`` given, ``S == 1``, ``cache_length`` tokens already
+      stored; the new step is inserted in place.
+    """
+    B, S, _ = x.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+
+    q = rope(_project(p, x, "q", hq, hd), positions, cfg.rope_theta).transpose(1, 2)
+    k = rope(_project(p, x, "k", hkv, hd), positions, cfg.rope_theta).transpose(1, 2)
+    v = _project(p, x, "v", hkv, hd).transpose(1, 2)  # [B, Hkv, S, hd]
+
+    if cache is None:
+        out = ops.attention(q, k, v, causal=True, window=window, impl=impl)
+        cache = {"k": k, "v": v}
+    elif S == 1:
+        _ring_insert(cache, k, v, cache_length)
+        out = _decode_attend(q, cache, cache_length + 1, window=window)
+    else:
+        raise NotImplementedError("chunked append-prefill is not needed by the serving path")
+
+    out = out.transpose(1, 2).reshape(B, S, hq * hd)
+    return F.linear(out, p["wo"].to(x.dtype)), cache
+
+
+def _ring_insert(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor, t: int) -> None:
+    """Write one timestep at slot ``t mod C``, in place.  k_new/v_new
+    ``[B, Hkv, 1, hd]``."""
+    idx = t % cache["k"].shape[2]
+    cache["k"][:, :, idx] = k_new[:, :, 0].to(cache["k"].dtype)
+    cache["v"][:, :, idx] = v_new[:, :, 0].to(cache["v"].dtype)
+
+
+def _decode_attend(q, cache, t: int, *, window: int):
+    """Single-query attention over a ring cache holding ``t`` tokens.
+    q ``[B, Hq, 1, hd]``."""
+    B, Hq, _, hd = q.shape
+    Hkv, C = cache["k"].shape[1], cache["k"].shape[2]
+    group = Hq // Hkv
+
+    pos = _slot_positions(C, t, q.device)
+    q_pos = t - 1
+    valid = (pos >= 0) & (pos <= q_pos)
+    if window > 0:
+        valid &= pos > q_pos - window
+
+    qf = (q.float() * hd ** -0.5).reshape(B, Hkv, group, hd)
+    logits = torch.einsum("bhgd,bhcd->bhgc", qf, cache["k"].float())
+    logits = torch.where(valid, logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgc,bhcd->bhgd", probs, cache["v"].float())
+    return out.reshape(B, Hq, 1, hd).to(q.dtype)

@@ -47,15 +47,20 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
         capture_output=True, text=True, timeout=300, check=True,
     )
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "repro_torch.kernels.alloc" in got["modules"]
-    assert "repro_torch.core.sweeps" in got["modules"]
+    for name in ("kernels.alloc", "core.sweeps", "kernels.flash_attention", "kernels.ops",
+                 "models.model", "models.convert", "launch.serve", "train.serve_step"):
+        assert f"repro_torch.{name}" in got["modules"]
     assert got["bad"] == []
 
 
 def _entry_points():
     from repro_torch import lanes
     from repro_torch.core import arrivals, flowtime, scenarios, simulator, sweeps
+    from repro_torch.configs import smoke_config
     from repro_torch.core.policies import hesrpt
+    from repro_torch.launch import serve
+    from repro_torch.models.convert import params_from_jax
+    from repro_torch.models.model import build_model
 
     spec = sweeps.Sweep.create(("hesrpt",), (1.0,), n_jobs=4, n_seeds=1)
     x, a = [2.0, 1.0], [0.0, 0.5]
@@ -71,6 +76,9 @@ def _entry_points():
         "tape_from_numpy": lambda: scenarios.tape_from_numpy(x, a),
         "seed_generator": lambda: scenarios.seed_generator(0, 0),
         "omega_star": lambda: flowtime.omega_star(4, 0.5),
+        "build_model": lambda: build_model(smoke_config("phi4-mini-3.8b")),
+        "params_from_jax": lambda: params_from_jax({}, smoke_config("phi4-mini-3.8b")),
+        "serve_main": lambda: serve.main(["--arch", "phi4-mini-3.8b", "--smoke"]),
     }
 
 

@@ -1,0 +1,103 @@
+"""The port's attention against the JAX package, on the CPU.
+
+``repro_torch.kernels.ops.attention`` on a CPU tensor takes the plain
+version (``kernels/ref.py``); it is held against both
+``repro.kernels.ref.attention`` and the TPU kernel
+``repro.kernels.flash_attention.flash_attention`` run in interpret mode, over
+the cases of ``tests/test_kernels.py`` (MHA, GQA 2:1, MQA, ragged with a
+query offset, a sequence shorter than a block; sliding windows; non-causal),
+at its tolerances ``TOL``: float32 2e-5, bfloat16 5e-2 (one bf16 ulp of an
+O(1) output is 2**-8 ~ 4e-3, and the two sides round the float32 result
+once each).  Inputs come from a numpy seed.
+
+The CUDA kernel itself runs only on a card: ``tests/test_torch_kernels_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro_torch.kernels import flash_attention as tflash  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+CASES = [
+    (1, 4, 4, 128, 128, 64),  # MHA, block-aligned
+    (2, 4, 2, 256, 256, 64),  # GQA 2:1
+    (1, 8, 1, 128, 128, 32),  # MQA
+    (2, 4, 2, 130, 190, 64),  # ragged (padding paths), q_offset 60
+    (1, 2, 2, 64, 64, 128),   # small seq < block
+]
+
+
+def _qkv(shape_q, shape_kv, dtype, seed=42):
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(s).astype(np.float32) for s in (shape_q, shape_kv, shape_kv)]
+    jax_in = [jnp.asarray(a, dtype) for a in arrs]
+    torch_in = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+    return jax_in, torch_in
+
+
+def _check(got, jax_outs, dtype):
+    got = got.float().numpy()
+    for want in jax_outs:
+        np.testing.assert_allclose(got, np.asarray(want, np.float32), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d", CASES)
+def test_causal_attention_matches_ref_and_flash_kernel(dtype, b, hq, hkv, sq, skv, d):
+    (qj, kj, vj), (q, k, v) = _qkv((b, hq, sq, d), (b, hkv, skv, d), dtype)
+    off = max(skv - sq, 0)
+    got = ops.attention(q, k, v, causal=True, q_offset=off)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    _check(got, [jref.attention(qj, kj, vj, causal=True, q_offset=off),
+                 jax_flash(qj, kj, vj, causal=True, q_offset=off, interpret=True)], dtype)
+
+
+@pytest.mark.parametrize("window", [16, 64, 100])
+def test_sliding_window_matches_ref_and_flash_kernel(window):
+    (qj, kj, vj), (q, k, v) = _qkv((1, 4, 256, 64), (1, 2, 256, 64), "float32")
+    got = ops.attention(q, k, v, causal=True, window=window)
+    _check(got, [jref.attention(qj, kj, vj, causal=True, window=window),
+                 jax_flash(qj, kj, vj, causal=True, window=window, interpret=True)], "float32")
+
+
+def test_non_causal_matches_ref_and_flash_kernel():
+    (qj, kj, vj), (q, k, v) = _qkv((2, 2, 128, 64), (2, 2, 192, 64), "float32")
+    got = ops.attention(q, k, v, causal=False)
+    _check(got, [jref.attention(qj, kj, vj, causal=False),
+                 jax_flash(qj, kj, vj, causal=False, interpret=True)], "float32")
+
+
+@pytest.mark.parametrize("causal,window,q_offset", [(True, 0, 0), (True, 5, 3), (False, 7, 0),
+                                                     (False, 0, 2)])
+def test_attention_mask_matches_the_jax_package(causal, window, q_offset):
+    got = ref.attention_mask(9, 12, causal=causal, window=window, q_offset=q_offset)
+    want = jref.attention_mask(9, 12, causal=causal, window=window, q_offset=q_offset)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_dispatch_on_a_cpu_tensor():
+    """``auto`` and ``ref`` take the plain version; the kernel refuses a CPU
+    tensor (no fallback); single-query decode takes the plain version under
+    every impl, as the JAX package's ``ops.attention`` does."""
+    _, (q, k, v) = _qkv((1, 4, 8, 16), (1, 2, 8, 16), "float32")
+    want = ref.attention(q, k, v, causal=True)
+    torch.testing.assert_close(ops.attention(q, k, v, impl="auto"), want, rtol=0, atol=0)
+    torch.testing.assert_close(ops.attention(q, k, v, impl="ref"), want, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ops.attention(q, k, v, impl="cuda")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tflash.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="impl must be one of"):
+        ops.attention(q, k, v, impl="pallas")
+    q1 = q[:, :, -1:]
+    torch.testing.assert_close(ops.attention(q1, k, v, impl="cuda", q_offset=7),
+                               ref.attention(q1, k, v, q_offset=7), rtol=0, atol=0)
+    assert tflash.LAUNCHES == 0

@@ -1,6 +1,11 @@
-"""The port's CUDA kernel on a card: bit for bit against its plain version.
+"""The port's CUDA kernels on a card, against their plain versions.
 
-Needs an NVIDIA card and nvcc (the kernel has no CPU mode), so every test
+- the fused allocate: bit for bit;
+- flash attention: within the tolerances of ``tests/test_kernels.py``
+  (float32 2e-5, bfloat16 5e-2: the kernel sums in another order than the
+  plain version's einsum, and bf16 rounds the float32 result once).
+
+Needs an NVIDIA card and nvcc (the kernels have no CPU mode), so every test
 is marked ``cuda`` and skips where ``torch.cuda.is_available()`` is False.
 The file imports neither jax nor the JAX package, so it runs on a machine
 that has only PyTorch:
@@ -15,8 +20,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.core import engine, policies  # noqa: E402
-from repro_torch.kernels import alloc  # noqa: E402
+from repro_torch.kernels import alloc, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as flash  # noqa: E402
+from repro_torch.models.common import ModelOptions  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 
 # (M, n_chips, min_chips): plenty of chips, floored (trims), oversubscribed,
 # the lane shape, and the largest M one CTA takes.
@@ -85,3 +94,77 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(TypeError):
         half = torch.ones(4, device=cuda_device, dtype=torch.float16)
         alloc.hesrpt_alloc_fused(half, 0.5, 16)
+
+
+# ------------------------------------------------------------ flash attention
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+# (b, hq, hkv, sq, skv, d, causal, window): the cases of tests/test_kernels.py,
+# non-causal, windows, every head dim the kernel takes.
+FLASH_CASES = (
+    (1, 4, 4, 128, 128, 64, True, 0), (2, 4, 2, 256, 256, 64, True, 0),
+    (1, 8, 1, 128, 128, 32, True, 0), (2, 4, 2, 130, 190, 64, True, 0),
+    (1, 2, 2, 64, 64, 128, True, 0), (2, 2, 2, 128, 192, 64, False, 0),
+    (1, 4, 2, 256, 256, 64, True, 16), (1, 4, 2, 256, 256, 64, True, 100),
+    (1, 4, 2, 200, 200, 16, False, 100), (2, 6, 3, 77, 77, 256, True, 0),
+    (1, 3, 1, 5, 300, 128, True, 0),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_version_on_card(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for b, hq, hkv, sq, skv, d, causal, window in FLASH_CASES:
+        q = torch.randn((b, hq, sq, d), generator=gen, device=cuda_device).to(dtype)
+        k = torch.randn((b, hkv, skv, d), generator=gen, device=cuda_device).to(dtype)
+        v = torch.randn((b, hkv, skv, d), generator=gen, device=cuda_device).to(dtype)
+        off = max(skv - sq, 0)
+        kw = dict(causal=causal, window=window, q_offset=off)
+        before = flash.LAUNCHES
+        got = ops.attention(q, k, v, **kw)
+        assert flash.LAUNCHES == before + 1
+        want = ref.attention(q, k, v, **kw)
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_takes_the_models_transposed_views(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    q = torch.randn((2, 70, 6, 32), generator=gen, device=cuda_device).transpose(1, 2)
+    k = torch.randn((2, 70, 2, 32), generator=gen, device=cuda_device).transpose(1, 2)
+    v = torch.randn((2, 70, 2, 32), generator=gen, device=cuda_device).transpose(1, 2)
+    got = flash.flash_attention(q, k, v)
+    assert got.stride() == q.stride()  # the output takes q's layout
+    torch.testing.assert_close(got, ref.attention(q, k, v), **FLASH_TOL[torch.float32])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
+    q = torch.ones((1, 2, 8, 16), device=cuda_device)
+    with pytest.raises(TypeError):
+        flash.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.ones((1, 2, 8, 48), device=cuda_device)
+        flash.flash_attention(x, x, x)
+    with pytest.raises(ValueError, match="GQA"):
+        flash.flash_attention(q, q[:, :1].expand(1, 3, 8, 16), q[:, :1].expand(1, 3, 8, 16))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash.flash_attention(q, q.cpu(), q)
+
+
+@pytest.mark.cuda
+def test_smoke_model_prefill_through_the_kernel_matches_plain_attention(cuda_device):
+    cfg = smoke_config("phi4-mini-3.8b")
+    kernel = build_model(cfg, ModelOptions(activation_dtype="float32"), device=cuda_device)
+    plain = build_model(cfg, ModelOptions(attn_impl="ref", activation_dtype="float32"),
+                        device=cuda_device)
+    params = kernel.init(torch.Generator(device=cuda_device).manual_seed(0))
+    toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 70)),
+                        device=cuda_device)
+    before = flash.LAUNCHES
+    got, _ = kernel.prefill_fn(params, {"tokens": toks})
+    assert flash.LAUNCHES == before + cfg.n_layers
+    want, _ = plain.prefill_fn(params, {"tokens": toks})
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
