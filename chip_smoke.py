@@ -2,10 +2,11 @@
 """Quickest proof that the PyTorch/CUDA port runs on a GPU.
 
 ``python3 chip_smoke.py`` from the repo root, on a machine with one NVIDIA
-card (sm_90a, nvcc under ``CUDA_HOME``).  It builds the port's two kernels,
-``src/repro_torch/kernels/csrc/alloc.cu`` (the fused allocate) and
-``csrc/flash_attention.cu``, with one nvcc each, started together, and runs,
-in order (any failure raises, and the exit code is not 0):
+card (sm_90a, nvcc under ``CUDA_HOME``).  It builds the port's three
+kernels, ``src/repro_torch/kernels/csrc/alloc.cu`` (the fused allocate),
+``csrc/flash_attention.cu`` and ``csrc/ssd_scan.cu``, with one nvcc each,
+started together, and runs, in order (any failure raises, and the exit code
+is not 0):
 
 1. environment: the card's name and power limit, torch and CUDA versions,
    the allocate kernel's build time;
@@ -37,7 +38,27 @@ in order (any failure raises, and the exit code is not 0):
 10. flash timing at [4, 24, 1000, 128] / [4, 8, 1000, 128], causal, float32
     and bfloat16 (CUDA events): the kernel, its plain version and PyTorch's
     ``scaled_dot_product_attention`` (timed as a yardstick only; the port
-    never calls it), beside the kernel's bound.
+    never calls it), beside the kernel's bound;
+11. the SSD kernel's build time, and the kernel against its plain version
+    (``kernels/chunked.py`` at the kernel's chunk length) and, up to 1000
+    steps, the recurrence (``kernels/ref.py``) on the card, float32 and
+    bfloat16: y within 2e-5 / 5e-2 and the final state within 1e-3 (the
+    tolerances of ``tests/test_kernels.py``), on that file's SSD shapes
+    (ragged, a chunk longer than the sequence), fewer steps than the conv
+    width, one step, and the mamba2-130m prefill shape x [4, 30000, 24, 64],
+    b/c [4, 30000, 128] (``tools/ssd_float64_check.py`` holds both against
+    a float64 evaluation there);
+12. mamba2-130m at full width (24 layers, d_model 768, d_inner 1536, state
+    128, vocab 50280, 128,983,488 float32 parameters drawn on the card from a
+    seed) serves batch 4 x 30000 prompt tokens + 32 greedy tokens through
+    ``generate``; the SSD count is zeroed just before and read just after and
+    must be 24 (one per layer of the one prefill), the flash count 0; the
+    prefill's last logits match the same prefill with ``mixer_impl="chunked"``;
+13. the smoke-size mamba2-130m on the same weights on the CPU and on the
+    card: prefill and teacher-forced decode logits within 2e-4;
+14. SSD timing at the prefill shape of one layer, float32 (CUDA events): the
+    kernel and its plain version beside the kernel's bound (no single
+    PyTorch call computes SSD, so there is no library yardstick).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -67,11 +88,18 @@ PEAK_OPS_PER_S = 67e12
 PEAK_BF16_OPS_PER_S = 989e12
 
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "phi4-mini-3.8b", 4, 1000, 32
+# 30000 is near the repo's prefill_32k length and a multiple of neither 64
+# nor 128, so the SSD kernel's masked last chunk runs at full width.
+SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_GEN = "mamba2-130m", 4, 30000, 32
 # Logits of two float32 runs that differ only in summation order (kernel vs
 # plain attention; CPU vs card): the bar of tests/test_models.py.  Computing
 # any part in bf16 moves them by ~1e-2.
 LOGIT_TOL = dict(rtol=2e-4, atol=2e-4)
 FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=5e-2, atol=5e-2)}
+# The SSD kernel's y at the same tolerances (summation order; bf16 rounds the
+# float32 result), its float32 final state within 1e-3: tests/test_kernels.py.
+SSD_TOL = FLASH_TOL
+STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 
 
 def _card() -> str:
@@ -339,8 +367,8 @@ def phase_serve(flash, device) -> dict:
             "logits_max_abs_err_vs_plain": err, "sample_ids": ids[0, :16].tolist()}
 
 
-def phase_serve_cpu_vs_cuda(device) -> float:
-    """Phase 9: the smoke-size phi4-mini, same weights, CPU vs card."""
+def phase_serve_cpu_vs_cuda(device, arch=SERVE_ARCH, phase=9) -> float:
+    """Phases 9 and 13: a smoke-size model, same weights, CPU vs card."""
     import numpy as np
     import torch
 
@@ -348,10 +376,10 @@ def phase_serve_cpu_vs_cuda(device) -> float:
     from repro_torch.models.common import ModelOptions
     from repro_torch.models.model import build_model
 
-    cfg = smoke_config(SERVE_ARCH)
+    cfg = smoke_config(arch)
     opts = ModelOptions(activation_dtype="float32")
     cpu, gpu = build_model(cfg, opts, device="cpu"), build_model(cfg, opts, device=device)
-    params = cpu.init(torch.Generator().manual_seed(9))
+    params = cpu.init(torch.Generator().manual_seed(phase))
     params_gpu = _tree_to(params, device)
     toks = torch.as_tensor(np.random.default_rng(9).integers(0, cfg.vocab_size, (2, 80)))
     p0, end = 70, 80
@@ -366,7 +394,7 @@ def phase_serve_cpu_vs_cuda(device) -> float:
     for a, b in pairs:
         torch.testing.assert_close(b.cpu(), a, **LOGIT_TOL)
         worst = max(worst, (b.cpu() - a).abs().max().item())
-    print(f"phase 9: smoke {cfg.name} CPU vs card on the same weights: prefill + "
+    print(f"phase {phase}: smoke {cfg.name} CPU vs card on the same weights: prefill + "
           f"{end - p0} teacher-forced decode steps, max |logit gap| {worst:.3e}", flush=True)
     return worst
 
@@ -427,6 +455,175 @@ def phase_flash_timing(flash, ref, device) -> dict:
     return out
 
 
+def _ssd_inputs(gen, device, dtype, b, s, h, p, n):
+    """x, dt, a, b, c, d as ``tests/test_kernels.py`` draws them: x, b, c
+    standard normal in ``dtype``; dt in U(0.01, 0.2), a in -U(0.5, 2.0), d
+    standard normal, all float32."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x = randn(b, s, h, p).to(dtype)
+    dt = torch.rand((b, s, h), generator=gen, device=device) * 0.19 + 0.01
+    a = -(torch.rand((h,), generator=gen, device=device) * 1.5 + 0.5)
+    return x, dt, a, randn(b, s, n).to(dtype), randn(b, s, n).to(dtype), randn(h)
+
+
+def _ssd_shape(cfg) -> tuple:
+    """(b, s, h, p, n) of one prefill layer of the mamba2 serve phase."""
+    return SSM_BATCH, SSM_PROMPT, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def phase_ssd_vs_plain(ssd_kernel, chunked, ref, device) -> dict:
+    """Phase 11: the SSD kernel against its plain version at the kernel's
+    chunk length (and the recurrence up to 1000 steps) on the card; returns
+    the max |error| of y and of the state per dtype."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    serve_shape = _ssd_shape(get_config(SSM_ARCH))
+    cases = [  # (b, s, h, p, n)
+        (1, 128, 2, 32, 16), (2, 200, 3, 32, 16), (1, 64, 1, 64, 128), (2, 96, 4, 16, 8),
+        (2, 2, 3, 16, 16), (1, 1, 2, 64, 128), serve_shape,
+    ]
+    gen = torch.Generator(device=device).manual_seed(11)
+    worst = {}
+    for dtype in ("float32", "bfloat16"):
+        dt_ = getattr(torch, dtype)
+        worst[dtype] = {"y": 0.0, "state": 0.0, "y_max_abs": 0.0}
+        for case in cases:
+            args = _ssd_inputs(gen, device, dt_, *case)
+            y, st = ssd_kernel.ssd_scan(*args, return_state=True)
+            plains = [lambda *a, **k: chunked.ssd(*a, block=ssd_kernel.CHUNK, **k)]
+            plains += [ref.ssd] if case[1] <= 1000 else []
+            for plain in plains:
+                y0, st0 = plain(*args, return_state=True)
+                torch.cuda.synchronize()
+                assert bool(torch.isfinite(y).all()) and y.shape == y0.shape
+                torch.testing.assert_close(y.float(), y0.float(), **SSD_TOL[dtype])
+                torch.testing.assert_close(st, st0, **STATE_TOL)
+                w = worst[dtype]
+                w["y"] = max(w["y"], (y.float() - y0.float()).abs().max().item())
+                w["state"] = max(w["state"], (st - st0).abs().max().item())
+                w["y_max_abs"] = max(w["y_max_abs"], y0.float().abs().max().item())
+                del y0, st0
+            del args, y, st
+    torch.cuda.empty_cache()
+    print(f"phase 11: SSD kernel == plain version (chunked at Q = {ssd_kernel.CHUNK}; recurrence "
+          f"up to 1000 steps) on {len(cases)} shapes x 2 dtypes: max |err| y float32 "
+          f"{worst['float32']['y']:.3e}, bfloat16 {worst['bfloat16']['y']:.3e} (max |y| "
+          f"{worst['float32']['y_max_abs']:.2f}, {worst['bfloat16']['y_max_abs']:.2f}); "
+          f"state float32 "
+          f"{worst['float32']['state']:.3e}, bfloat16 {worst['bfloat16']['state']:.3e}",
+          flush=True)
+    return worst
+
+
+def phase_serve_ssm(ssd_kernel, flash, card, device) -> dict:
+    """Phase 12: mamba2-130m at full width through ``generate``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ssm_uncounted_params
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(SSM_ARCH)
+    model = build_model(cfg, ModelOptions(activation_dtype="float32"), device=device)
+    plain = build_model(cfg, ModelOptions(mixer_impl="chunked", activation_dtype="float32"),
+                        device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    # param_count() is the JAX package's formula, which leaves out each
+    # layer's conv_b and dt_bias (ROADMAP.md Queue C); the model holds them.
+    exact = cfg.param_count() + ssm_uncounted_params(cfg)
+    assert n_params == exact == 128_983_488, (n_params, exact)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT)),
+                             device=device)
+    batch = {"tokens": tokens}
+
+    timings = {}
+    torch.cuda.synchronize()
+    ssd_kernel.LAUNCHES = 0
+    flash.LAUNCHES = 0
+    ids = generate(model, params, batch, gen_len=SSM_GEN, timings=timings)
+    torch.cuda.synchronize()
+    launches, flash_launches = ssd_kernel.LAUNCHES, flash.LAUNCHES
+    assert launches == cfg.n_layers, f"{launches} SSD launches in one prefill, not {cfg.n_layers}"
+    assert flash_launches == 0, f"{flash_launches} flash launches in an attention-free model"
+    assert ids.shape == (SSM_BATCH, SSM_GEN) and int(ids.min()) >= 0
+    assert int(ids.max()) < cfg.vocab_size
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    got, _ = model.prefill_fn(params, batch)
+    want, _ = plain.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and got.shape == (SSM_BATCH, cfg.vocab_size)
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, **LOGIT_TOL)
+    decode_tps = SSM_BATCH * SSM_GEN / timings["decode_s"]
+    print(f"phase 12: {cfg.name} full width ({n_params} parameters, init {init_s:.2f} s): "
+          f"batch {SSM_BATCH} x prompt {SSM_PROMPT} + {SSM_GEN} tokens on {card}; prefill "
+          f"{timings['prefill_s']:.4f} s, decode {timings['decode_s']:.4f} s "
+          f"({decode_tps:.1f} tok/s), peak memory {peak_gb:.2f} GB; SSD launches {launches}, "
+          f"flash launches {flash_launches}; last logits kernel vs chunked max |err| {err:.3e} "
+          f"(max |logit| {want.abs().max().item():.3f})", flush=True)
+    del params, got, want
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "params": n_params, "param_count": cfg.param_count(),
+            "batch": SSM_BATCH, "prompt_len": SSM_PROMPT, "gen_len": SSM_GEN,
+            "init_s": init_s, "prefill_s": timings["prefill_s"],
+            "decode_s": timings["decode_s"], "decode_tok_s": decode_tps,
+            "peak_mem_gb": peak_gb, "ssd_launches": launches, "flash_launches": flash_launches,
+            "logits_max_abs_err_vs_chunked": err, "sample_ids": ids[0, :16].tolist()}
+
+
+def phase_ssd_timing(ssd_kernel, chunked, card, device) -> dict:
+    """Phase 14: the kernel and its plain version at one layer's prefill shape."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    b, s, h, p, n = _ssd_shape(get_config(SSM_ARCH))
+    args = _ssd_inputs(torch.Generator(device=device).manual_seed(14), device, torch.float32,
+                       b, s, h, p, n)
+    q = ssd_kernel.CHUNK
+    before = ssd_kernel.LAUNCHES
+    ms = _time_ms(lambda: ssd_kernel.ssd_scan(*args, return_state=True), 10)
+    plain_ms = _time_ms(lambda: chunked.ssd(*args, block=q, return_state=True), 3)
+    ssd_kernel.LAUNCHES = before  # timing launches are not the main path's
+    # Least time: the work of the chunked form at the kernel's chunk length Q
+    # on these S steps: per batch row C B^T over the (t, u <= t) pairs of
+    # each chunk, once (every head sees the same b and c); per head those
+    # pairs times x, and C h_prev and the state update, 2 N P flops per step
+    # each.  Against x, b, c, dt read once and y, the state written once.
+    lens = [min(q, s - t0) for t0 in range(0, s, q)]
+    pairs = sum(L * (L + 1) // 2 for L in lens)
+    n_ops = b * (pairs * 2 * n + h * (pairs * 2 * p + 2 * s * 2 * n * p))
+    size = args[0].element_size()
+    n_bytes = (2 * b * s * h * p + 2 * b * s * n) * size + b * s * h * 4 + b * h * p * n * 4
+    t_ops, t_bytes = n_ops / PEAK_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ops": n_ops,
+           "bytes": n_bytes, "gflops": n_ops / ms / 1e6, "chunk": q}
+    print(f"phase 14: SSD float32 x [{b}, {s}, {h}, {p}], b/c [{b}, {s}, {n}] on {card}: "
+          f"kernel {ms:.4f} ms ({n_ops / ms / 1e9:.2f} TFLOP/s), plain version "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({out['bound_by']}: {n_ops:.4e} flop, "
+          f"{n_bytes} bytes); no single PyTorch call computes SSD, so there is no library "
+          "yardstick", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -437,14 +634,14 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs a GPU", file=sys.stderr)
         return 1
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    if not all((csrc / f).is_file() for f in ("alloc.cu", "flash_attention.cu")):
+    if not all((csrc / f).is_file() for f in ("alloc.cu", "flash_attention.cu", "ssd_scan.cu")):
         print("chip_smoke: run it from a checkout of the repo (src/repro_torch missing)",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import lanes
     from repro_torch.core import engine, flowtime, policies, simulator, sweeps
-    from repro_torch.kernels import alloc, flash_attention, ref
+    from repro_torch.kernels import alloc, chunked, flash_attention, ref, ssd_scan
 
     # Float32 products in full float32 (these are PyTorch's defaults, stated).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -456,8 +653,8 @@ def main() -> int:
     print(card, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
-    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, started together
-        builds = [pool.submit(alloc.load_library), pool.submit(flash_attention.load_library)]
+    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
+        builds = [pool.submit(k.load_library) for k in (alloc, flash_attention, ssd_scan)]
         for b in builds:
             b.result()
     print(f"phase 1: built {alloc._SRC.name} in {alloc.BUILD_SECONDS:.2f} s "
@@ -476,6 +673,12 @@ def main() -> int:
     serve_cpu_gap = phase_serve_cpu_vs_cuda(device)
     flash_timing = phase_flash_timing(flash_attention, ref, device)
     f32 = flash_timing["float32"]
+    print(f"phase 11: built {ssd_scan._SRC.name} in {ssd_scan.BUILD_SECONDS:.2f} s "
+          "(in parallel with phase 1's build)", flush=True)
+    ssd_err = phase_ssd_vs_plain(ssd_scan, chunked, ref, device)
+    ssm_serve = phase_serve_ssm(ssd_scan, flash_attention, card, device)
+    ssm_cpu_gap = phase_serve_cpu_vs_cuda(device, SSM_ARCH, phase=13)
+    ssd_timing = phase_ssd_timing(ssd_scan, chunked, card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -502,6 +705,20 @@ def main() -> int:
         "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
+    }, {
+        "name": "ssd_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:29",
+        "launches": ssm_serve["ssd_launches"],
+        "max_abs_err": ssd_err["float32"]["y"],
+        "max_abs_err_bf16": ssd_err["bfloat16"]["y"],
+        "max_abs_err_state": ssd_err["float32"]["state"],
+        "ms": ssd_timing["ms"],
+        "plain_ms": ssd_timing["plain_ms"],
+        "bound_ms": ssd_timing["bound_ms"],
+        "bound_by": ssd_timing["bound_by"],
+        "library_ms": None,
     }]
     detail = {
         "card": card,
@@ -509,6 +726,7 @@ def main() -> int:
         "cuda": torch.version.cuda,
         "build_s": alloc.BUILD_SECONDS,
         "flash_build_s": flash_attention.BUILD_SECONDS,
+        "ssd_build_s": ssd_scan.BUILD_SECONDS,
         "kernels": kernels,
         "timing": timing,
         "lanes": lanes.lane_records(results),
@@ -518,6 +736,10 @@ def main() -> int:
         "flash_timing": flash_timing,
         "serve": serve,
         "serve_cpu_vs_cuda_max_abs": serve_cpu_gap,
+        "ssd_max_abs_err": ssd_err,
+        "ssm_serve": ssm_serve,
+        "ssm_cpu_vs_cuda_max_abs": ssm_cpu_gap,
+        "ssd_timing": ssd_timing,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -4,6 +4,12 @@
 ``models.model.build_model(cfg)`` dispatches on ``cfg.family``.  The port
 keeps its own copy (it imports nothing of the JAX package); the fields and
 the analytic parameter count are the reference's, field for field.
+
+The reference's count for the ``ssm`` family leaves out each layer's
+``conv_b`` (``d_inner + 2 * ssm_state``) and ``dt_bias`` (``n_ssm_heads``)
+vectors, which its model does hold.  The copy keeps that formula as it
+stands, so that the two counts agree; :func:`ssm_uncounted_params` gives
+the difference (ROADMAP.md Queue C).
 """
 
 from __future__ import annotations
@@ -70,23 +76,54 @@ class ModelConfig:
         if self.family == "hybrid" and not self.layer_pattern:
             raise ValueError("hybrid family needs a layer_pattern")
 
+    @property
+    def d_inner(self) -> int:
+        """SSM inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def n_ssm_heads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def param_count(self) -> int:
-        """Analytic parameter count of the dense decoder: embedding, LM head
-        (unless tied), final norm, and per layer the attention projections
-        (+ QKV bias), the SwiGLU MLP and two norms."""
+        """Analytic parameter count, the reference's formula: embedding, LM
+        head (unless tied), final norm, and per layer
+
+        - dense: the attention projections (+ QKV bias), the SwiGLU MLP and
+          two norms;
+        - ssm: ``in_proj``, the depthwise conv weight, ``out_proj``, A and
+          D per head, the gated norm and the block norm (not ``conv_b`` or
+          ``dt_bias``: see :func:`ssm_uncounted_params`)."""
+        d = self.d_model
+        head = 0 if self.tie_embeddings else self.vocab_size * d
+        n = self.vocab_size * d + head + d
+        if self.family == "ssm":
+            di, ds, nh = self.d_inner, self.ssm_state, self.n_ssm_heads
+            in_proj = d * (2 * di + 2 * ds + nh)
+            conv = self.ssm_conv * (di + 2 * ds)
+            per_layer = in_proj + conv + di * d + nh * 2 + di + d  # A, D, gnorm, norm
+            return n + self.n_layers * per_layer
         if self.family != "dense":
             raise NotImplementedError(
-                f"param_count covers the dense family; {self.family!r} comes with its "
-                "slice (ROADMAP.md Queue A)"
+                f"param_count covers the dense and ssm families; {self.family!r} comes "
+                "with its slice (ROADMAP.md Queue A)"
             )
-        d, hd = self.d_model, self.head_dim
+        hd = self.head_dim
         attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
         if self.qkv_bias:
             attn += (self.n_heads + 2 * self.n_kv_heads) * hd
         per_layer = attn + 2 * d + 3 * d * self.d_ff
-        head = 0 if self.tie_embeddings else self.vocab_size * d
-        return self.vocab_size * d + head + d + self.n_layers * per_layer
+        return n + self.n_layers * per_layer
 
     def scaled(self, **overrides) -> ModelConfig:
         """A reduced-config variant of the same family (for smoke tests)."""
         return dataclasses.replace(self, **overrides)
+
+
+def ssm_uncounted_params(cfg: ModelConfig) -> int:
+    """Parameters an ``ssm`` model holds that :meth:`ModelConfig.param_count`
+    (the reference's formula) leaves out: per layer ``conv_b`` and
+    ``dt_bias``.  Zero for every other family."""
+    if cfg.family != "ssm":
+        return 0
+    return cfg.n_layers * (cfg.d_inner + 2 * cfg.ssm_state + cfg.n_ssm_heads)

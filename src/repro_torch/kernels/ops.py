@@ -1,24 +1,36 @@
-"""Attention with kernel | plain-version dispatch.  Port of the attention
-part of ``repro.kernels.ops``.
+"""Attention and SSD with kernel | plain-version dispatch.  Port of the
+attention and SSD parts of ``repro.kernels.ops``.
 
-``impl``:
+``impl`` of :func:`attention`:
 - ``"auto"`` — the CUDA kernel for a CUDA tensor, the plain version
   (``kernels/ref.py``) for a CPU tensor;
 - ``"ref"`` — the plain version wherever the tensor lies (for checks);
 - ``"cuda"`` — the kernel (a CPU tensor raises).
 
-Single-query decode (``Sq == 1``) takes the plain version under every impl,
-as the JAX package does: it is a matrix-vector product, where the flash
-tiling buys nothing.  There is no other route: on a CUDA tensor ``"auto"``
-and ``"cuda"`` launch the kernel or raise.
+``impl`` of :func:`ssd`:
+- ``"auto"`` — the CUDA kernel for a CUDA tensor, the chunked plain version
+  (``kernels/chunked.py``) for a CPU tensor, as the JAX package's ``auto``
+  takes ``chunked`` off the TPU;
+- ``"ref"`` — the sequential recurrence (``kernels/ref.py``);
+- ``"chunked"`` — the chunked plain version wherever the tensor lies;
+- ``"cuda"`` — the kernel (a CPU tensor raises).
+
+Single-query decode (``Sq == 1``) attention takes the plain version under
+every impl, as the JAX package does: it is a matrix-vector product, where
+the flash tiling buys nothing.  Likewise SSD with an initial state ``h0``
+(the decode step) takes the recurrence, as the JAX package's decode does.
+There is no other route: on a CUDA tensor ``"auto"`` and ``"cuda"`` launch
+the kernel or raise.
 """
 
 from __future__ import annotations
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import chunked, ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 IMPLS = ("auto", "ref", "cuda")
+SSD_IMPLS = ("auto", "ref", "chunked", "cuda")
 
 
 def attention(q, k, v, *, causal=True, window=0, q_offset=0, impl="auto"):
@@ -28,3 +40,15 @@ def attention(q, k, v, *, causal=True, window=0, q_offset=0, impl="auto"):
     if impl == "ref" or q.shape[2] == 1 or (impl == "auto" and q.device.type == "cpu"):
         return ref.attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return flash_attention(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+
+def ssd(x, dt, a, b, c, d, *, h0=None, impl="auto", return_state=False):
+    """Mamba2 SSD; x [B,S,H,P], dt [B,S,H], a [H], b/c [B,S,N], d [H] ->
+    y [B,S,H,P] (and the final state [B,H,P,N] with ``return_state``)."""
+    if impl not in SSD_IMPLS:
+        raise ValueError(f"impl must be one of {SSD_IMPLS}, got {impl!r}")
+    if impl == "ref" or h0 is not None:
+        return ref.ssd(x, dt, a, b, c, d, h0=h0, return_state=return_state)
+    if impl == "chunked" or (impl == "auto" and x.device.type == "cpu"):
+        return chunked.ssd(x, dt, a, b, c, d, return_state=return_state)
+    return ssd_scan(x, dt, a, b, c, d, return_state=return_state)

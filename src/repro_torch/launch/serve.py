@@ -1,9 +1,12 @@
-"""Serving entry point: batched prefill, then a greedy decode loop over KV
-caches.  Port of ``repro.launch.serve``.
+"""Serving entry point: batched prefill, then a greedy decode loop over the
+caches (KV caches for attention, conv and state caches for mamba2).  Port of
+``repro.launch.serve``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
         --batch 4 --prompt-len 1000 --gen-len 32          # on the card
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+        --batch 4 --prompt-len 30000 --gen-len 32         # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --smoke --device cpu                               # plain PyTorch on the CPU
 
 Parameters are random, drawn by the port's own ``init`` on the device from a

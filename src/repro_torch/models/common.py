@@ -15,6 +15,7 @@ import torch
 @dataclass(frozen=True)
 class ModelOptions:
     attn_impl: str = "auto"  # kernels.ops.attention impl: auto | ref | cuda
+    mixer_impl: str = "auto"  # kernels.ops.ssd impl: auto | ref | chunked | cuda
     activation_dtype: str = "bfloat16"
 
     @property

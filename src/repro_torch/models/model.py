@@ -1,5 +1,5 @@
 """``build_model(cfg, opts)``: the port's entry point to a model.  Port of
-``repro.models.model`` for the decoder-only dense family.  Returns a
+``repro.models.model`` for the decoder-only dense and ssm families.  Returns a
 ``Model`` of plain functions:
 
   init(generator)                                  -> params (float32 masters)
@@ -27,7 +27,6 @@ from repro_torch.models.transformer import stack_apply, stack_init
 
 #: Where each family that is not ported yet stands in ROADMAP.md Queue A.
 UNPORTED_FAMILIES = {
-    "ssm": "ROADMAP.md Queue A item 13 (mamba2-130m with the SSD scan)",
     "hybrid": "ROADMAP.md Queue A item 14 (recurrentgemma-9b with the RG-LRU scan)",
     "moe": "ROADMAP.md Queue A item 16 (the other model families)",
     "vlm": "ROADMAP.md Queue A item 16 (the other model families)",

@@ -1,0 +1,110 @@
+"""Mamba2 block (SSD mixer): projections, causal depthwise conv, the SSD
+scan, gated RMSNorm and the out projection.  Port of ``repro.models.ssm``.
+
+Attention-free: decode carries a constant-size cache per layer, ``{"conv":
+[B, K-1, d_inner + 2N], "ssm": [B, H, P, N] float32}``.  The conv cache is
+the last K-1 steps of the projection's ``xBC`` part *before* the conv (left-
+padded with zeros when the prompt is shorter); the SSM cache is the scan's
+final state.
+
+Layouts: ``in_proj [2 d_inner + 2N + H, d]`` and ``out_proj [d, d_inner]``
+are ``[out, in]`` for ``F.linear`` (the JAX package's transposes);
+``conv_w`` stays ``[K, C]`` as in the JAX package: the conv is K shifted
+multiply-adds over the channel-last ``[B, S, C]`` activations, with no
+transpose and no cuDNN (whose float32 convolutions default to TF32).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import rms_norm, uniform_scale_init
+
+
+def ssm_init(generator: torch.Generator, cfg, dtype=torch.float32):
+    d, di, n, h, k = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_conv
+    conv_ch = di + 2 * n
+    dev = generator.device
+    dt_bias = torch.empty(h, dtype=torch.float32, device=dev).uniform_(-4.6, -2.2,
+                                                                       generator=generator)
+    return {
+        # in_proj emits [z (di), xBC (di + 2N), dt (H)]
+        "in_proj": uniform_scale_init(generator, (2 * di + 2 * n + h, d), dtype),
+        # [K, C]: fan-in K, as the JAX package's init of the same layout
+        "conv_w": uniform_scale_init(generator, (k, conv_ch), dtype, scale=math.sqrt(3.0 / k)),
+        "conv_b": torch.zeros(conv_ch, dtype=dtype, device=dev),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, h, device=dev)).to(dtype),
+        "d_skip": torch.ones(h, dtype=dtype, device=dev),
+        "dt_bias": dt_bias.to(dtype),  # softplus^-1 of dt in ~[0.01, 0.1]
+        "gnorm": torch.ones(di, dtype=dtype, device=dev),
+        "out_proj": uniform_scale_init(generator, (d, di), dtype),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time, x [B, S, C], w [K, C]: zeros on the
+    left only, and no flip (cross-correlation, as ``conv_general_dilated``):
+    out_t = sum_k w_k x_{t - (K-1) + k} + b."""
+    k = w.shape[0]
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, k - 1, 0))
+    w = w.to(x.dtype)
+    out = xp[:, :S] * w[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + S] * w[i]
+    return out + b.to(x.dtype)
+
+
+def _split_proj(p, x, cfg):
+    di, n = cfg.d_inner, cfg.ssm_state
+    zxbcdt = F.linear(x, p["in_proj"].to(x.dtype))
+    return zxbcdt[..., :di], zxbcdt[..., di:2 * di + 2 * n], zxbcdt[..., 2 * di + 2 * n:]
+
+
+def _ssm_inputs(p, xbc, dt, cfg):
+    """Split the conv output into the scan's x, b, c; dt and a in float32."""
+    B, S, _ = xbc.shape
+    di, n = cfg.d_inner, cfg.ssm_state
+    x_ssm = xbc[..., :di].reshape(B, S, cfg.n_ssm_heads, cfg.ssm_head_dim)
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    a = -torch.exp(p["a_log"].float())
+    return x_ssm, dt, a, xbc[..., di:di + n], xbc[..., di + n:]
+
+
+def _finish(p, y_flat, z, cfg):
+    y = rms_norm(y_flat * F.silu(z.float()).to(y_flat.dtype), p["gnorm"], cfg.norm_eps)
+    return F.linear(y, p["out_proj"].to(y.dtype))
+
+
+def ssm_apply(p, x, *, cfg, impl="auto", cache=None):
+    """x [B, S, D].  Prefill when ``cache`` is None (the whole sequence
+    through ``ops.ssd``), else one decode step (S == 1) through the
+    recurrence from the cached state.  Returns ``(out [B, S, D], cache)``."""
+    B, S, _ = x.shape
+    K, di = cfg.ssm_conv, cfg.d_inner
+    z, xbc, dt = _split_proj(p, x, cfg)
+    d_skip = p["d_skip"].float()
+
+    if cache is None:
+        conv_tail = xbc[:, -(K - 1):, :]
+        if conv_tail.shape[1] < K - 1:
+            conv_tail = F.pad(conv_tail, (0, 0, K - 1 - conv_tail.shape[1], 0))
+        xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]).float()).to(x.dtype)
+        x_ssm, dt, a, b_mat, c_mat = _ssm_inputs(p, xbc, dt, cfg)
+        y, state = ops.ssd(x_ssm, dt, a, b_mat, c_mat, d_skip, impl=impl, return_state=True)
+        return _finish(p, y.reshape(B, S, di), z, cfg), {"conv": conv_tail.contiguous(),
+                                                         "ssm": state}
+
+    if S != 1:
+        raise NotImplementedError("chunked append-prefill is not needed by the serving path")
+    conv_win = torch.cat([cache["conv"], xbc], dim=1)  # [B, K, C]
+    xbc_t = torch.einsum("bkc,kc->bc", conv_win, p["conv_w"].to(x.dtype))
+    xbc_t = F.silu((xbc_t + p["conv_b"].to(x.dtype)).float()).to(x.dtype)[:, None, :]
+    x_ssm, dt, a, b_mat, c_mat = _ssm_inputs(p, xbc_t, dt, cfg)
+    y, state = ops.ssd(x_ssm, dt, a, b_mat, c_mat, d_skip, h0=cache["ssm"], impl=impl,
+                       return_state=True)
+    return _finish(p, y.reshape(B, 1, di), z, cfg), {"conv": conv_win[:, 1:], "ssm": state}

@@ -1,12 +1,16 @@
-"""The decoder stack of the dense family: a Python loop over blocks.  Port
-of ``repro.models.transformer`` for the ``("attn",)`` pattern.
+"""The decoder stack of the dense and ssm families: a Python loop over
+blocks.  Port of ``repro.models.transformer`` for the ``("attn",)`` and
+``("ssm",)`` patterns.
 
-A *block* is one repetition of the architecture's mixer pattern; for the
-dense family that is one sublayer, attention then a SwiGLU MLP, each behind
-an RMSNorm and a residual.  The JAX package stacks the blocks' parameters on
-a leading ``n_blocks`` axis and runs one ``lax.scan``; here the stack is a
-list of per-block dicts (``{"sub0": {...}}``, the JAX names) and the scan is
-a loop.  Decode caches mirror it: ``{"blocks": [{"sub0": {"k", "v"}}, ...]}``.
+A *block* is one repetition of the architecture's mixer pattern; for both
+families that is one sublayer: the mixer (attention, or the Mamba2 SSD
+block) behind an RMSNorm and a residual, then, where ``d_ff > 0``, a SwiGLU
+MLP behind its own RMSNorm and residual (mamba2 has none).  The JAX package
+stacks the blocks' parameters on a leading ``n_blocks`` axis and runs one
+``lax.scan``; here the stack is a list of per-block dicts (``{"sub0":
+{...}}``, the JAX names) and the scan is a loop.  Decode caches mirror it:
+``{"blocks": [{"sub0": cache}, ...]}`` with ``{"k", "v"}`` for attention and
+``{"conv", "ssm"}`` for the SSD block (constant size: no resize).
 """
 
 from __future__ import annotations
@@ -17,37 +21,51 @@ import torch.nn.functional as F
 from repro_torch.models.attention import apply_attn, attn_init, cache_capacity
 from repro_torch.models.common import ModelOptions
 from repro_torch.models.layers import rms_norm, swiglu, swiglu_init
+from repro_torch.models.ssm import ssm_apply, ssm_init
 
 
-def _sublayer_init(generator: torch.Generator, cfg, dtype):
+def pattern_of(cfg) -> tuple:
+    return ("ssm",) if cfg.family == "ssm" else ("attn",)
+
+
+def _has_mlp(cfg) -> bool:
+    return cfg.d_ff > 0
+
+
+def _sublayer_init(generator: torch.Generator, cfg, kind, dtype):
     dev = generator.device
-    return {
-        "norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
-        "mix": attn_init(generator, cfg, dtype),
-        "mlp_norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
-        "mlp": swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype),
-    }
+    p = {"norm": torch.ones(cfg.d_model, dtype=dtype, device=dev)}
+    p["mix"] = attn_init(generator, cfg, dtype) if kind == "attn" else ssm_init(generator, cfg,
+                                                                               dtype)
+    if _has_mlp(cfg):
+        p["mlp_norm"] = torch.ones(cfg.d_model, dtype=dtype, device=dev)
+        p["mlp"] = swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype)
+    return p
 
 
 def stack_init(generator: torch.Generator, cfg, dtype=torch.float32):
-    return {"blocks": [{"sub0": _sublayer_init(generator, cfg, dtype)}
-                       for _ in range(cfg.n_layers)]}
+    return {"blocks": [{f"sub{i}": _sublayer_init(generator, cfg, kind, dtype)
+                        for i, kind in enumerate(pattern_of(cfg))} for _ in range(cfg.n_layers)]}
 
 
-def _apply_sublayer(sp, x, *, cfg, opts: ModelOptions, mode, positions, cache,
+def _apply_sublayer(sp, x, kind, *, cfg, opts: ModelOptions, mode, positions, cache,
                     cache_length, prefill_capacity=None):
-    """One attention + MLP sublayer.  Returns ``(x, new_cache)``."""
+    """One mixer (+ MLP) sublayer.  Returns ``(x, new_cache)``."""
     h = rms_norm(x, sp["norm"], cfg.norm_eps)
-    out, new_cache = apply_attn(
-        sp["mix"], h, cfg=cfg, positions=positions, window=cfg.window,
-        impl=opts.attn_impl, cache=cache, cache_length=cache_length,
-    )
-    if mode == "prefill":
-        new_cache = resize_kv_cache(new_cache, h.shape[1], prefill_capacity or h.shape[1],
-                                    cfg, cfg.window)
+    if kind == "ssm":
+        out, new_cache = ssm_apply(sp["mix"], h, cfg=cfg, impl=opts.mixer_impl, cache=cache)
+    else:
+        out, new_cache = apply_attn(
+            sp["mix"], h, cfg=cfg, positions=positions, window=cfg.window,
+            impl=opts.attn_impl, cache=cache, cache_length=cache_length,
+        )
+        if mode == "prefill":
+            new_cache = resize_kv_cache(new_cache, h.shape[1], prefill_capacity or h.shape[1],
+                                        cfg, cfg.window)
     x = x + out
-    h2 = rms_norm(x, sp["mlp_norm"], cfg.norm_eps)
-    return x + swiglu(sp["mlp"], h2), new_cache
+    if _has_mlp(cfg):
+        x = x + swiglu(sp["mlp"], rms_norm(x, sp["mlp_norm"], cfg.norm_eps))
+    return x, new_cache
 
 
 def resize_kv_cache(cache, used: int, target_len: int, cfg, window: int):
@@ -69,10 +87,11 @@ def _block_apply(bp, x, *, cfg, opts, mode, positions, caches, cache_length,
                  prefill_capacity=None):
     """The sublayers of one block in order.  Returns ``(x, new_caches)``."""
     new_caches = {}
-    for name, sp in bp.items():
+    for i, kind in enumerate(pattern_of(cfg)):
+        name = f"sub{i}"
         c = caches[name] if caches is not None else None
         x, new_caches[name] = _apply_sublayer(
-            sp, x, cfg=cfg, opts=opts, mode=mode, positions=positions, cache=c,
+            bp[name], x, kind, cfg=cfg, opts=opts, mode=mode, positions=positions, cache=c,
             cache_length=cache_length, prefill_capacity=prefill_capacity,
         )
     return x, new_caches

@@ -48,7 +48,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     )
     got = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("kernels.alloc", "core.sweeps", "kernels.flash_attention", "kernels.ops",
-                 "models.model", "models.convert", "launch.serve", "train.serve_step"):
+                 "kernels.ssd_scan", "kernels.chunked", "models.model", "models.ssm",
+                 "models.convert", "launch.serve", "train.serve_step"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["bad"] == []
 
@@ -77,6 +78,7 @@ def _entry_points():
         "seed_generator": lambda: scenarios.seed_generator(0, 0),
         "omega_star": lambda: flowtime.omega_star(4, 0.5),
         "build_model": lambda: build_model(smoke_config("phi4-mini-3.8b")),
+        "build_model_ssm": lambda: build_model(smoke_config("mamba2-130m")),
         "params_from_jax": lambda: params_from_jax({}, smoke_config("phi4-mini-3.8b")),
         "serve_main": lambda: serve.main(["--arch", "phi4-mini-3.8b", "--smoke"]),
     }

@@ -3,7 +3,10 @@
 - the fused allocate: bit for bit;
 - flash attention: within the tolerances of ``tests/test_kernels.py``
   (float32 2e-5, bfloat16 5e-2: the kernel sums in another order than the
-  plain version's einsum, and bf16 rounds the float32 result once).
+  plain version's einsum, and bf16 rounds the float32 result once);
+- the SSD chunked scan: against its plain version ``kernels.chunked.ssd``
+  and the recurrence ``kernels.ref.ssd``, y at the same tolerances and the
+  final state within 1e-3 (those of ``tests/test_kernels.py``'s SSD test).
 
 Needs an NVIDIA card and nvcc (the kernels have no CPU mode), so every test
 is marked ``cuda`` and skips where ``torch.cuda.is_available()`` is False.
@@ -22,8 +25,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.core import engine, policies  # noqa: E402
-from repro_torch.kernels import alloc, ops, ref  # noqa: E402
+from repro_torch.kernels import alloc, chunked, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd_kernel  # noqa: E402
 from repro_torch.models.common import ModelOptions  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
@@ -168,3 +172,103 @@ def test_smoke_model_prefill_through_the_kernel_matches_plain_attention(cuda_dev
     assert flash.LAUNCHES == before + cfg.n_layers
     want, _ = plain.prefill_fn(params, {"tokens": toks})
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+# -------------------------------------------------------------------- SSD
+SSD_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+           torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+# (b, s, h, p, n): the shapes of tests/test_kernels.py (ragged, a sequence
+# shorter than a chunk), fewer steps than the conv width, a single step, and
+# a few chunks of the mamba2-130m widths.
+SSD_CASES = ((1, 128, 2, 32, 16), (2, 200, 3, 32, 16), (1, 64, 1, 64, 128), (2, 96, 4, 16, 8),
+             (2, 2, 3, 16, 16), (1, 1, 2, 64, 128), (2, 333, 24, 64, 128))
+
+
+def _ssd_inputs(gen, device, dtype, b, s, h, p, n):
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    x = randn(b, s, h, p).to(dtype)
+    dt = torch.rand((b, s, h), generator=gen, device=device) * 0.19 + 0.01
+    a = -(torch.rand((h,), generator=gen, device=device) * 1.5 + 0.5)
+    return x, dt, a, randn(b, s, n).to(dtype), randn(b, s, n).to(dtype), randn(h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain_version_on_card(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for case in SSD_CASES:
+        args = _ssd_inputs(gen, cuda_device, dtype, *case)
+        before = ssd_kernel.LAUNCHES
+        y, st = ops.ssd(*args, impl="cuda", return_state=True)
+        assert ssd_kernel.LAUNCHES == before + 1
+        assert y.dtype == dtype and y.shape == args[0].shape
+        assert st.dtype == torch.float32 and st.shape == (case[0], case[2], case[3], case[4])
+        for plain in (chunked.ssd, ref.ssd):
+            y0, st0 = plain(*args, return_state=True)
+            torch.testing.assert_close(y.float(), y0.float(), **SSD_TOL[dtype])
+            torch.testing.assert_close(st, st0, **STATE_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_takes_strided_slices(cuda_device):
+    """x, b and c as slices of one projection, as the model hands them."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    B, S, H, P, N = 2, 150, 4, 32, 16
+    xbc = torch.randn((B, S, H * P + 2 * N), generator=gen, device=cuda_device)
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    bm, cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.rand((B, S, H), generator=gen, device=cuda_device) * 0.1 + 0.01
+    a = -torch.linspace(1.0, 4.0, H, device=cuda_device)
+    d = torch.ones(H, device=cuda_device)
+    assert not x.is_contiguous() and not bm.is_contiguous()
+    y, st = ssd_kernel.ssd_scan(x, dt, a, bm, cm, d, return_state=True)
+    y0, st0 = chunked.ssd(x, dt, a, bm, cm, d, return_state=True)
+    torch.testing.assert_close(y, y0, **SSD_TOL[torch.float32])
+    torch.testing.assert_close(st, st0, **STATE_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_what_it_does_not_take(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x, dt, a, bm, cm, d = _ssd_inputs(gen, cuda_device, torch.float32, 1, 8, 2, 16, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        ssd_kernel.ssd_scan(x.cpu(), dt, a, bm, cm, d)
+    with pytest.raises(ValueError, match="rank"):
+        ssd_kernel.ssd_scan(x[0], dt, a, bm, cm, d)
+    with pytest.raises(TypeError):
+        ssd_kernel.ssd_scan(x.half(), dt, a, bm.half(), cm.half(), d)
+    with pytest.raises(TypeError):
+        ssd_kernel.ssd_scan(x, dt, a, bm.bfloat16(), cm, d)
+    with pytest.raises(TypeError):
+        ssd_kernel.ssd_scan(x, dt.double(), a, bm, cm, d)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        ssd_kernel.ssd_scan(x[..., :8], dt, a, bm, cm, d)
+    wide = torch.zeros((1, 8, ssd_kernel.MAX_STATE + 1), device=cuda_device)
+    with pytest.raises(ValueError, match="N <="):
+        ssd_kernel.ssd_scan(x, dt, a, wide, wide, d)
+
+
+@pytest.mark.cuda
+def test_smoke_mamba2_prefill_through_the_kernel_matches_chunked(cuda_device):
+    cfg = smoke_config("mamba2-130m")
+    kernel = build_model(cfg, ModelOptions(activation_dtype="float32"), device=cuda_device)
+    plain = build_model(cfg, ModelOptions(mixer_impl="chunked", activation_dtype="float32"),
+                        device=cuda_device)
+    params = kernel.init(torch.Generator(device=cuda_device).manual_seed(0))
+    toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 150)),
+                        device=cuda_device)
+    before = ssd_kernel.LAUNCHES
+    got, caches = kernel.prefill_fn(params, {"tokens": toks})
+    assert ssd_kernel.LAUNCHES == before + cfg.n_layers
+    want, want_caches = plain.prefill_fn(params, {"tokens": toks})
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    for c, c0 in zip(caches["blocks"], want_caches["blocks"]):
+        torch.testing.assert_close(c["sub0"]["ssm"], c0["sub0"]["ssm"], **STATE_TOL)
+    before = ssd_kernel.LAUNCHES  # a 1-token prompt runs the kernel too
+    got, _ = kernel.prefill_fn(params, {"tokens": toks[:, :1]})
+    assert ssd_kernel.LAUNCHES == before + cfg.n_layers
+    torch.testing.assert_close(got, plain.prefill_fn(params, {"tokens": toks[:, :1]})[0],
+                               rtol=2e-4, atol=2e-4)

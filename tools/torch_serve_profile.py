@@ -1,23 +1,26 @@
-"""Where the time goes when the port serves phi4-mini-3.8b on a CUDA card.
+"""Where the time goes when the port serves a model on a CUDA card.
 
-``python3 tools/torch_serve_profile.py [--smoke]`` from the repo root builds
-phi4-mini-3.8b at full width (float32 weights drawn on the card from a
-seed; ``--smoke`` takes the smoke config), warms up with one short
-``generate``, then:
+``python3 tools/torch_serve_profile.py [--arch ARCH] [--smoke]`` from the
+repo root builds ``ARCH`` (phi4-mini-3.8b by default, or mamba2-130m) at
+full width (float32 weights drawn on the card from a seed; ``--smoke`` takes
+the smoke config), warms up with one short ``generate``, then:
 
-1. times ``launch/serve.py::generate`` at batch 4 x 1000 prompt tokens + 32
-   greedy tokens, twice (prefill and decode wall, synchronised);
+1. times ``launch/serve.py::generate`` at batch 4 x the arch's prompt (1000
+   tokens for phi4-mini, 30000 for mamba2) + 32 greedy tokens, twice
+   (prefill and decode wall, synchronised);
 2. profiles one prefill and 8 decode steps under ``torch.profiler``, and
    reports for each the summed device time, the device's idle share
    (1 - device time / unprofiled wall of the same work) and the kernels that
    take the most device time.
 
 The card's name and power limit head the output; the whole read-out goes
-to ``chiprun_out/torch_serve_profile.json``.  Without CUDA it exits with 1.
+to ``torch_serve_profile_<arch>.json`` in the output directory that
+``chip_smoke.py`` writes to.  Without CUDA it exits with 1.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -25,7 +28,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-BATCH, PROMPT, GEN, PROFILED_STEPS = 4, 1000, 32, 8
+BATCH, GEN, PROFILED_STEPS = 4, 32, 8
+PROMPTS = {"phi4-mini-3.8b": 1000, "mamba2-130m": 30000}  # chip_smoke.py's serve phases
 
 
 def _kernel_rows(prof) -> list[dict]:
@@ -63,10 +67,14 @@ def _profiled(fn, wall_s: float) -> dict:
     }
 
 
-def main() -> int:
+def main(argv=None) -> int:
     import numpy as np
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="phi4-mini-3.8b", choices=sorted(PROMPTS))
+    ap.add_argument("--smoke", action="store_true")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_serve_profile: needs a CUDA card", file=sys.stderr)
         return 1
@@ -83,11 +91,11 @@ def main() -> int:
     ).stdout.strip()
     print(card, flush=True)
     device = torch.device("cuda", 0)
-    arch = "phi4-mini-3.8b"
-    cfg = smoke_config(arch) if "--smoke" in sys.argv else get_config(arch)
+    arch, prompt = args.arch, PROMPTS[args.arch]
+    cfg = smoke_config(arch) if args.smoke else get_config(arch)
     model = build_model(cfg, ModelOptions(activation_dtype="float32"), device=device)
     params = model.init(torch.Generator(device=device).manual_seed(0))
-    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (BATCH, PROMPT))
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (BATCH, prompt))
     batch = {"tokens": torch.as_tensor(tokens, device=device)}
 
     generate(model, params, batch, gen_len=2)  # warm-up: kernel build, cuBLAS, allocator
@@ -100,13 +108,13 @@ def main() -> int:
               f"({BATCH * GEN / t['decode_s']} tok/s, {t['decode_s'] / GEN * 1e3} ms/step)",
               flush=True)
 
-    logits, caches = model.prefill_fn(params, batch, max_len=PROMPT + GEN)
+    logits, caches = model.prefill_fn(params, batch, max_len=prompt + GEN)
     tok = logits.argmax(-1, keepdim=True)
 
     def decode_steps():
         nonlocal tok
         for i in range(PROFILED_STEPS):
-            lg, _ = model.decode_fn(params, tok, caches, PROMPT + i)
+            lg, _ = model.decode_fn(params, tok, caches, prompt + i)
             tok = lg[:, -1].argmax(-1, keepdim=True)
 
     torch.cuda.synchronize()
@@ -115,13 +123,13 @@ def main() -> int:
     torch.cuda.synchronize()
     decode_wall = time.perf_counter() - t0
     t0 = time.perf_counter()
-    model.prefill_fn(params, batch, max_len=PROMPT + GEN)
+    model.prefill_fn(params, batch, max_len=prompt + GEN)
     torch.cuda.synchronize()
     prefill_wall = time.perf_counter() - t0
 
     out = {"card": card, "torch": torch.__version__, "arch": cfg.name, "batch": BATCH,
-           "prompt_len": PROMPT, "gen_len": GEN, "generate": runs,
-           "prefill": _profiled(lambda: model.prefill_fn(params, batch, max_len=PROMPT + GEN),
+           "prompt_len": prompt, "gen_len": GEN, "generate": runs,
+           "prefill": _profiled(lambda: model.prefill_fn(params, batch, max_len=prompt + GEN),
                                 prefill_wall),
            "decode": _profiled(decode_steps, decode_wall), "decode_steps": PROFILED_STEPS}
     for phase in ("prefill", "decode"):
@@ -132,7 +140,7 @@ def main() -> int:
             print(f"    {row['device_us'] / 1e3:10.3f} ms  x{row['count']:<6d} {row['name'][:110]}")
     dest = ROOT / "chiprun_out"
     dest.mkdir(exist_ok=True)
-    (dest / "torch_serve_profile.json").write_text(json.dumps(out, indent=1))
+    (dest / f"torch_serve_profile_{arch}.json").write_text(json.dumps(out, indent=1))
     return 0
 
 
