@@ -2,11 +2,11 @@
 """Quickest proof that the PyTorch/CUDA port runs on a GPU.
 
 ``python3 chip_smoke.py`` from the repo root, on a machine with one NVIDIA
-card (sm_90a, nvcc under ``CUDA_HOME``).  It builds the port's three
+card (sm_90a, nvcc under ``CUDA_HOME``).  It builds the port's four
 kernels, ``src/repro_torch/kernels/csrc/alloc.cu`` (the fused allocate),
-``csrc/flash_attention.cu`` and ``csrc/ssd_scan.cu``, with one nvcc each,
-started together, and runs, in order (any failure raises, and the exit code
-is not 0):
+``csrc/flash_attention.cu``, ``csrc/ssd_scan.cu`` and ``csrc/rglru_scan.cu``,
+with one nvcc each, started together, and runs, in order (any failure
+raises, and the exit code is not 0):
 
 1. environment: the card's name and power limit, torch and CUDA versions,
    the allocate kernel's build time;
@@ -58,7 +58,29 @@ is not 0):
     card: prefill and teacher-forced decode logits within 2e-4;
 14. SSD timing at the prefill shape of one layer, float32 (CUDA events): the
     kernel and its plain version beside the kernel's bound (no single
-    PyTorch call computes SSD, so there is no library yardstick).
+    PyTorch call computes SSD, so there is no library yardstick);
+15. the RG-LRU kernel's build time, and the kernel against its plain version
+    (the recurrence ``kernels/ref.py::linear_recurrence`` on the same a and
+    g) and, through ``ops.rglru``, against the log-depth
+    ``kernels/chunked.py::rglru`` on the card, float32 and bfloat16: y within
+    2e-5 / 5e-2 and the float32 state within 1e-3 (the tolerances of
+    ``tests/test_kernels.py``), on that file's RG-LRU shapes, one step, a
+    width not a multiple of the kernel's 128-channel block, decay near 1
+    over 8192 steps, and the recurrentgemma-9b prefill shape [4, 4096, 4096];
+16. recurrentgemma-9b at full width (38 layers: 12 x (rglru, rglru, attn) + 2
+    rglru, d_model 4096, LRU width 4096, 16 query / 1 KV head of dim 256,
+    window 2048, d_ff 12288, vocab 256000, 8,524,206,080 float32 parameters
+    drawn on the card from a seed) serves batch 4 x 4096 prompt tokens + 32
+    greedy tokens through ``generate``; the counts are zeroed just before
+    and read just after, and the one prefill must launch the RG-LRU kernel 26
+    times, flash 12 times and SSD not at all; the prefill's last logits
+    match the same prefill with ``mixer_impl="chunked"``;
+17. the smoke-size recurrentgemma on the same weights on the CPU and on the
+    card: prefill and teacher-forced decode past the window within 2e-4;
+18. RG-LRU timing at [4, 4096, 4096] float32 (CUDA events): the kernel and
+    its plain version beside the kernel's bound (no single PyTorch call
+    computes a first-order linear recurrence, so there is no library
+    yardstick).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -91,6 +113,9 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = "phi4-mini-3.8b", 4, 1000, 32
 # 30000 is near the repo's prefill_32k length and a multiple of neither 64
 # nor 128, so the SSD kernel's masked last chunk runs at full width.
 SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_GEN = "mamba2-130m", 4, 30000, 32
+# 4096 is twice the local-attention window: the flash kernel's band skipping
+# and the ring fold of the KV cache both run at full width.
+HYBRID_ARCH, HYBRID_BATCH, HYBRID_PROMPT, HYBRID_GEN = "recurrentgemma-9b", 4, 4096, 32
 # Logits of two float32 runs that differ only in summation order (kernel vs
 # plain attention; CPU vs card): the bar of tests/test_models.py.  Computing
 # any part in bf16 moves them by ~1e-2.
@@ -100,6 +125,10 @@ FLASH_TOL = {"float32": dict(rtol=2e-5, atol=2e-5), "bfloat16": dict(rtol=5e-2, 
 # float32 result), its float32 final state within 1e-3: tests/test_kernels.py.
 SSD_TOL = FLASH_TOL
 STATE_TOL = dict(rtol=1e-3, atol=1e-3)
+# The RG-LRU kernel's y at the same tolerances (another order of the same
+# steps in the log-depth scan), its state (y[:, -1] in float32, as the TPU
+# kernel's) within 1e-3.  In bf16 both sides take the same bf16 a and g.
+RGLRU_TOL = FLASH_TOL
 
 
 def _card() -> str:
@@ -368,7 +397,7 @@ def phase_serve(flash, device) -> dict:
 
 
 def phase_serve_cpu_vs_cuda(device, arch=SERVE_ARCH, phase=9) -> float:
-    """Phases 9 and 13: a smoke-size model, same weights, CPU vs card."""
+    """Phases 9, 13 and 17: a smoke-size model, same weights, CPU vs card."""
     import numpy as np
     import torch
 
@@ -527,7 +556,7 @@ def phase_serve_ssm(ssd_kernel, flash, card, device) -> dict:
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.configs.base import ssm_uncounted_params
+    from repro_torch.configs.base import uncounted_params
     from repro_torch.launch.serve import generate
     from repro_torch.models.common import ModelOptions
     from repro_torch.models.model import build_model
@@ -544,7 +573,7 @@ def phase_serve_ssm(ssd_kernel, flash, card, device) -> dict:
     n_params = sum(t.numel() for t in _leaves(params))
     # param_count() is the JAX package's formula, which leaves out each
     # layer's conv_b and dt_bias (ROADMAP.md Queue C); the model holds them.
-    exact = cfg.param_count() + ssm_uncounted_params(cfg)
+    exact = cfg.param_count() + uncounted_params(cfg)
     assert n_params == exact == 128_983_488, (n_params, exact)
     rng = np.random.default_rng(0)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT)),
@@ -624,6 +653,171 @@ def phase_ssd_timing(ssd_kernel, chunked, card, device) -> dict:
     return out
 
 
+def _rglru_inputs(gen, device, dtype, b, s, w, a_shift=0.0):
+    """x, gate_x, gate_a standard normal in ``dtype`` and a_param standard
+    normal float32 plus ``a_shift``, as ``tests/test_kernels.py`` draws them
+    (a_shift = -9 puts the decay within ~1e-3 of 1)."""
+    import torch
+
+    x, gx, ga = (torch.randn((b, s, w), generator=gen, device=device).to(dtype)
+                 for _ in range(3))
+    return x, gx, ga, torch.randn((w,), generator=gen, device=device) + a_shift
+
+
+def phase_rglru_vs_plain(rglru_kernel, chunked, ref, ops, device) -> dict:
+    """Phase 15: the RG-LRU kernel against its plain version and the
+    log-depth scan on the same a and g, and ``ops.rglru`` against
+    ``chunked.rglru`` (float32: bf16 rounds a and g before the kernel) on
+    the card; returns the max |error| of y and of the state per dtype."""
+    import torch
+
+    cases = [  # (b, s, w, a_shift)
+        (2, 100, 48, 0.0), (1, 256, 64, 0.0), (2, 64, 128, 0.0), (3, 1, 40, 0.0),
+        (2, 77, 200, 0.0), (1, 8192, 256, -9.0), (HYBRID_BATCH, HYBRID_PROMPT, 4096, 0.0),
+    ]
+    gen = torch.Generator(device=device).manual_seed(15)
+    worst = {}
+    for dtype in ("float32", "bfloat16"):
+        dt_ = getattr(torch, dtype)
+        w_ = worst[dtype] = {"y": 0.0, "state": 0.0, "y_vs_chunked": 0.0, "y_max_abs": 0.0}
+        for b, s, w, shift in cases:
+            x, gx, ga, ap = _rglru_inputs(gen, device, dt_, b, s, w, shift)
+            a, g = (t.to(dt_) for t in ref.rglru_gates(x, gx, ga, ap))
+            y, st = rglru_kernel.rglru_scan(a, g, return_state=True)
+            y0 = ref.linear_recurrence(a, g)
+            yc = chunked.linear_scan(a.float(), g.float()).to(dt_)
+            yk, stk = ops.rglru(x, gx, ga, ap, impl="cuda", return_state=True)
+            torch.cuda.synchronize()
+            assert bool(torch.isfinite(y).all()) and y.shape == (b, s, w) and y.dtype == dt_
+            assert torch.equal(yk, y) and torch.equal(stk, st), "ops.rglru != the kernel"
+            torch.testing.assert_close(y.float(), y0.float(), **RGLRU_TOL[dtype])
+            torch.testing.assert_close(st, y0[:, -1].float(), **STATE_TOL)
+            torch.testing.assert_close(y.float(), yc.float(), **RGLRU_TOL[dtype])
+            if dtype == "float32":  # the whole op, gates included (bf16 rounds a and g first)
+                yr, str_ = chunked.rglru(x, gx, ga, ap, return_state=True)
+                torch.testing.assert_close(yk, yr, **RGLRU_TOL[dtype])
+                torch.testing.assert_close(stk, str_, **STATE_TOL)
+                del yr
+            w_["y"] = max(w_["y"], (y.float() - y0.float()).abs().max().item())
+            w_["state"] = max(w_["state"], (st - y0[:, -1].float()).abs().max().item())
+            w_["y_vs_chunked"] = max(w_["y_vs_chunked"],
+                                     (y.float() - yc.float()).abs().max().item())
+            w_["y_max_abs"] = max(w_["y_max_abs"], y0.float().abs().max().item())
+            del x, gx, ga, a, g, y, y0, yk, yc
+    torch.cuda.empty_cache()
+    print(f"phase 15: RG-LRU kernel == plain version (the recurrence) and ~ log-depth scan "
+          f"on the same a, g, {len(cases)} shapes x 2 dtypes: max |err| "
+          f"vs recurrence y float32 {worst['float32']['y']:.3e}, bfloat16 "
+          f"{worst['bfloat16']['y']:.3e}, state {worst['float32']['state']:.3e}; vs log-depth "
+          f"scan y float32 {worst['float32']['y_vs_chunked']:.3e}, bfloat16 "
+          f"{worst['bfloat16']['y_vs_chunked']:.3e} (max |y| {worst['float32']['y_max_abs']:.2f})",
+          flush=True)
+    return worst
+
+
+def phase_serve_hybrid(rglru_kernel, flash, ssd_kernel, card, device) -> dict:
+    """Phase 16: recurrentgemma-9b at full width through ``generate``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import uncounted_params
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(HYBRID_ARCH)
+    model = build_model(cfg, ModelOptions(activation_dtype="float32"), device=device)
+    plain = build_model(cfg, ModelOptions(mixer_impl="chunked", activation_dtype="float32"),
+                        device=device)
+    kinds = cfg.layer_kinds()
+    n_rglru, n_attn = kinds.count("rglru"), kinds.count("attn")
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    # param_count() is the JAX package's formula, which leaves out each
+    # RG-LRU layer's conv_b (ROADMAP.md Queue C); the model holds them.
+    exact = cfg.param_count() + uncounted_params(cfg)
+    assert n_params == exact == 8_524_206_080, (n_params, exact)
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (HYBRID_BATCH, HYBRID_PROMPT)),
+                             device=device)
+    batch = {"tokens": tokens}
+
+    timings = {}
+    torch.cuda.synchronize()
+    rglru_kernel.LAUNCHES = flash.LAUNCHES = ssd_kernel.LAUNCHES = 0
+    ids = generate(model, params, batch, gen_len=HYBRID_GEN, timings=timings)
+    torch.cuda.synchronize()
+    launches = {"rglru": rglru_kernel.LAUNCHES, "flash": flash.LAUNCHES,
+                "ssd": ssd_kernel.LAUNCHES}
+    assert launches == {"rglru": n_rglru, "flash": n_attn, "ssd": 0} == {
+        "rglru": 26, "flash": 12, "ssd": 0}, f"launches in one prefill: {launches}"
+    assert ids.shape == (HYBRID_BATCH, HYBRID_GEN) and int(ids.min()) >= 0
+    assert int(ids.max()) < cfg.vocab_size
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    got, _ = model.prefill_fn(params, batch)
+    want, _ = plain.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and got.shape == (HYBRID_BATCH, cfg.vocab_size)
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, **LOGIT_TOL)
+    decode_tps = HYBRID_BATCH * HYBRID_GEN / timings["decode_s"]
+    print(f"phase 16: {cfg.name} full width ({cfg.n_layers} layers, {n_params} parameters, "
+          f"init {init_s:.2f} s): batch {HYBRID_BATCH} x prompt {HYBRID_PROMPT} + {HYBRID_GEN} "
+          f"tokens on {card}; prefill {timings['prefill_s']:.4f} s, decode "
+          f"{timings['decode_s']:.4f} s ({decode_tps:.1f} tok/s), peak memory {peak_gb:.2f} GB; "
+          f"RG-LRU launches {launches['rglru']}, flash {launches['flash']}, SSD "
+          f"{launches['ssd']}; last logits kernel vs chunked max |err| {err:.3e} (max |logit| "
+          f"{want.abs().max().item():.3f})", flush=True)
+    del params, got, want
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
+            "param_count": cfg.param_count(), "batch": HYBRID_BATCH,
+            "prompt_len": HYBRID_PROMPT, "gen_len": HYBRID_GEN, "init_s": init_s,
+            "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
+            "decode_tok_s": decode_tps, "peak_mem_gb": peak_gb,
+            "rglru_launches": launches["rglru"], "flash_launches": launches["flash"],
+            "ssd_launches": launches["ssd"], "logits_max_abs_err_vs_chunked": err,
+            "sample_ids": ids[0, :16].tolist()}
+
+
+def phase_rglru_timing(rglru_kernel, ref, card, device) -> dict:
+    """Phase 18: the kernel and its plain version at one layer's prefill shape."""
+    import torch
+
+    from repro_torch.configs import get_config
+
+    b, s, w = HYBRID_BATCH, HYBRID_PROMPT, get_config(HYBRID_ARCH).lru_width
+    x, gx, ga, ap = _rglru_inputs(torch.Generator(device=device).manual_seed(18), device,
+                                  torch.float32, b, s, w)
+    a, g = ref.rglru_gates(x, gx, ga, ap)
+    del x, gx, ga
+    before = rglru_kernel.LAUNCHES
+    ms = _time_ms(lambda: rglru_kernel.rglru_scan(a, g, return_state=True), 20)
+    plain_ms = _time_ms(lambda: ref.linear_recurrence(a, g, return_state=True), 3)
+    rglru_kernel.LAUNCHES = before  # timing launches are not the main path's
+    # Least time: a and g read once and y written once, against one multiply
+    # and one add per element.
+    n_bytes = 3 * b * s * w * a.element_size()
+    n_ops = 2 * b * s * w
+    t_ops, t_bytes = n_ops / PEAK_OPS_PER_S * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    out = {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes", "ops": n_ops,
+           "bytes": n_bytes, "gb_per_s": n_bytes / ms / 1e6}
+    print(f"phase 18: RG-LRU float32 [{b}, {s}, {w}] on {card}: kernel {ms:.4f} ms "
+          f"({n_bytes / ms / 1e6:.1f} GB/s, {bound_ms / ms:.1%} of the bound), plain version "
+          f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({out['bound_by']}: {n_bytes} bytes, "
+          f"{n_ops:.4e} flop); no single PyTorch call computes a first-order linear "
+          "recurrence, so there is no library yardstick", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -634,14 +828,15 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this needs a GPU", file=sys.stderr)
         return 1
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
-    if not all((csrc / f).is_file() for f in ("alloc.cu", "flash_attention.cu", "ssd_scan.cu")):
+    if not all((csrc / f).is_file()
+               for f in ("alloc.cu", "flash_attention.cu", "ssd_scan.cu", "rglru_scan.cu")):
         print("chip_smoke: run it from a checkout of the repo (src/repro_torch missing)",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import lanes
     from repro_torch.core import engine, flowtime, policies, simulator, sweeps
-    from repro_torch.kernels import alloc, chunked, flash_attention, ref, ssd_scan
+    from repro_torch.kernels import alloc, chunked, flash_attention, ops, ref, rglru_scan, ssd_scan
 
     # Float32 products in full float32 (these are PyTorch's defaults, stated).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -653,8 +848,9 @@ def main() -> int:
     print(card, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
-    with ThreadPoolExecutor(3) as pool:  # one nvcc per source, started together
-        builds = [pool.submit(k.load_library) for k in (alloc, flash_attention, ssd_scan)]
+    kernel_modules = (alloc, flash_attention, ssd_scan, rglru_scan)
+    with ThreadPoolExecutor(len(kernel_modules)) as pool:  # one nvcc per source, together
+        builds = [pool.submit(k.load_library) for k in kernel_modules]
         for b in builds:
             b.result()
     print(f"phase 1: built {alloc._SRC.name} in {alloc.BUILD_SECONDS:.2f} s "
@@ -679,6 +875,12 @@ def main() -> int:
     ssm_serve = phase_serve_ssm(ssd_scan, flash_attention, card, device)
     ssm_cpu_gap = phase_serve_cpu_vs_cuda(device, SSM_ARCH, phase=13)
     ssd_timing = phase_ssd_timing(ssd_scan, chunked, card, device)
+    print(f"phase 15: built {rglru_scan._SRC.name} in {rglru_scan.BUILD_SECONDS:.2f} s "
+          "(in parallel with phase 1's build)", flush=True)
+    rglru_err = phase_rglru_vs_plain(rglru_scan, chunked, ref, ops, device)
+    hybrid_serve = phase_serve_hybrid(rglru_scan, flash_attention, ssd_scan, card, device)
+    hybrid_cpu_gap = phase_serve_cpu_vs_cuda(device, HYBRID_ARCH, phase=17)
+    rglru_timing = phase_rglru_timing(rglru_scan, ref, card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -719,6 +921,20 @@ def main() -> int:
         "bound_ms": ssd_timing["bound_ms"],
         "bound_by": ssd_timing["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "rglru_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:32",
+        "launches": hybrid_serve["rglru_launches"],
+        "max_abs_err": rglru_err["float32"]["y"],
+        "max_abs_err_bf16": rglru_err["bfloat16"]["y"],
+        "max_abs_err_state": rglru_err["float32"]["state"],
+        "ms": rglru_timing["ms"],
+        "plain_ms": rglru_timing["plain_ms"],
+        "bound_ms": rglru_timing["bound_ms"],
+        "bound_by": rglru_timing["bound_by"],
+        "library_ms": None,
     }]
     detail = {
         "card": card,
@@ -740,6 +956,11 @@ def main() -> int:
         "ssm_serve": ssm_serve,
         "ssm_cpu_vs_cuda_max_abs": ssm_cpu_gap,
         "ssd_timing": ssd_timing,
+        "rglru_build_s": rglru_scan.BUILD_SECONDS,
+        "rglru_max_abs_err": rglru_err,
+        "hybrid_serve": hybrid_serve,
+        "hybrid_cpu_vs_cuda_max_abs": hybrid_cpu_gap,
+        "rglru_timing": rglru_timing,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

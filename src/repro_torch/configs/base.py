@@ -7,9 +7,10 @@ the analytic parameter count are the reference's, field for field.
 
 The reference's count for the ``ssm`` family leaves out each layer's
 ``conv_b`` (``d_inner + 2 * ssm_state``) and ``dt_bias`` (``n_ssm_heads``)
-vectors, which its model does hold.  The copy keeps that formula as it
-stands, so that the two counts agree; :func:`ssm_uncounted_params` gives
-the difference (ROADMAP.md Queue C).
+vectors, and for the ``hybrid`` family each RG-LRU layer's ``conv_b``
+(``lru_width``), which its models do hold.  The copy keeps those formulas
+as they stand, so that the two counts agree; :func:`uncounted_params`
+gives the difference (ROADMAP.md Queue C).
 """
 
 from __future__ import annotations
@@ -85,6 +86,21 @@ class ModelConfig:
     def n_ssm_heads(self) -> int:
         return self.d_inner // self.ssm_head_dim
 
+    @property
+    def block_pattern(self) -> tuple[str, ...]:
+        """The mixer kinds of one repeated block of the stack."""
+        if self.family == "ssm":
+            return ("ssm",)
+        if self.family == "hybrid":
+            return tuple(self.layer_pattern)
+        return ("attn",)
+
+    def layer_kinds(self) -> tuple[str, ...]:
+        """The mixer kind of each of the ``n_layers`` layers: the block
+        pattern repeated, then tail layers that repeat the pattern's prefix."""
+        pat = self.block_pattern
+        return pat * (self.n_layers // len(pat)) + pat[:self.n_layers % len(pat)]
+
     def param_count(self) -> int:
         """Analytic parameter count, the reference's formula: embedding, LM
         head (unless tied), final norm, and per layer
@@ -93,7 +109,14 @@ class ModelConfig:
           two norms;
         - ssm: ``in_proj``, the depthwise conv weight, ``out_proj``, A and
           D per head, the gated norm and the block norm (not ``conv_b`` or
-          ``dt_bias``: see :func:`ssm_uncounted_params`)."""
+          ``dt_bias``: see :func:`uncounted_params`);
+        - hybrid: per layer of :meth:`layer_kinds`, each ``attn`` layer as
+          a dense layer and each ``rglru`` layer as its three projections,
+          the conv weight, five gate vectors (not ``conv_b``: see
+          :func:`uncounted_params`), two norms and the MLP.  The reference
+          counts the tail layers as ``rglru`` layers, which they are for
+          every pattern that starts with two ``rglru`` layers, as the
+          registered one does."""
         d = self.d_model
         head = 0 if self.tie_embeddings else self.vocab_size * d
         n = self.vocab_size * d + head + d
@@ -103,27 +126,37 @@ class ModelConfig:
             conv = self.ssm_conv * (di + 2 * ds)
             per_layer = in_proj + conv + di * d + nh * 2 + di + d  # A, D, gnorm, norm
             return n + self.n_layers * per_layer
-        if self.family != "dense":
+        if self.family not in ("dense", "hybrid"):
             raise NotImplementedError(
-                f"param_count covers the dense and ssm families; {self.family!r} comes "
-                "with its slice (ROADMAP.md Queue A)"
+                f"param_count covers the dense, ssm and hybrid families; {self.family!r} "
+                "comes with its slice (ROADMAP.md Queue A)"
             )
         hd = self.head_dim
         attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
         if self.qkv_bias:
             attn += (self.n_heads + 2 * self.n_kv_heads) * hd
-        per_layer = attn + 2 * d + 3 * d * self.d_ff
-        return n + self.n_layers * per_layer
+        mlp = 3 * d * self.d_ff
+        if self.family == "dense":
+            return n + self.n_layers * (attn + 2 * d + mlp)
+        lw = self.lru_width or d
+        # rec-in, gelu-gate and out projections, the conv weight, the gates
+        # and Lambda (the reference's 5 * lw), two norms.
+        rglru = 3 * d * lw + 4 * lw + 5 * lw + 2 * d
+        return n + sum((attn + 2 * d if kind == "attn" else rglru) + mlp
+                       for kind in self.layer_kinds())
 
     def scaled(self, **overrides) -> ModelConfig:
         """A reduced-config variant of the same family (for smoke tests)."""
         return dataclasses.replace(self, **overrides)
 
 
-def ssm_uncounted_params(cfg: ModelConfig) -> int:
-    """Parameters an ``ssm`` model holds that :meth:`ModelConfig.param_count`
-    (the reference's formula) leaves out: per layer ``conv_b`` and
-    ``dt_bias``.  Zero for every other family."""
-    if cfg.family != "ssm":
-        return 0
-    return cfg.n_layers * (cfg.d_inner + 2 * cfg.ssm_state + cfg.n_ssm_heads)
+def uncounted_params(cfg: ModelConfig) -> int:
+    """Parameters a recurrent model holds that :meth:`ModelConfig.param_count`
+    (the reference's formula) leaves out: per ``ssm`` layer ``conv_b`` and
+    ``dt_bias``; per ``rglru`` layer of a ``hybrid`` ``conv_b``.  Zero for
+    every other family."""
+    if cfg.family == "ssm":
+        return cfg.n_layers * (cfg.d_inner + 2 * cfg.ssm_state + cfg.n_ssm_heads)
+    if cfg.family == "hybrid":
+        return cfg.layer_kinds().count("rglru") * (cfg.lru_width or cfg.d_model)
+    return 0

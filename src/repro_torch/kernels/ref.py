@@ -1,6 +1,6 @@
 """Plain PyTorch oracles: slow, simple and obviously right.
 
-Port of ``repro.kernels.ref`` (attention and SSD):
+Port of ``repro.kernels.ref`` (attention, SSD and the RG-LRU):
 
 - ``attention`` is the plain version of ``csrc/flash_attention.cu``: the CPU
   tests hold it against the JAX package, ``kernels.ops.attention`` takes it
@@ -9,12 +9,18 @@ Port of ``repro.kernels.ref`` (attention and SSD):
 - ``ssd`` is the exact sequential recurrence of Mamba2's SSD: the oracle the
   chunked form (``kernels/chunked.py``) and the kernel
   (``csrc/ssd_scan.cu``) are held against, and the single decode step
-  (``kernels.ops.ssd`` takes it whenever an initial state is given).
+  (``kernels.ops.ssd`` takes it whenever an initial state is given);
+- ``rglru`` is the RG-LRU oracle: its gates (``rglru_gates``, which
+  ``kernels.ops.rglru`` and ``kernels/chunked.py`` share) and the
+  first-order recurrence ``linear_recurrence``, which is the plain version of
+  ``csrc/rglru_scan.cu`` (the same steps in the same order) and, with an
+  initial state, the recurrent layers' decode step.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free
 
@@ -96,4 +102,68 @@ def ssd(
         h = decay[..., None, None] * h + upd
         ys.append(torch.einsum("bhpn,bn->bhp", h, cf[:, t]))
     y = (torch.stack(ys, dim=1) + d.float()[None, None, :, None] * xf).to(x.dtype)
+    return (y, h) if return_state else y
+
+
+def rglru_gates(
+    x: torch.Tensor,  # [B, S, W]  gated input
+    gate_x: torch.Tensor,  # [B, S, W]  input-gate pre-activation
+    gate_a: torch.Tensor,  # [B, S, W]  recurrence-gate pre-activation
+    a_param: torch.Tensor,  # [W]        learnable Lambda (pre-softplus)
+    *,
+    c: float = 8.0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU's per-step decay and input of ``h_t = a_t h_{t-1} + g_t``,
+    in float32:
+
+        r_t = sigmoid(gate_a_t),  i_t = sigmoid(gate_x_t)
+        log_a_t = -c * softplus(a_param) * r_t,  a_t = exp(log_a_t)
+        g_t = sqrt(1 - a_t^2) * i_t * x_t
+
+    with ``1 - a_t^2`` as ``-expm1(2 log_a_t)`` (exact near a_t = 1)."""
+    r = torch.sigmoid(gate_a.float())
+    i = torch.sigmoid(gate_x.float())
+    log_a = -c * F.softplus(a_param.float())[None, None, :] * r
+    return torch.exp(log_a), i * x.float() * torch.sqrt(-torch.expm1(2.0 * log_a))
+
+
+def linear_recurrence(
+    a: torch.Tensor,  # [B, S, W] per-step decay
+    g: torch.Tensor,  # [B, S, W] per-step input
+    *,
+    h0: torch.Tensor | None = None,  # [B, W]
+    return_state: bool = False,
+):
+    """``h_t = a_t * h_{t-1} + g_t`` step by step, float32 carry (a product
+    then a sum, each rounded, as ``csrc/rglru_scan.cu`` computes it); y in
+    a's dtype, and with ``return_state`` the final carry ``[B, W]`` in
+    float32."""
+    B, S, W = a.shape
+    h = (torch.zeros((B, W), dtype=torch.float32, device=a.device) if h0 is None
+         else h0.float())
+    ys = []
+    for t in range(S):
+        h = a[:, t].float() * h + g[:, t].float()
+        ys.append(h)
+    y = torch.stack(ys, dim=1).to(a.dtype)
+    return (y, h) if return_state else y
+
+
+def rglru(
+    x: torch.Tensor,  # [B, S, W]
+    gate_x: torch.Tensor,  # [B, S, W]
+    gate_a: torch.Tensor,  # [B, S, W]
+    a_param: torch.Tensor,  # [W]
+    *,
+    h0: torch.Tensor | None = None,  # [B, W]
+    return_state: bool = False,
+    c: float = 8.0,
+):
+    """RG-LRU oracle (RecurrentGemma): the gates of :func:`rglru_gates`,
+    then the recurrence from ``h0`` (zeros when None).  float32 state
+    arithmetic, y in x's dtype; with ``return_state`` also the final state
+    ``[B, W]`` in float32."""
+    a, g = rglru_gates(x, gate_x, gate_a, a_param, c=c)
+    y, h = linear_recurrence(a, g, h0=h0, return_state=True)
+    y = y.to(x.dtype)
     return (y, h) if return_state else y

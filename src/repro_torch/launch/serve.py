@@ -1,11 +1,14 @@
 """Serving entry point: batched prefill, then a greedy decode loop over the
-caches (KV caches for attention, conv and state caches for mamba2).  Port of
+caches (KV caches for attention, a ring of ``window`` slots for local
+attention, conv and state caches for mamba2 and the RG-LRU).  Port of
 ``repro.launch.serve``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
         --batch 4 --prompt-len 1000 --gen-len 32          # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --batch 4 --prompt-len 30000 --gen-len 32         # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
+        --batch 4 --prompt-len 4096 --gen-len 32          # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --smoke --device cpu                               # plain PyTorch on the CPU
 

@@ -15,7 +15,8 @@ import torch
 @dataclass(frozen=True)
 class ModelOptions:
     attn_impl: str = "auto"  # kernels.ops.attention impl: auto | ref | cuda
-    mixer_impl: str = "auto"  # kernels.ops.ssd impl: auto | ref | chunked | cuda
+    # kernels.ops.ssd and kernels.ops.rglru impl: auto | ref | chunked | cuda
+    mixer_impl: str = "auto"
     activation_dtype: str = "bfloat16"
 
     @property

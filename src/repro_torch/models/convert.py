@@ -1,24 +1,29 @@
 """Parameters of the JAX package's decoder, as the port lays them out.
 
 ``params_from_jax(tree, cfg)`` takes the tree that
-``repro.models.build_model(cfg).init`` returns for a dense or ssm config,
-with its leaves as numpy arrays (``jax.tree.map(numpy.asarray, params)``),
-and returns the port's parameter dict.  Two layouts differ:
+``repro.models.build_model(cfg).init`` returns for a dense, ssm or hybrid
+config, with its leaves as numpy arrays (``jax.tree.map(numpy.asarray,
+params)``), and returns the port's parameter dict.  Two layouts differ:
 
 - The JAX tree stacks the blocks on a leading ``n_blocks`` axis under
-  ``["stack"]["blocks"]["sub0"]``; the port keeps a list of per-block dicts
-  (``["stack"]["blocks"][i]["sub0"]``).
+  ``["stack"]["blocks"]["sub{j}"]``, one ``sub`` per kind of the pattern;
+  the port keeps a list of per-block dicts (``["stack"]["blocks"][i]
+  ["sub{j}"]``).  A hybrid's tail layers (``["stack"]["tail"]["sub{j}"]``)
+  are not stacked in either.
 - JAX linear weights are ``[in, out]`` and used as ``x @ w``; the port's are
   ``[out, in]`` for ``F.linear``, so every projection is transposed:
-  ``wq``/``wk``/``wv``/``wo`` and the MLP's ``gate``/``up``/``down``, and the
-  SSD block's ``in_proj`` and ``out_proj``.  On a square weight (``wq``/``wo``
-  when ``n_heads * head_dim == d_model``) a missed transpose raises no shape
-  error; only the parity tests catch it.
+  ``wq``/``wk``/``wv``/``wo``, the MLP's ``gate``/``up``/``down``, the SSD
+  block's ``in_proj`` and ``out_proj``, and the RG-LRU block's ``w_rec``,
+  ``w_gelu`` and ``w_out``.  On a square weight (``wq``/``wo`` when
+  ``n_heads * head_dim == d_model``, the RG-LRU projections when
+  ``lru_width == d_model``) a missed transpose raises no shape error; only
+  the parity tests catch it.
 
 Everything else carries over as it is: norm scales, biases, the ``[vocab,
-d]`` embedding and LM-head tables, and the SSD block's ``conv_w`` (``[K, C]``
-in both packages: ``models/ssm.py`` says why), ``conv_b``, ``a_log``,
-``d_skip``, ``dt_bias`` and ``gnorm``.
+d]`` embedding and LM-head tables, the conv weights ``conv_w`` (``[K, C]``
+in both packages: ``models/ssm.py`` says why), and the SSD block's and the
+RG-LRU block's vectors (``conv_b``, ``a_log``, ``d_skip``, ``dt_bias``,
+``gnorm``; ``wgx``, ``bgx``, ``wga``, ``bga``, ``a_param``).
 """
 
 from __future__ import annotations
@@ -27,8 +32,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.transformer import block_counts
 
-_LINEAR = {"attn": ("wq", "wk", "wv", "wo"), "ssm": ("in_proj", "out_proj")}
+_LINEAR = {"attn": ("wq", "wk", "wv", "wo"), "ssm": ("in_proj", "out_proj"),
+           "rglru": ("w_rec", "w_gelu", "w_out")}
 _MLP_LINEAR = ("gate", "up", "down")
 
 
@@ -36,30 +43,38 @@ def params_from_jax(tree, cfg, *, device: str | torch.device = "cuda"):
     """The port's parameters for ``cfg`` from a JAX parameter tree of numpy
     arrays, on ``device`` (CUDA unless the caller asks for the CPU)."""
     dev = resolve_device(device)
+    pat = cfg.block_pattern
+    n_blocks, tail = block_counts(cfg)
+    want = {"blocks"} | ({"tail"} if tail else set())
+    if cfg.family not in ("dense", "ssm", "hybrid") or set(tree["stack"]) != want \
+            or set(tree["stack"]["blocks"]) != {f"sub{j}" for j in range(len(pat))}:
+        raise ValueError(f"not a {cfg.family!r} stack of pattern {pat} and tail {tail}: "
+                         f"{sorted(tree['stack'])}")
 
     def t(a):
         return torch.tensor(a, device=dev)
 
-    def group(arrays, i, linear):
-        return {name: t(np.swapaxes(a[i], -1, -2)) if name in linear else t(a[i])
+    def group(arrays, take, linear):
+        return {name: t(np.swapaxes(take(a), -1, -2)) if name in linear else t(take(a))
                 for name, a in arrays.items()}
 
-    kind = "ssm" if cfg.family == "ssm" else "attn"
-    if cfg.family not in ("dense", "ssm") or set(tree["stack"]) != {"blocks"} \
-            or set(tree["stack"]["blocks"]) != {"sub0"}:
-        raise ValueError(f"not a dense ('attn',) or ssm ('ssm',) stack: {cfg.family!r}, "
-                         f"{sorted(tree['stack'])}")
-    stacked = tree["stack"]["blocks"]["sub0"]
-    blocks = []
-    for i in range(cfg.n_layers):
-        sub = {"norm": t(stacked["norm"][i]), "mix": group(stacked["mix"], i, _LINEAR[kind])}
-        if "mlp" in stacked:
-            sub["mlp_norm"] = t(stacked["mlp_norm"][i])
-            sub["mlp"] = group(stacked["mlp"], i, _MLP_LINEAR)
-        blocks.append({"sub0": sub})
+    def sublayer(sp, kind, take):
+        sub = {"norm": t(take(sp["norm"])), "mix": group(sp["mix"], take, _LINEAR[kind])}
+        if "mlp" in sp:
+            sub["mlp_norm"] = t(take(sp["mlp_norm"]))
+            sub["mlp"] = group(sp["mlp"], take, _MLP_LINEAR)
+        return sub
+
+    def block(subs, kinds, take):
+        return {f"sub{j}": sublayer(subs[f"sub{j}"], kind, take) for j, kind in enumerate(kinds)}
+
+    stack = {"blocks": [block(tree["stack"]["blocks"], pat, lambda a, i=i: a[i])
+                        for i in range(n_blocks)]}
+    if tail:
+        stack["tail"] = block(tree["stack"]["tail"], tail, lambda a: a)
     params = {
         "embed": t(tree["embed"]),
-        "stack": {"blocks": blocks},
+        "stack": stack,
         "final_norm": t(tree["final_norm"]),
     }
     if "lm_head" in tree:

@@ -1,6 +1,6 @@
 """``build_model(cfg, opts)``: the port's entry point to a model.  Port of
-``repro.models.model`` for the decoder-only dense and ssm families.  Returns a
-``Model`` of plain functions:
+``repro.models.model`` for the decoder-only dense, ssm and hybrid families.
+Returns a ``Model`` of plain functions:
 
   init(generator)                                  -> params (float32 masters)
   prefill_fn(params, batch, max_len=None)          -> (last_logits [B, V], caches)
@@ -27,7 +27,6 @@ from repro_torch.models.transformer import stack_apply, stack_init
 
 #: Where each family that is not ported yet stands in ROADMAP.md Queue A.
 UNPORTED_FAMILIES = {
-    "hybrid": "ROADMAP.md Queue A item 14 (recurrentgemma-9b with the RG-LRU scan)",
     "moe": "ROADMAP.md Queue A item 16 (the other model families)",
     "vlm": "ROADMAP.md Queue A item 16 (the other model families)",
     "audio": "ROADMAP.md Queue A item 16 (the other model families)",

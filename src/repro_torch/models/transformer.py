@@ -1,16 +1,20 @@
-"""The decoder stack of the dense and ssm families: a Python loop over
-blocks.  Port of ``repro.models.transformer`` for the ``("attn",)`` and
-``("ssm",)`` patterns.
+"""The decoder stack of the dense, ssm and hybrid families: a Python loop
+over blocks.  Port of ``repro.models.transformer``.
 
-A *block* is one repetition of the architecture's mixer pattern; for both
-families that is one sublayer: the mixer (attention, or the Mamba2 SSD
-block) behind an RMSNorm and a residual, then, where ``d_ff > 0``, a SwiGLU
-MLP behind its own RMSNorm and residual (mamba2 has none).  The JAX package
-stacks the blocks' parameters on a leading ``n_blocks`` axis and runs one
-``lax.scan``; here the stack is a list of per-block dicts (``{"sub0":
-{...}}``, the JAX names) and the scan is a loop.  Decode caches mirror it:
-``{"blocks": [{"sub0": cache}, ...]}`` with ``{"k", "v"}`` for attention and
-``{"conv", "ssm"}`` for the SSD block (constant size: no resize).
+A *block* is one repetition of the architecture's mixer pattern:
+``("attn",)`` for dense, ``("ssm",)`` for ssm, ``cfg.layer_pattern`` (e.g.
+``("rglru", "rglru", "attn")``) for hybrid.  Each of its sublayers is the
+mixer (attention, the Mamba2 SSD block or the RG-LRU block) behind an
+RMSNorm and a residual, then, where ``d_ff > 0``, a SwiGLU MLP behind its
+own RMSNorm and residual (mamba2 has none).  Layer counts not divisible by
+the pattern get unstacked tail layers that repeat the pattern's prefix.  The
+JAX package stacks the blocks' parameters on a leading ``n_blocks`` axis and
+runs one ``lax.scan``; here the stack is ``{"blocks": [{"sub0": {...},
+...}, ...], "tail": {"sub0": {...}, ...}}`` (the JAX names; ``"tail"`` only
+where there are tail layers) and the scan is a loop.  Decode caches mirror
+it, with ``{"k", "v"}`` for attention (the window's ring buffer for a
+hybrid's local attention), ``{"conv", "ssm"}`` for the SSD block and
+``{"conv", "h"}`` for the RG-LRU block (constant size: no resize).
 """
 
 from __future__ import annotations
@@ -21,11 +25,18 @@ import torch.nn.functional as F
 from repro_torch.models.attention import apply_attn, attn_init, cache_capacity
 from repro_torch.models.common import ModelOptions
 from repro_torch.models.layers import rms_norm, swiglu, swiglu_init
+from repro_torch.models.rglru import rg_apply, rg_init
 from repro_torch.models.ssm import ssm_apply, ssm_init
 
+_MIXER_INIT = {"attn": attn_init, "ssm": ssm_init, "rglru": rg_init}
 
-def pattern_of(cfg) -> tuple:
-    return ("ssm",) if cfg.family == "ssm" else ("attn",)
+
+def block_counts(cfg) -> tuple:
+    """(n_blocks, tail_kinds): ``cfg.layer_kinds()`` as whole repeats of the
+    block pattern, then the tail layers."""
+    kinds, per_block = cfg.layer_kinds(), len(cfg.block_pattern)
+    n_blocks = len(kinds) // per_block
+    return n_blocks, kinds[n_blocks * per_block:]
 
 
 def _has_mlp(cfg) -> bool:
@@ -34,18 +45,25 @@ def _has_mlp(cfg) -> bool:
 
 def _sublayer_init(generator: torch.Generator, cfg, kind, dtype):
     dev = generator.device
-    p = {"norm": torch.ones(cfg.d_model, dtype=dtype, device=dev)}
-    p["mix"] = attn_init(generator, cfg, dtype) if kind == "attn" else ssm_init(generator, cfg,
-                                                                               dtype)
+    p = {"norm": torch.ones(cfg.d_model, dtype=dtype, device=dev),
+         "mix": _MIXER_INIT[kind](generator, cfg, dtype)}
     if _has_mlp(cfg):
         p["mlp_norm"] = torch.ones(cfg.d_model, dtype=dtype, device=dev)
         p["mlp"] = swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype)
     return p
 
 
+def _block_init(generator: torch.Generator, cfg, kinds, dtype):
+    return {f"sub{i}": _sublayer_init(generator, cfg, kind, dtype) for i, kind in enumerate(kinds)}
+
+
 def stack_init(generator: torch.Generator, cfg, dtype=torch.float32):
-    return {"blocks": [{f"sub{i}": _sublayer_init(generator, cfg, kind, dtype)
-                        for i, kind in enumerate(pattern_of(cfg))} for _ in range(cfg.n_layers)]}
+    n_blocks, tail = block_counts(cfg)
+    params = {"blocks": [_block_init(generator, cfg, cfg.block_pattern, dtype)
+                         for _ in range(n_blocks)]}
+    if tail:
+        params["tail"] = _block_init(generator, cfg, tail, dtype)
+    return params
 
 
 def _apply_sublayer(sp, x, kind, *, cfg, opts: ModelOptions, mode, positions, cache,
@@ -54,6 +72,8 @@ def _apply_sublayer(sp, x, kind, *, cfg, opts: ModelOptions, mode, positions, ca
     h = rms_norm(x, sp["norm"], cfg.norm_eps)
     if kind == "ssm":
         out, new_cache = ssm_apply(sp["mix"], h, cfg=cfg, impl=opts.mixer_impl, cache=cache)
+    elif kind == "rglru":
+        out, new_cache = rg_apply(sp["mix"], h, cfg=cfg, impl=opts.mixer_impl, cache=cache)
     else:
         out, new_cache = apply_attn(
             sp["mix"], h, cfg=cfg, positions=positions, window=cfg.window,
@@ -83,11 +103,11 @@ def resize_kv_cache(cache, used: int, target_len: int, cfg, window: int):
     return cache
 
 
-def _block_apply(bp, x, *, cfg, opts, mode, positions, caches, cache_length,
+def _block_apply(bp, x, kinds, *, cfg, opts, mode, positions, caches, cache_length,
                  prefill_capacity=None):
     """The sublayers of one block in order.  Returns ``(x, new_caches)``."""
     new_caches = {}
-    for i, kind in enumerate(pattern_of(cfg)):
+    for i, kind in enumerate(kinds):
         name = f"sub{i}"
         c = caches[name] if caches is not None else None
         x, new_caches[name] = _apply_sublayer(
@@ -105,19 +125,23 @@ def stack_apply(
     opts: ModelOptions,
     mode: str,  # prefill | decode
     positions: torch.Tensor,
-    caches=None,  # {"blocks": [...]} (decode), or None
+    caches=None,  # {"blocks": [...], "tail": {...}} (decode), or None
     cache_length: int | None = None,  # decode: tokens already in the caches
     prefill_capacity: int | None = None,  # total conversation length to hold
 ):
     """Returns ``(x, new_caches)``."""
     if mode not in ("prefill", "decode"):
         raise ValueError(f"mode must be prefill or decode, got {mode!r} (training comes later)")
-    new_blocks = []
+    pat = cfg.block_pattern
+    _, tail = block_counts(cfg)
+    kw = dict(cfg=cfg, opts=opts, mode=mode, positions=positions, cache_length=cache_length,
+              prefill_capacity=prefill_capacity)
+    new_caches = {"blocks": []}
     for i, bp in enumerate(params["blocks"]):
         bc = caches["blocks"][i] if mode == "decode" else None
-        x, nc = _block_apply(
-            bp, x, cfg=cfg, opts=opts, mode=mode, positions=positions, caches=bc,
-            cache_length=cache_length, prefill_capacity=prefill_capacity,
-        )
-        new_blocks.append(nc)
-    return x, {"blocks": new_blocks}
+        x, nc = _block_apply(bp, x, pat, caches=bc, **kw)
+        new_caches["blocks"].append(nc)
+    if tail:
+        tc = caches["tail"] if mode == "decode" else None
+        x, new_caches["tail"] = _block_apply(params["tail"], x, tail, caches=tc, **kw)
+    return x, new_caches

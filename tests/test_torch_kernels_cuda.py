@@ -6,7 +6,12 @@
   plain version's einsum, and bf16 rounds the float32 result once);
 - the SSD chunked scan: against its plain version ``kernels.chunked.ssd``
   and the recurrence ``kernels.ref.ssd``, y at the same tolerances and the
-  final state within 1e-3 (those of ``tests/test_kernels.py``'s SSD test).
+  final state within 1e-3 (those of ``tests/test_kernels.py``'s SSD test);
+- the RG-LRU scan: against its plain version
+  ``kernels.ref.linear_recurrence`` (the same rounded steps: bit for bit)
+  and the log-depth ``kernels.chunked.linear_scan`` on the same a and g, y
+  at the same tolerances and the state within 1e-3, and ``ops.rglru``
+  against ``kernels.chunked.rglru`` in float32.
 
 Needs an NVIDIA card and nvcc (the kernels have no CPU mode), so every test
 is marked ``cuda`` and skips where ``torch.cuda.is_available()`` is False.
@@ -27,6 +32,7 @@ from repro_torch.configs import smoke_config  # noqa: E402
 from repro_torch.core import engine, policies  # noqa: E402
 from repro_torch.kernels import alloc, chunked, ops, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
+from repro_torch.kernels import rglru_scan as rglru_kernel  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_kernel  # noqa: E402
 from repro_torch.models.common import ModelOptions  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
@@ -272,3 +278,83 @@ def test_smoke_mamba2_prefill_through_the_kernel_matches_chunked(cuda_device):
     assert ssd_kernel.LAUNCHES == before + cfg.n_layers
     torch.testing.assert_close(got, plain.prefill_fn(params, {"tokens": toks[:, :1]})[0],
                                rtol=2e-4, atol=2e-4)
+
+
+# ----------------------------------------------------------------- RG-LRU
+# (b, s, w, a_param shift): the shapes of tests/test_kernels.py, one step, a
+# width not a multiple of the 128-channel block, and decay within ~1e-3 of 1
+# over 4096 steps.
+RGLRU_CASES = ((2, 100, 48, 0.0), (1, 256, 64, 0.0), (2, 64, 128, 0.0), (3, 1, 40, 0.0),
+               (2, 77, 200, 0.0), (1, 4096, 256, -9.0))
+
+
+def _rglru_inputs(gen, device, dtype, b, s, w, shift):
+    x, gx, ga = (torch.randn((b, s, w), generator=gen, device=device).to(dtype)
+                 for _ in range(3))
+    return x, gx, ga, torch.randn((w,), generator=gen, device=device) + shift
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rglru_kernel_matches_plain_version_on_card(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for b, s, w, shift in RGLRU_CASES:
+        x, gx, ga, ap = _rglru_inputs(gen, cuda_device, dtype, b, s, w, shift)
+        a, g = (t.to(dtype) for t in ref.rglru_gates(x, gx, ga, ap))
+        before = rglru_kernel.LAUNCHES
+        y, st = rglru_kernel.rglru_scan(a, g, return_state=True)
+        assert rglru_kernel.LAUNCHES == before + 1
+        assert y.dtype == dtype and y.shape == (b, s, w)
+        assert st.dtype == torch.float32 and st.shape == (b, w)
+        assert torch.equal(st, y[:, -1].float())
+        assert st.untyped_storage().nbytes() == st.numel() * 4  # not a view of y
+        assert torch.equal(y, ref.linear_recurrence(a, g))
+        y0 = chunked.linear_scan(a.float(), g.float()).to(dtype)
+        torch.testing.assert_close(y.float(), y0.float(), **SSD_TOL[dtype])
+        torch.testing.assert_close(st, y0[:, -1].float(), **STATE_TOL)
+        yk, stk = ops.rglru(x, gx, ga, ap, impl="cuda", return_state=True)
+        assert rglru_kernel.LAUNCHES == before + 2
+        assert torch.equal(yk, y) and torch.equal(stk, st)
+        if dtype == torch.float32:
+            yr, str_ = chunked.rglru(x, gx, ga, ap, return_state=True)
+            torch.testing.assert_close(yk, yr, **SSD_TOL[dtype])
+            torch.testing.assert_close(stk, str_, **STATE_TOL)
+
+
+@pytest.mark.cuda
+def test_rglru_kernel_refuses_what_it_does_not_take(cuda_device):
+    a = torch.rand((2, 8, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rglru_kernel.rglru_scan(a.cpu(), a)
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_kernel.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_kernel.rglru_scan(a[0], a[0])
+    with pytest.raises(TypeError):
+        rglru_kernel.rglru_scan(a.half(), a.half())
+    with pytest.raises(TypeError):
+        rglru_kernel.rglru_scan(a, a.bfloat16())
+    with pytest.raises(ValueError, match="do not fit"):
+        rglru_kernel.rglru_scan(a, a[:, :4].contiguous())
+
+
+@pytest.mark.cuda
+def test_smoke_recurrentgemma_prefill_through_the_kernels_matches_chunked(cuda_device):
+    """The smoke hybrid (rglru, rglru, attn): two RG-LRU launches and one
+    flash launch a prefill, past the window of 16; logits and recurrent
+    states as the log-depth scan's."""
+    cfg = smoke_config("recurrentgemma-9b")
+    kernel = build_model(cfg, ModelOptions(activation_dtype="float32"), device=cuda_device)
+    plain = build_model(cfg, ModelOptions(mixer_impl="chunked", activation_dtype="float32"),
+                        device=cuda_device)
+    params = kernel.init(torch.Generator(device=cuda_device).manual_seed(0))
+    toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 150)),
+                        device=cuda_device)
+    before = (rglru_kernel.LAUNCHES, flash.LAUNCHES)
+    got, caches = kernel.prefill_fn(params, {"tokens": toks})
+    assert (rglru_kernel.LAUNCHES, flash.LAUNCHES) == (before[0] + 2, before[1] + 1)
+    want, want_caches = plain.prefill_fn(params, {"tokens": toks})
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    for c, c0 in zip(caches["blocks"], want_caches["blocks"]):
+        for sub in ("sub0", "sub1"):
+            torch.testing.assert_close(c[sub]["h"], c0[sub]["h"], **STATE_TOL)

@@ -35,7 +35,7 @@ from repro.models import ModelOptions as JaxOptions  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
-from repro_torch.configs.base import ssm_uncounted_params  # noqa: E402
+from repro_torch.configs.base import uncounted_params  # noqa: E402
 from repro_torch.launch import serve as tserve  # noqa: E402
 from repro_torch.models import ssm as tssm  # noqa: E402
 from repro_torch.models.common import ModelOptions  # noqa: E402
@@ -83,16 +83,16 @@ def test_mamba2_config_and_counts_match_the_jax_package():
         24, 768, 1536, 24, 64, 128, 4, 50280, True, 0)
     assert (cfg.d_inner, cfg.n_ssm_heads) == (jcfg.d_inner, jcfg.n_ssm_heads)
     assert cfg.param_count() == jcfg.param_count() == 128_939_904
-    assert cfg.param_count() + ssm_uncounted_params(cfg) == 128_983_488
+    assert cfg.param_count() + uncounted_params(cfg) == 128_983_488
     small = tconfigs.smoke_config(ARCH)
     assert small.param_count() == jconfigs.smoke_config(ARCH).param_count() == 72_416
-    exact = small.param_count() + ssm_uncounted_params(small)
+    exact = small.param_count() + uncounted_params(small)
     assert exact == 72_752
     _, params_j, tm, _ = _models("chunked")
     assert sum(a.size for a in jax.tree.leaves(params_j)) == exact
     params = tm.init(torch.Generator().manual_seed(0))
     assert sum(t.numel() for t in _leaves(params)) == exact
-    assert ssm_uncounted_params(tconfigs.get_config("phi4-mini-3.8b")) == 0
+    assert uncounted_params(tconfigs.get_config("phi4-mini-3.8b")) == 0
 
 
 def test_init_draws_the_jax_distributions():

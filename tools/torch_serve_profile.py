@@ -1,12 +1,13 @@
 """Where the time goes when the port serves a model on a CUDA card.
 
 ``python3 tools/torch_serve_profile.py [--arch ARCH] [--smoke]`` from the
-repo root builds ``ARCH`` (phi4-mini-3.8b by default, or mamba2-130m) at
-full width (float32 weights drawn on the card from a seed; ``--smoke`` takes
+repo root builds ``ARCH`` (phi4-mini-3.8b by default, mamba2-130m or
+recurrentgemma-9b) at full width (float32 weights drawn on the card from a seed; ``--smoke`` takes
 the smoke config), warms up with one short ``generate``, then:
 
 1. times ``launch/serve.py::generate`` at batch 4 x the arch's prompt (1000
-   tokens for phi4-mini, 30000 for mamba2) + 32 greedy tokens, twice
+   tokens for phi4-mini, 30000 for mamba2, 4096 for recurrentgemma) + 32
+   greedy tokens, twice
    (prefill and decode wall, synchronised);
 2. profiles one prefill and 8 decode steps under ``torch.profiler``, and
    reports for each the summed device time, the device's idle share
@@ -29,7 +30,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 BATCH, GEN, PROFILED_STEPS = 4, 32, 8
-PROMPTS = {"phi4-mini-3.8b": 1000, "mamba2-130m": 30000}  # chip_smoke.py's serve phases
+# chip_smoke.py's serve phases
+PROMPTS = {"phi4-mini-3.8b": 1000, "mamba2-130m": 30000, "recurrentgemma-9b": 4096}
 
 
 def _kernel_rows(prof) -> list[dict]:
