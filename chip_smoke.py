@@ -25,8 +25,9 @@ raises, and the exit code is not 0):
 7. the flash-attention kernel's build time, and the kernel against its plain
    version on the card, float32 within 2e-5 and bfloat16 within 5e-2 (the
    tolerances of ``tests/test_kernels.py``): the shapes of that file, non-
-   causal, windows 16 and 100, head dims 16, 128 and 256, the model's
-   transposed views, and the phi4-mini prefill shape [4, 24, 1000, 128];
+   causal, windows 16 and 100, head dims 16, 128, 160 and 256 and the padded
+   80 and 200, the model's transposed views, and the phi4-mini prefill shape
+   [4, 24, 1000, 128];
 8. the serving path at full width: phi4-mini-3.8b (32 layers, d_model 3072,
    vocab 200064, 4.45e9 float32 parameters drawn on the card from a seed)
    serves batch 4 x 1000 prompt tokens + 32 greedy tokens through
@@ -45,9 +46,10 @@ raises, and the exit code is not 0):
     bfloat16: y within 2e-5 / 5e-2 and the final state within 1e-3 (the
     tolerances of ``tests/test_kernels.py``), on that file's SSD shapes
     (ragged, a chunk longer than the sequence), fewer steps than the conv
-    width, one step, and the mamba2-130m prefill shape x [4, 30000, 24, 64],
-    b/c [4, 30000, 128] (``tools/ssd_float64_check.py`` holds both against
-    a float64 evaluation there);
+    width, one step, 65 chunks (4096 + 17 steps), x, b and c as strided
+    slices of one projection, and the mamba2-130m prefill shape
+    x [4, 30000, 24, 64], b/c [4, 30000, 128] (``tools/ssd_float64_check.py``
+    holds both against a float64 evaluation there);
 12. mamba2-130m at full width (24 layers, d_model 768, d_inner 1536, state
     128, vocab 50280, 128,983,488 float32 parameters drawn on the card from a
     seed) serves batch 4 x 30000 prompt tokens + 32 greedy tokens through
@@ -80,7 +82,14 @@ raises, and the exit code is not 0):
 18. RG-LRU timing at [4, 4096, 4096] float32 (CUDA events): the kernel and
     its plain version beside the kernel's bound (no single PyTorch call
     computes a first-order linear recurrence, so there is no library
-    yardstick).
+    yardstick);
+19. stablelm-12b at its published widths (d_model 5120, 32 query / 8 KV
+    heads of dim 160, d_ff 13824, vocab 100352, untied) with the depth cut
+    from 40 to 2 layers (1.6e9 float32 parameters drawn on the card from a
+    seed) prefills batch 4 x 1000 tokens through ``generate``; the flash
+    count is zeroed just before and read just after and must be 2 (one per
+    layer, at the kernel's D = 160 instance); the prefill's last logits
+    match the same prefill with ``attn_impl="ref"``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -116,6 +125,9 @@ SSM_ARCH, SSM_BATCH, SSM_PROMPT, SSM_GEN = "mamba2-130m", 4, 30000, 32
 # 4096 is twice the local-attention window: the flash kernel's band skipping
 # and the ring fold of the KV cache both run at full width.
 HYBRID_ARCH, HYBRID_BATCH, HYBRID_PROMPT, HYBRID_GEN = "recurrentgemma-9b", 4, 4096, 32
+# Head dim 160, the flash kernel's one instance that is not a power of two;
+# the depth is cut to 2 of its 40 layers (the widths are the published ones).
+WIDE_ARCH, WIDE_LAYERS, WIDE_BATCH, WIDE_PROMPT, WIDE_GEN = "stablelm-12b", 2, 4, 1000, 32
 # Logits of two float32 runs that differ only in summation order (kernel vs
 # plain attention; CPU vs card): the bar of tests/test_models.py.  Computing
 # any part in bf16 moves them by ~1e-2.
@@ -310,7 +322,10 @@ def phase_flash_vs_plain(flash, ref, device) -> dict:
         (1, 4, 2, 256, 256, 64, True, 16, False), (1, 4, 2, 256, 256, 64, True, 100, False),
         (1, 4, 2, 300, 300, 16, False, 100, False), (2, 4, 2, 190, 190, 16, True, 0, True),
         (2, 6, 3, 200, 260, 256, True, 0, False), (1, 8, 1, 333, 333, 256, True, 100, True),
-        (4, 24, 8, 1000, 1000, 128, True, 0, True),
+        (2, 4, 2, 190, 190, 160, True, 0, False), (1, 8, 2, 130, 330, 160, True, 100, True),
+        (2, 4, 2, 190, 190, 80, True, 100, True), (1, 4, 2, 200, 260, 200, True, 0, False),
+        (1, 4, 2, 150, 150, 200, True, 64, True),
+        (4, 24, 8, 1000, 1000, 128, True, 0, True), (4, 32, 8, 1000, 1000, 160, True, 0, True),
     ]
     gen = torch.Generator(device=device).manual_seed(7)
     worst = {}
@@ -499,6 +514,20 @@ def _ssd_inputs(gen, device, dtype, b, s, h, p, n):
     return x, dt, a, randn(b, s, n).to(dtype), randn(b, s, n).to(dtype), randn(h)
 
 
+def _ssd_strided_inputs(gen, device, dtype, b, s, h, p, n):
+    """As :func:`_ssd_inputs`, with x, b and c slices of one projection at an
+    odd offset, as the model hands them (unit-stride last dims, row stride
+    h p + 2 n + 1, no 16-byte alignment)."""
+    import torch
+
+    x, dt, a, bm, cm, d = _ssd_inputs(gen, device, dtype, b, s, h, p, n)
+    xbc = torch.empty((b, s, h * p + 2 * n + 1), device=device, dtype=dtype)[..., 1:]
+    xbc[..., :h * p] = x.reshape(b, s, h * p)
+    xbc[..., h * p:h * p + n], xbc[..., h * p + n:] = bm, cm
+    return (xbc[..., :h * p].reshape(b, s, h, p), dt, a, xbc[..., h * p:h * p + n],
+            xbc[..., h * p + n:], d)
+
+
 def _ssd_shape(cfg) -> tuple:
     """(b, s, h, p, n) of one prefill layer of the mamba2 serve phase."""
     return SSM_BATCH, SSM_PROMPT, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state
@@ -513,17 +542,20 @@ def phase_ssd_vs_plain(ssd_kernel, chunked, ref, device) -> dict:
     from repro_torch.configs import get_config
 
     serve_shape = _ssd_shape(get_config(SSM_ARCH))
-    cases = [  # (b, s, h, p, n)
-        (1, 128, 2, 32, 16), (2, 200, 3, 32, 16), (1, 64, 1, 64, 128), (2, 96, 4, 16, 8),
-        (2, 2, 3, 16, 16), (1, 1, 2, 64, 128), serve_shape,
+    cases = [  # (b, s, h, p, n, strided)
+        (1, 128, 2, 32, 16, False), (2, 200, 3, 32, 16, False), (1, 64, 1, 64, 128, False),
+        (2, 96, 4, 16, 8, False), (2, 2, 3, 16, 16, False), (1, 1, 2, 64, 128, False),
+        (2, 4096 + 17, 24, 64, 128, False), (2, 513, 24, 64, 128, True),
+        (2, 300, 3, 80, 64, False), (1, 200, 5, 128, 128, True),
+        (*serve_shape, False),
     ]
     gen = torch.Generator(device=device).manual_seed(11)
     worst = {}
     for dtype in ("float32", "bfloat16"):
         dt_ = getattr(torch, dtype)
         worst[dtype] = {"y": 0.0, "state": 0.0, "y_max_abs": 0.0}
-        for case in cases:
-            args = _ssd_inputs(gen, device, dt_, *case)
+        for *case, strided in cases:
+            args = (_ssd_strided_inputs if strided else _ssd_inputs)(gen, device, dt_, *case)
             y, st = ssd_kernel.ssd_scan(*args, return_state=True)
             plains = [lambda *a, **k: chunked.ssd(*a, block=ssd_kernel.CHUNK, **k)]
             plains += [ref.ssd] if case[1] <= 1000 else []
@@ -767,13 +799,21 @@ def phase_serve_hybrid(rglru_kernel, flash, ssd_kernel, card, device) -> dict:
     err = (got - want).abs().max().item()
     torch.testing.assert_close(got, want, **LOGIT_TOL)
     decode_tps = HYBRID_BATCH * HYBRID_GEN / timings["decode_s"]
+    # Flash's least time at this prefill's shape, as phase 10 counts it: 4 D
+    # flops per allowed (query, key) pair (causal, window) per query head.
+    s_, w_ = HYBRID_PROMPT, cfg.window
+    pairs = sum(min(q + 1, w_) for q in range(s_))
+    flash_ops = 4 * cfg.head_dim * pairs * HYBRID_BATCH * cfg.n_heads
+    flash_bound_ms = flash_ops / PEAK_OPS_PER_S * 1e3
     print(f"phase 16: {cfg.name} full width ({cfg.n_layers} layers, {n_params} parameters, "
           f"init {init_s:.2f} s): batch {HYBRID_BATCH} x prompt {HYBRID_PROMPT} + {HYBRID_GEN} "
           f"tokens on {card}; prefill {timings['prefill_s']:.4f} s, decode "
           f"{timings['decode_s']:.4f} s ({decode_tps:.1f} tok/s), peak memory {peak_gb:.2f} GB; "
           f"RG-LRU launches {launches['rglru']}, flash {launches['flash']}, SSD "
           f"{launches['ssd']}; last logits kernel vs chunked max |err| {err:.3e} (max |logit| "
-          f"{want.abs().max().item():.3f})", flush=True)
+          f"{want.abs().max().item():.3f}); flash bound at [{HYBRID_BATCH}, {cfg.n_heads}, "
+          f"{s_}, {cfg.head_dim}], window {w_}: {pairs} pairs per head, {flash_ops:.4e} flop, "
+          f"{flash_bound_ms:.4f} ms float32", flush=True)
     del params, got, want
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
@@ -783,6 +823,8 @@ def phase_serve_hybrid(rglru_kernel, flash, ssd_kernel, card, device) -> dict:
             "decode_tok_s": decode_tps, "peak_mem_gb": peak_gb,
             "rglru_launches": launches["rglru"], "flash_launches": launches["flash"],
             "ssd_launches": launches["ssd"], "logits_max_abs_err_vs_chunked": err,
+            "flash_pairs_per_head": pairs, "flash_ops": flash_ops,
+            "flash_bound_ms": flash_bound_ms,
             "sample_ids": ids[0, :16].tolist()}
 
 
@@ -816,6 +858,70 @@ def phase_rglru_timing(rglru_kernel, ref, card, device) -> dict:
           f"{n_ops:.4e} flop); no single PyTorch call computes a first-order linear "
           "recurrence, so there is no library yardstick", flush=True)
     return out
+
+
+def phase_serve_wide(flash, card, device) -> dict:
+    """Phase 19: stablelm-12b at its published widths, depth cut, through
+    ``generate``: the flash kernel at head dim 160."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+
+    full = get_config(WIDE_ARCH)
+    cfg = full.scaled(n_layers=WIDE_LAYERS)
+    assert cfg.head_dim == 160  # an instance of its own, not a power of two
+    model = build_model(cfg, ModelOptions(activation_dtype="float32"), device=device)
+    plain = build_model(cfg, ModelOptions(attn_impl="ref", activation_dtype="float32"),
+                        device=device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (WIDE_BATCH, WIDE_PROMPT)),
+                             device=device)
+    batch = {"tokens": tokens}
+
+    timings = {}
+    torch.cuda.synchronize()
+    flash.LAUNCHES = 0
+    ids = generate(model, params, batch, gen_len=WIDE_GEN, timings=timings)
+    torch.cuda.synchronize()
+    launches = flash.LAUNCHES
+    assert launches == cfg.n_layers == WIDE_LAYERS, f"{launches} flash launches in one prefill"
+    assert ids.shape == (WIDE_BATCH, WIDE_GEN) and int(ids.min()) >= 0
+    assert int(ids.max()) < cfg.vocab_size
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    got, _ = model.prefill_fn(params, batch)
+    want, _ = plain.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and got.shape == (WIDE_BATCH, cfg.vocab_size)
+    err = (got - want).abs().max().item()
+    torch.testing.assert_close(got, want, **LOGIT_TOL)
+    decode_tps = WIDE_BATCH * WIDE_GEN / timings["decode_s"]
+    print(f"phase 19: {cfg.name} at published widths (head dim {cfg.head_dim}), depth cut from "
+          f"{full.n_layers} to {cfg.n_layers} layers ({n_params} parameters, init "
+          f"{init_s:.2f} s): batch {WIDE_BATCH} x prompt {WIDE_PROMPT} + {WIDE_GEN} tokens on "
+          f"{card}; prefill {timings['prefill_s']:.4f} s, decode {timings['decode_s']:.4f} s "
+          f"({decode_tps:.1f} tok/s), peak memory {peak_gb:.2f} GB; flash launches {launches}; "
+          f"last logits kernel vs plain attention max |err| {err:.3e} (max |logit| "
+          f"{want.abs().max().item():.3f})", flush=True)
+    del params, got, want
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "layers": cfg.n_layers, "full_layers": full.n_layers,
+            "head_dim": cfg.head_dim, "params": n_params, "batch": WIDE_BATCH,
+            "prompt_len": WIDE_PROMPT, "gen_len": WIDE_GEN, "init_s": init_s,
+            "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
+            "decode_tok_s": decode_tps, "peak_mem_gb": peak_gb, "flash_launches": launches,
+            "logits_max_abs_err_vs_plain": err, "sample_ids": ids[0, :16].tolist()}
 
 
 def main() -> int:
@@ -881,6 +987,7 @@ def main() -> int:
     hybrid_serve = phase_serve_hybrid(rglru_scan, flash_attention, ssd_scan, card, device)
     hybrid_cpu_gap = phase_serve_cpu_vs_cuda(device, HYBRID_ARCH, phase=17)
     rglru_timing = phase_rglru_timing(rglru_scan, ref, card, device)
+    wide_serve = phase_serve_wide(flash_attention, card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -961,6 +1068,7 @@ def main() -> int:
         "hybrid_serve": hybrid_serve,
         "hybrid_cpu_vs_cuda_max_abs": hybrid_cpu_gap,
         "rglru_timing": rglru_timing,
+        "wide_serve": wide_serve,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

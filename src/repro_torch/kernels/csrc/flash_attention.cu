@@ -19,7 +19,13 @@
 // tx + 16c (c = 0..D/16-1).  Both products are float32 FMAs (no tensor cores,
 // no TF32); a row's max and sum reduce over the 16 lanes of a half-warp.
 // The probability tile P is written over the K tile once the logits are
-// done, which keeps D = 128 at 99 KB of shared memory (two CTAs per SM).
+// done, which keeps D = 128 at 99 KB of shared memory (two CTAs per SM);
+// D = 160 (stablelm) takes 121 KB and D = 256 193 KB, one CTA per SM.  The
+// instances are D = 16, 32, 64, 128, 160 and 256; the wrapper zero-pads any
+// other D <= 256 to the next one (zero columns change neither q . k nor the
+// output's real columns) and passes the true D's scale.  It refuses D > 256:
+// the three [64][D + 1] float32 tiles outgrow shared memory soon after (at
+// D = 320 they take 241 KB, more than the 227 KB a CTA may have).
 //
 // Bound.  At the main path's shape ([4, 24, 1000, 128], causal, float32)
 // the two products are 4 * D flops per (query, key) pair: about 24.6 GFLOP
@@ -241,6 +247,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq
     case 32: return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
     case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
     case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
+    case 160: return launch<T, 160>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
     case 256: return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
     default: return (int)cudaErrorInvalidValue;
   }

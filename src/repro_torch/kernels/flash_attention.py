@@ -6,12 +6,16 @@ query offset, a sliding window and GQA/MQA, by tiles with an online softmax
 in float32.  Its plain PyTorch version is ``kernels.ref.attention``;
 ``kernels.ops.attention`` picks between the two by where the tensor lies.
 
-:func:`flash_attention` takes CUDA tensors only, float32 or bfloat16, head
-dim 16, 32, 64, 128 or 256, in any strides whose last dim is unit-stride
-(the model hands it transposed views of its projections; the output takes
-``q``'s strides, so the model's transpose back is free).  It raises on
-anything else; it never falls back to the plain version.  The kernel is
-compiled at first use (``kernels/build.py``).
+:func:`flash_attention` takes CUDA tensors only, float32 or bfloat16, any
+head dim up to 256, in any strides whose last dim is unit-stride (the model
+hands it transposed views of its projections; the output takes ``q``'s
+strides, so the model's transpose back is free).  The kernel is built for
+head dims 16, 32, 64, 128, 160 and 256; any other D is zero-padded to the
+next of them and the output sliced back (zero columns change neither q . k
+nor the output's real columns; the logits keep the true D's scale), so a
+padded D still runs the kernel.  It raises on anything else; it never falls
+back to the plain version.  The kernel is compiled at first use
+(``kernels/build.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import ctypes
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.build import KernelLibrary
 
@@ -27,7 +32,8 @@ from repro_torch.kernels.build import KernelLibrary
 #: zeroes it before the main path and reads it after).
 LAUNCHES = 0
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+#: Head dims the kernel is built for; any other D up to the last is padded.
+HEAD_DIMS = (16, 32, 64, 128, 160, 256)
 
 #: Seconds the last build took (0.0 when the library was already built).
 BUILD_SECONDS = 0.0
@@ -52,6 +58,15 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
+def padded_head_dim(d: int) -> int:
+    """The kernel instance that takes head dim ``d``: the least of
+    :data:`HEAD_DIMS` at or above it; raises above the largest."""
+    for inst in HEAD_DIMS:
+        if d <= inst:
+            return inst
+    raise ValueError(f"the flash kernel takes head dim at most {HEAD_DIMS[-1]}, got {d}")
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, Hq, Sq, D]
     k: torch.Tensor,  # [B, Hkv, Skv, D]
@@ -62,7 +77,8 @@ def flash_attention(
     q_offset: int = 0,
 ) -> torch.Tensor:
     """Attention by the CUDA kernel, logits scaled by ``D ** -0.5``; the
-    output is in q's dtype and layout."""
+    output is in q's dtype and, for a D the kernel is built for, q's
+    layout."""
     global LAUNCHES
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -76,12 +92,13 @@ def flash_attention(
     Hkv, Skv = k.shape[1], k.shape[2]
     if k.shape != (B, Hkv, Skv, D) or v.shape != k.shape or Hq % Hkv:
         raise ValueError(f"shapes q {q.shape}, k {k.shape}, v {v.shape} do not fit GQA")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"the flash kernel takes head dim in {HEAD_DIMS}, got {D}")
+    D_kernel = padded_head_dim(D)
+    if D_kernel != D:
+        q, k, v = (F.pad(t, (0, D_kernel - D)) for t in (q, k, v))
     q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty_like(q)  # dense q keeps its strides, so o's layout is q's
     if o.numel() == 0:
-        return o
+        return o[..., :D]
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, o) for s in t.stride()[:3])
     )
@@ -91,9 +108,9 @@ def flash_attention(
         LAUNCHES += 1
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, D, strides, D ** -0.5, int(causal), int(window),
+            B, Hq, Hkv, Sq, Skv, D_kernel, strides, D ** -0.5, int(causal), int(window),
             int(q_offset), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: cudaError {err}")
-    return o
+    return o if D_kernel == D else o[..., :D]

@@ -2,8 +2,12 @@
 
 The kernel (``csrc/ssd_scan.cu``) replaces the TPU kernel
 ``repro/kernels/ssd_scan.py::_ssd_kernel``: the chunked dual form over
-chunks of 64 steps, with the float32 ``[P, N]`` state carried from chunk to
-chunk.  Its plain PyTorch version is ``kernels.chunked.ssd``;
+chunks of 64 steps.  Where the TPU kernel carries the float32 ``[P, N]``
+state from chunk to chunk, the card runs four passes, three of them
+parallel over chunks: each chunk's ``C B^T`` (once for all heads), each
+chunk's own state, then the state recurrence over the chunks, then each
+chunk's outputs from the state entering it, ``C B^T`` and x.  Its plain
+version is ``kernels.chunked.ssd``;
 ``kernels.ops.ssd`` picks between the two by where the tensor lies.
 
 :func:`ssd_scan` takes CUDA tensors only: x, b and c float32 or bfloat16 (all
@@ -23,8 +27,9 @@ import torch
 
 from repro_torch.kernels.build import KernelLibrary
 
-#: Launches of the CUDA kernel since the last reset (``chip_smoke.py``
-#: zeroes it before the main path and reads it after).
+#: Calls that launched the CUDA kernel since the last reset, one per
+#: :func:`ssd_scan` call (each call is four CUDA launches, one per pass;
+#: ``chip_smoke.py`` zeroes it before the main path and reads it after).
 LAUNCHES = 0
 
 #: Steps per chunk in the kernel (``csrc/ssd_scan.cu``'s ``Q``).
@@ -36,7 +41,7 @@ BUILD_SECONDS = 0.0
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "ssd_scan.cu"
 _LIBRARY = KernelLibrary(_SRC, {
-    name: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p]
+    name: [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p]
     for name in ("ssd_scan_f32", "ssd_scan_bf16")
 })
 
@@ -93,6 +98,12 @@ def ssd_scan(
     a = a.contiguous()
     y = torch.empty((B, S, H, P), dtype=x.dtype, device=x.device)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    # Scratch of the passes: each chunk's state, laid out [N, P]; exp(s_Q)
+    # of each chunk; each chunk's C B^T, transposed.
+    n_chunks = -(-S // CHUNK)
+    chunk_states = torch.empty((B, n_chunks, H, N, P), dtype=torch.float32, device=x.device)
+    decay = torch.empty((B, n_chunks, H), dtype=torch.float32, device=x.device)
+    cb = torch.empty((B, n_chunks, CHUNK, CHUNK), dtype=torch.float32, device=x.device)
     strides = (ctypes.c_longlong * 10)(*x.stride()[:3], *dt.stride(), *b.stride()[:2],
                                        *c.stride()[:2])
     lib = load_library()
@@ -101,7 +112,8 @@ def ssd_scan(
         LAUNCHES += 1
         err = fn(
             x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(), c.data_ptr(),
-            y.data_ptr(), state.data_ptr(), B, S, H, P, N, strides,
+            y.data_ptr(), state.data_ptr(), chunk_states.data_ptr(), decay.data_ptr(),
+            cb.data_ptr(), B, S, H, P, N, strides,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if err != 0:

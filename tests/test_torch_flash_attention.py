@@ -101,3 +101,38 @@ def test_dispatch_on_a_cpu_tensor():
     torch.testing.assert_close(ops.attention(q1, k, v, impl="cuda", q_offset=7),
                                ref.attention(q1, k, v, q_offset=7), rtol=0, atol=0)
     assert tflash.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("d", [160, 80, 200])
+@pytest.mark.parametrize("window", [0, 48])
+def test_head_dims_outside_the_power_of_two_instances_match_jax(d, window):
+    """stablelm's D = 160 and the padded D's: the port's path on the CPU
+    against JAX's reference and its TPU kernel, which take any D."""
+    (qj, kj, vj), (q, k, v) = _qkv((1, 4, 100, d), (1, 2, 100, d), "float32")
+    got = ops.attention(q, k, v, causal=True, window=window)
+    _check(got, [jref.attention(qj, kj, vj, causal=True, window=window),
+                 jax_flash(qj, kj, vj, causal=True, window=window, interpret=True)], "float32")
+
+
+@pytest.mark.parametrize("d,want", [(1, 16), (16, 16), (17, 32), (80, 128), (128, 128),
+                                    (129, 160), (160, 160), (161, 256), (200, 256),
+                                    (256, 256)])
+def test_padded_head_dim_picks_the_next_instance(d, want):
+    assert tflash.padded_head_dim(d) == want
+    assert want in tflash.HEAD_DIMS
+
+
+def test_zero_padding_the_head_dim_keeps_attention_at_the_true_scale():
+    """What the wrapper does for a D it has no instance for: q, k and v
+    zero-padded along D, logits scaled by the true D, output sliced back,
+    equals attention at the true D (checked here on the plain version, whose
+    scale is the padded D's unless q is rescaled)."""
+    _, (q, k, v) = _qkv((2, 4, 70, 80), (2, 2, 70, 80), "float32", seed=3)
+    d, dk = 80, tflash.padded_head_dim(80)
+    qp, kp, vp = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
+    got = ref.attention(qp * (dk / d) ** 0.5, kp, vp, causal=True, window=30)
+    assert torch.equal(got[..., d:], torch.zeros_like(got[..., d:]))
+    torch.testing.assert_close(got[..., :d], ref.attention(q, k, v, causal=True, window=30),
+                               **TOL["float32"])
+    with pytest.raises(ValueError, match="head dim at most 256"):
+        tflash.padded_head_dim(257)

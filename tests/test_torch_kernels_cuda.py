@@ -140,6 +140,31 @@ def test_flash_kernel_matches_plain_version_on_card(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [160, 80, 200])
+@pytest.mark.parametrize("window", [0, 100])
+def test_flash_kernel_takes_head_dim_160_and_padded_head_dims(cuda_device, dtype, d, window):
+    """stablelm's D = 160 (an instance of its own) and D's the kernel pads
+    (80 to 128, 200 to 256): still one launch, in the model's transposed
+    views too, at the true D's scale."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d + window)
+    for b, hq, hkv, sq, skv, views in ((2, 4, 2, 190, 190, False), (1, 8, 2, 130, 330, True)):
+        def make(h, s):
+            if views:
+                return torch.randn((b, s, h, d), generator=gen, device=cuda_device).to(
+                    dtype).transpose(1, 2)
+            return torch.randn((b, h, s, d), generator=gen, device=cuda_device).to(dtype)
+        q, k, v = make(hq, sq), make(hkv, skv), make(hkv, skv)
+        kw = dict(causal=True, window=window, q_offset=skv - sq)
+        before = flash.LAUNCHES
+        got = ops.attention(q, k, v, **kw)
+        assert flash.LAUNCHES == before + 1
+        assert got.dtype == dtype and got.shape == q.shape
+        torch.testing.assert_close(got.float(), ref.attention(q, k, v, **kw).float(),
+                                   **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
 def test_flash_kernel_takes_the_models_transposed_views(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     q = torch.randn((2, 70, 6, 32), generator=gen, device=cuda_device).transpose(1, 2)
@@ -156,7 +181,7 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(TypeError):
         flash.flash_attention(q.half(), q.half(), q.half())
     with pytest.raises(ValueError, match="head dim"):
-        x = torch.ones((1, 2, 8, 48), device=cuda_device)
+        x = torch.ones((1, 2, 8, 272), device=cuda_device)
         flash.flash_attention(x, x, x)
     with pytest.raises(ValueError, match="GQA"):
         flash.flash_attention(q, q[:, :1].expand(1, 3, 8, 16), q[:, :1].expand(1, 3, 8, 16))
@@ -232,6 +257,55 @@ def test_ssd_kernel_takes_strided_slices(cuda_device):
     assert not x.is_contiguous() and not bm.is_contiguous()
     y, st = ssd_kernel.ssd_scan(x, dt, a, bm, cm, d, return_state=True)
     y0, st0 = chunked.ssd(x, dt, a, bm, cm, d, return_state=True)
+    torch.testing.assert_close(y, y0, **SSD_TOL[torch.float32])
+    torch.testing.assert_close(st, st0, **STATE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_on_many_chunks_matches_chunked_at_its_chunk_length(cuda_device, dtype):
+    """65 chunks, the last of 17 steps: the state pass carries across all of
+    them; y and the state against the plain version at Q = 64."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    args = _ssd_inputs(gen, cuda_device, dtype, 2, 4096 + 17, 24, 64, 128)
+    y, st = ssd_kernel.ssd_scan(*args, return_state=True)
+    y0, st0 = chunked.ssd(*args, block=ssd_kernel.CHUNK, return_state=True)
+    assert bool(torch.isfinite(y).all())
+    torch.testing.assert_close(y.float(), y0.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(st, st0, **STATE_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p, h", [(80, 3), (128, 5)])
+def test_ssd_kernel_on_head_dims_of_two_slices(cuda_device, dtype, p, h):
+    """P wider than one 64-channel slice (the second one partial at P = 80)
+    and an odd number of heads, over 5 chunks: y and the state against the
+    plain version at Q = 64."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    args = _ssd_inputs(gen, cuda_device, dtype, 2, 300, h, p, 64)
+    y, st = ssd_kernel.ssd_scan(*args, return_state=True)
+    y0, st0 = chunked.ssd(*args, block=ssd_kernel.CHUNK, return_state=True)
+    assert bool(torch.isfinite(y).all()) and st.shape == (2, h, p, 64)
+    torch.testing.assert_close(y.float(), y0.float(), **SSD_TOL[dtype])
+    torch.testing.assert_close(st, st0, **STATE_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_takes_strided_slices_over_many_chunks(cuda_device):
+    """The mamba2 widths as slices of one projection (x, b, c at offsets
+    that are not 16-byte multiples of each other), over 9 chunks."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    B, S, H, P, N = 2, 513, 24, 64, 128
+    xbc = torch.randn((B, S, H * P + 2 * N + 1), generator=gen, device=cuda_device)[..., 1:]
+    x = xbc[..., :H * P].reshape(B, S, H, P)
+    bm, cm = xbc[..., H * P:H * P + N], xbc[..., H * P + N:]
+    dt = torch.rand((B, S, H), generator=gen, device=cuda_device) * 0.19 + 0.01
+    a = -(torch.rand((H,), generator=gen, device=cuda_device) * 1.5 + 0.5)
+    d = torch.randn((H,), generator=gen, device=cuda_device)
+    assert not x.is_contiguous() and x.data_ptr() % 16
+    y, st = ssd_kernel.ssd_scan(x, dt, a, bm, cm, d, return_state=True)
+    y0, st0 = chunked.ssd(x, dt, a, bm, cm, d, block=ssd_kernel.CHUNK, return_state=True)
     torch.testing.assert_close(y, y0, **SSD_TOL[torch.float32])
     torch.testing.assert_close(st, st0, **STATE_TOL)
 

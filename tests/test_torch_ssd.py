@@ -152,3 +152,57 @@ def test_ssd_dispatch_on_a_cpu_tensor():
     torch.testing.assert_close(ops.ssd(*one, h0=h0, impl="cuda"), ref.ssd(*one, h0=h0),
                                rtol=0, atol=0)
     assert tssd.LAUNCHES == 0
+
+
+def _four_step_ssd(x, dt, a, b, c, d, q=64):
+    """The card kernel's algorithm (``csrc/ssd_scan.cu``), step by step in
+    plain torch: (1) each chunk's own state, (2) the state pass over the
+    chunks, (3) each chunk's outputs from C B^T and the state entering it.
+    Steps past S are zero (dt = 0).  Returns y (with the skip) and the final
+    state, float32."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    nc = -(-S // q)
+    pad = nc * q - S
+    xf, dtf, bf, cf = (torch.nn.functional.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+                       for t in (x, dt, b, c))
+    xq = xf.reshape(B, nc, q, H, P)
+    dtq = dtf.reshape(B, nc, q, H)
+    bq, cq = bf.reshape(B, nc, q, N), cf.reshape(B, nc, q, N)
+    s = torch.cumsum(a * dtq, dim=2)  # [B, nc, Q, H], inclusive, per chunk
+    total = s[:, :, -1]  # [B, nc, H]
+    # (1) local_k = sum_u exp(s_Q - s_u) dt_u x_u b_u^T, every chunk at once
+    w = torch.exp(total[:, :, None] - s) * dtq
+    local = torch.einsum("bkuhp,bkun->bkhpn", xq * w[..., None], bq)
+    # (2) h_k = exp(s_Q,k) h_{k-1} + local_k; keep the state entering each chunk
+    h = torch.zeros((B, H, P, N))
+    entering = []
+    for k in range(nc):
+        entering.append(h)
+        h = torch.exp(total[:, k])[..., None, None] * h + local[:, k]
+    h_prev = torch.stack(entering, dim=1)  # [B, nc, H, P, N]
+    # (3) y_t = sum_{u<=t} (C B^T)_tu exp(s_t - s_u) dt_u x_u + exp(s_t) C_t h_{k-1}
+    cb = torch.einsum("bktn,bkun->bktu", cq, bq)  # once per chunk, all heads
+    lower = torch.ones(q, q, dtype=torch.bool).tril()[None, None, :, :, None]
+    expo = torch.where(lower, s[:, :, :, None] - s[:, :, None, :], float("-inf"))
+    scores = cb[..., None] * torch.exp(expo) * dtq[:, :, None, :, :]  # [B, nc, Q, Q, H]
+    y = torch.einsum("bktuh,bkuhp->bkthp", scores, xq)
+    y = y + torch.exp(s)[..., None] * torch.einsum("bktn,bkhpn->bkthp", cq, h_prev)
+    y = y.reshape(B, nc * q, H, P)[:, :S] + d[None, None, :, None] * x.float()
+    return y, h
+
+
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 200])
+def test_four_step_chunk_parallel_ssd_matches_chunked_and_jax(s):
+    """The chunk-parallel decomposition the card kernel implements against
+    the port's chunked form at its chunk length and JAX's recurrence, on
+    ragged lengths, several heads and a state narrower than 16."""
+    b, h, p, n = 2, 3, 16, 8
+    jin, tin = _inputs(b, s, h, p, n, "float32", seed=11)
+    y, st = _four_step_ssd(*tin)
+    y_c, st_c = chunked.ssd(*tin, block=tssd.CHUNK, return_state=True)
+    y_j, st_j = jref.ssd(*jin, return_state=True)
+    torch.testing.assert_close(y, y_c, **TOL["float32"])
+    torch.testing.assert_close(st, st_c, **STATE_TOL)
+    _close(y, y_j, TOL["float32"])
+    _close(st, st_j, STATE_TOL)
