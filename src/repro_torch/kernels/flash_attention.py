@@ -16,6 +16,18 @@ nor the output's real columns; the logits keep the true D's scale), so a
 padded D still runs the kernel.  It raises on anything else; it never falls
 back to the plain version.  The kernel is compiled at first use
 (``kernels/build.py``).
+
+Two designs share the source, one per type.  float32 runs on the CUDA cores
+(64-row tiles, 4 x 4 register tiles fed from shared memory), bound at 0.37
+ms by the 67 TFLOP/s float32 rate at the phi4-mini prefill shape
+[4, 24, 1000, 128].  bfloat16 is bound 15x lower, at 0.025 ms by the 989
+TFLOP/s tensor cores, so its kernel runs both products as ``wgmma`` on 128
+query rows a CTA (``TcTile`` in the source), with K/V tiles brought by TMA into
+a ring of shared-memory stages ahead of the products, and P rounded to bf16
+in registers between the two products.  TMA reads a tensor in place only
+when it is 16-byte aligned (:func:`copies_in_place`); the model's
+transposed views are, and any other bf16 input is copied contiguous first
+and counted in :data:`ALIGN_COPIES`.
 """
 
 from __future__ import annotations
@@ -31,6 +43,11 @@ from repro_torch.kernels.build import KernelLibrary
 #: Launches of the CUDA kernel since the last reset (``chip_smoke.py``
 #: zeroes it before the main path and reads it after).
 LAUNCHES = 0
+
+#: Copies of bf16 inputs that the kernel's TMA copies cannot read in place
+#: (:func:`copies_in_place`), since the last reset (the model's path makes
+#: none).
+ALIGN_COPIES = 0
 
 #: Head dims the kernel is built for; any other D up to the last is padded.
 HEAD_DIMS = (16, 32, 64, 128, 160, 256)
@@ -67,6 +84,24 @@ def padded_head_dim(d: int) -> int:
     raise ValueError(f"the flash kernel takes head dim at most {HEAD_DIMS[-1]}, got {d}")
 
 
+def copies_in_place(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernel's tile copies (TMA) can read ``t`` where it
+    lies: the start 16-byte aligned and the batch, head and sequence
+    strides positive multiples of 8 elements (16 bytes); a dim of size 1 is
+    never stepped, so its stride does not matter."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(n == 1 or (s > 0 and s % 8 == 0)
+                    for s, n in zip(t.stride()[:3], t.shape[:3])))
+
+
+def _in_place_or_copy(t: torch.Tensor) -> torch.Tensor:
+    global ALIGN_COPIES
+    if copies_in_place(t):
+        return t
+    ALIGN_COPIES += 1
+    return t.clone(memory_format=torch.contiguous_format)  # a new, aligned allocation
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, Hq, Sq, D]
     k: torch.Tensor,  # [B, Hkv, Skv, D]
@@ -95,7 +130,10 @@ def flash_attention(
     D_kernel = padded_head_dim(D)
     if D_kernel != D:
         q, k, v = (F.pad(t, (0, D_kernel - D)) for t in (q, k, v))
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        q, k, v = (_in_place_or_copy(t) for t in (q, k, v))
+    else:
+        q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
     o = torch.empty_like(q)  # dense q keeps its strides, so o's layout is q's
     if o.numel() == 0:
         return o[..., :D]

@@ -136,3 +136,31 @@ def test_zero_padding_the_head_dim_keeps_attention_at_the_true_scale():
                                **TOL["float32"])
     with pytest.raises(ValueError, match="head dim at most 256"):
         tflash.padded_head_dim(257)
+
+
+def _bf16(*shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+_FLAT = _bf16(2 * 3 * 40 * 64 + 8)
+
+
+@pytest.mark.parametrize("make,in_place", [
+    pytest.param(lambda: _bf16(2, 3, 40, 64), True, id="dense"),
+    # the model's transposed views of its [B, S, H, D] projections
+    pytest.param(lambda: _bf16(2, 40, 3, 64).transpose(1, 2), True, id="model-view"),
+    pytest.param(lambda: _FLAT[8:].view(2, 3, 40, 64), True, id="16-byte-offset"),
+    pytest.param(lambda: _FLAT[1:1 - 8].view(2, 3, 40, 64), False, id="2-byte-offset"),
+    pytest.param(lambda: _bf16(2, 3, 40, 65)[..., :64], False, id="row-stride-65"),
+    pytest.param(lambda: _bf16(2, 3, 40, 64).transpose(-1, -2), False, id="d-not-unit-stride"),
+    pytest.param(lambda: _bf16(2, 1, 40, 64).expand(2, 3, 40, 64), False, id="head-stride-0"),
+    # size-1 dims are never stepped, so their strides do not matter
+    pytest.param(lambda: _bf16(40 * 64).as_strided((1, 1, 40, 64), (7, 3, 64, 1)), True,
+                 id="size-1-dims"),
+    pytest.param(lambda: _bf16(40 * 72).as_strided((1, 1, 40, 64), (7, 3, 72, 1)), True,
+                 id="row-stride-72"),
+])
+def test_copies_in_place_decides_which_bf16_inputs_are_copied(make, in_place):
+    """The kernel's TMA copies need a 16-byte aligned start and batch, head
+    and sequence strides that are positive multiples of 8 elements."""
+    assert tflash.copies_in_place(make()) is in_place

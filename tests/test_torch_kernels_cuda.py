@@ -189,6 +189,76 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         flash.flash_attention(q, q.cpu(), q)
 
 
+# The bf16 kernel is also held closer than FLASH_TOL, as chip_smoke.py's phase
+# 7 holds it: every element within 1e-2 + 1e-2 |want|, and ||got - want|| within
+# 7e-3 ||want|| (its worst on an H100 was 2.3e-3; a dropped K/V tile reads 0.116).
+FLASH_BF16_TIGHT = dict(rtol=1e-2, atol=1e-2)
+FLASH_BF16_REL = 7e-3
+
+
+def _check_bf16(got, want):
+    got, want = got.float(), want.float()
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.bfloat16])
+    torch.testing.assert_close(got, want, **FLASH_BF16_TIGHT)
+    assert (got - want).norm() <= FLASH_BF16_REL * want.norm()
+
+
+# (b, hq, hkv, sq, skv, causal, window): GQA and MQA, causal and not, a
+# window, q_offset = skv - sq > 0, and lengths that are not multiples of the
+# bf16 kernel's 128-row and 64-key tiles.
+BF16_CASES = (
+    (2, 4, 2, 128, 128, True, 0), (1, 8, 1, 200, 200, False, 0),
+    (2, 6, 3, 130, 190, True, 0), (1, 4, 1, 333, 333, True, 100),
+    (1, 4, 2, 77, 300, True, 48), (2, 2, 2, 5, 70, False, 0),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160, 256, 80, 200])
+def test_bf16_flash_kernel_matches_plain_version_at_each_instance(cuda_device, d):
+    """The tensor-core design at each of its six instances and two padded
+    head dims, against ``ref.attention`` (P is rounded to bf16 before P V:
+    the reference keeps it in float32)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    for b, hq, hkv, sq, skv, causal, window in BF16_CASES:
+        q, k, v = (torch.randn((b, h, s, d), generator=gen, device=cuda_device).to(torch.bfloat16)
+                   for h, s in ((hq, sq), (hkv, skv), (hkv, skv)))
+        kw = dict(causal=causal, window=window, q_offset=skv - sq)
+        launches, copies = flash.LAUNCHES, flash.ALIGN_COPIES
+        got = flash.flash_attention(q, k, v, **kw)
+        assert flash.LAUNCHES == launches + 1 and flash.ALIGN_COPIES == copies
+        assert got.dtype == torch.bfloat16 and got.shape == q.shape
+        _check_bf16(got, ref.attention(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_bf16_flash_kernel_reads_the_models_transposed_views_in_place(cuda_device, d):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    q, k, v = (torch.randn((2, 150, h, d), generator=gen, device=cuda_device)
+               .to(torch.bfloat16).transpose(1, 2) for h in (8, 2, 2))
+    copies = flash.ALIGN_COPIES
+    got = flash.flash_attention(q, k, v)
+    assert flash.ALIGN_COPIES == copies
+    assert got.stride() == q.stride()
+    _check_bf16(got, ref.attention(q, k, v))
+
+
+@pytest.mark.cuda
+def test_bf16_flash_kernel_copies_an_unaligned_view_once(cuda_device):
+    """q starts one element into its storage and its rows are 129 elements
+    apart: the wrapper copies it (one count) and the kernel still runs."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q = torch.randn((1, 4, 90, 129), generator=gen, device=cuda_device).to(torch.bfloat16)[..., 1:]
+    k, v = (torch.randn((1, 2, 90, 128), generator=gen, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    assert not flash.copies_in_place(q) and flash.copies_in_place(k)
+    launches, copies = flash.LAUNCHES, flash.ALIGN_COPIES
+    got = flash.flash_attention(q, k, v, window=40)
+    assert flash.LAUNCHES == launches + 1 and flash.ALIGN_COPIES == copies + 1
+    _check_bf16(got, ref.attention(q, k, v, window=40))
+
+
 @pytest.mark.cuda
 def test_smoke_model_prefill_through_the_kernel_matches_plain_attention(cuda_device):
     cfg = smoke_config("phi4-mini-3.8b")

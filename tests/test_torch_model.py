@@ -148,6 +148,36 @@ def test_prefill_logits_and_caches_match_the_jax_model(attn_impl):
             _close(block["sub0"][name], cj["blocks"]["sub0"][name][i])
 
 
+@functools.lru_cache(maxsize=None)
+def _bf16_models(attn_impl):
+    """Both models with bf16 activations (the packages' default), float32
+    parameters carried over from the JAX model."""
+    cfg_j = jconfigs.smoke_config(ARCH)
+    jm = jax_build_model(cfg_j, JaxOptions(activation_dtype="bfloat16", remat="none",
+                                           attn_impl=attn_impl))
+    params_j = jm.init(jax.random.PRNGKey(0))
+    cfg_t = tconfigs.smoke_config(ARCH)
+    tm = build_model(cfg_t, ModelOptions(), device="cpu")
+    params_t = params_from_jax(jax.tree.map(np.asarray, params_j), cfg_t, device="cpu")
+    return jm, params_j, tm, params_t
+
+
+@pytest.mark.parametrize("attn_impl", ["ref", "interpret"])
+def test_bf16_prefill_logits_match_the_jax_model(attn_impl):
+    """The prefill in bf16, the path the card's bf16 flash kernel serves.
+    Tolerance 1e-2 absolute: each side rounds every activation to bf16 at
+    its own points (XLA fuses and keeps float32 inside a fusion, PyTorch
+    rounds after each op), so the smoke model's logits (|logit| < 0.5, one
+    bf16 ulp ~2e-3 there) differ by a few ulps."""
+    jm, params_j, tm, params_t = _bf16_models(attn_impl)
+    toks = _tokens(tm.cfg, B, S)
+    lj, _ = jm.prefill_fn(params_j, {"tokens": jnp.asarray(toks)})
+    lt, ct = tm.prefill_fn(params_t, {"tokens": torch.from_numpy(toks)})
+    assert lt.dtype == torch.bfloat16 and ct["blocks"][0]["sub0"]["k"].dtype == torch.bfloat16
+    assert lt.shape == (B, tm.cfg.vocab_size)
+    np.testing.assert_allclose(lt.double().numpy(), np.asarray(lj, np.float64), rtol=0, atol=1e-2)
+
+
 @pytest.mark.parametrize("attn_impl", ["ref", "interpret"])
 def test_teacher_forced_decode_matches_the_jax_model(attn_impl):
     """Prefill S - 3 tokens, then decode the next GEN + 3 given tokens, past
