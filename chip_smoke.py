@@ -12,7 +12,9 @@ raises, and the exit code is not 0):
    the allocate kernel's build time;
 2. the kernel against its plain PyTorch version on the card, bit for bit
    (theta bitwise, chips equal) over sizes with zeros and exact ties, f64
-   and f32, plus the reference behaviours ROADMAP.md's Queue C records;
+   and f32, M from 1 to ``MAX_JOBS`` (4096), rows of sizes in {1, 2, 3},
+   rows with no active job, and 1, 6 and 300 cells, plus the reference
+   behaviours ROADMAP.md's Queue C records;
 3. the three canonical sweep lanes at full size (24 rates x 8 seeds x 1000
    jobs, 256 chips, p = 0.5); the launch count is zeroed just before and
    read just after, and the fused lane must launch the kernel once per
@@ -20,8 +22,11 @@ raises, and the exit code is not 0):
 4. one smoke-size lane on the same tapes on the CPU and on the card: flows
    within 1e-12 relative, chips equal at every event;
 5. Thm 8: a batch heSRPT tape simulated on the card against the closed form;
-6. kernel timing at the lane shape [192, 1000] beside the plain version's
-   and the bound (every time in phases 6, 10, 14 and 18 is device ms a call:
+6. kernel timing at the lane shape [192, 1000] in f64 and f32 and at
+   [192, 4096] in f64, each beside the plain version's time and the bound,
+   with the instance's registers a thread and resident CTAs an SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) (every time in
+   phases 6, 10, 14 and 18 is device ms a call:
    CUDA events around calls queued behind a sleep kernel, so the host's
    launch rate is not what is timed);
 7. the flash-attention kernel's build time, and the kernel against its plain
@@ -183,14 +188,23 @@ def _card() -> str:
     return out.stdout.strip()
 
 
-def _sizes(gen, shape, device, dtype):
-    """Pareto-like sizes with ~20% zeros (departed jobs) and exact ties."""
+def _sizes(gen, shape, device, dtype, kind="pareto"):
+    """Job sizes: "pareto", Pareto-like with ~20% zeros (departed jobs) and
+    exact ties; "ties", 1, 2 or 3 with ~20% zeros (ties in the ranks and in
+    the fractional parts of the shares); "inactive", zeros and negatives."""
     import torch
 
-    x = torch.exp(torch.empty(shape, dtype=torch.float64, device=device)
-                  .exponential_(generator=gen) / 1.5)
+    if kind == "ties":
+        x = torch.randint(1, 4, shape, generator=gen, device=device).to(torch.float64)
+    elif kind == "inactive":
+        x = torch.full(shape, -1.0, dtype=torch.float64, device=device)
+    else:
+        x = torch.exp(torch.empty(shape, dtype=torch.float64, device=device)
+                      .exponential_(generator=gen) / 1.5)
     drop = torch.rand(shape, generator=gen, device=device, dtype=torch.float64) < 0.2
     x = torch.where(drop, 0.0, x)
+    if kind != "pareto":
+        return x.to(dtype).contiguous()
     k = shape[-1] // 4
     x[..., :k] = x[..., k:2 * k]
     return x.to(dtype).contiguous()
@@ -221,9 +235,17 @@ def phase_kernel_vs_plain(alloc, engine, device) -> float:
 
     gen = torch.Generator(device=device).manual_seed(2)
     worst, checked = 0.0, 0
+    # (cells, M, sizes): one to sixteen jobs a thread (1024 and 1025 on
+    # either side of four, MAX_JOBS the most one CTA takes), tie-heavy rows,
+    # rows with no active job, and 1 and 300 cells (more than two CTAs an
+    # SM).
+    cases = [(6, M, "pareto") for M in (1, 7, 60, 257, 1000, 1024, 1025, 2048, alloc.MAX_JOBS)]
+    cases += [(6, 1000, "ties"), (6, alloc.MAX_JOBS, "ties"), (6, 1000, "inactive"),
+              (6, alloc.MAX_JOBS, "inactive"), (1, 1000, "pareto"), (300, 1000, "pareto"),
+              (300, alloc.MAX_JOBS, "ties")]
     for dtype in (torch.float64, torch.float32):
-        for M in (1, 7, 60, 257, 1000, 1024):
-            x = _sizes(gen, (6, M), device, dtype)
+        for cells, M, kind in cases:
+            x = _sizes(gen, (cells, M), device, dtype, kind)
             for n_chips in (0, 16, 256):
                 for min_chips in (1, 2, 4):
                     for p in (0.5, 0.3, 0.99):  # c = 2 (products), pow, subnormal brackets
@@ -234,7 +256,7 @@ def phase_kernel_vs_plain(alloc, engine, device) -> float:
                         worst = max(worst, err)
                         if not (torch.equal(theta, theta0) and torch.equal(chips, chips0)):
                             raise AssertionError(
-                                f"kernel != plain: {dtype} M={M} n_chips={n_chips} "
+                                f"kernel != plain: {dtype} [{cells}, {M}] {kind} n_chips={n_chips} "
                                 f"min_chips={min_chips} p={p} max|dtheta|={err} "
                                 f"chip diffs={(chips != chips0).sum().item()}"
                             )
@@ -322,28 +344,40 @@ def phase_theorem8(simulator, flowtime, policies, device) -> float:
 
 
 def phase_timing(alloc, device) -> dict:
-    """Phase 6: per-launch time at the lane shape [192, 1000]."""
+    """Phase 6: per-launch time at the lane shape [192, 1000] in f64 (the
+    record's ``ms``), in f32, and at [192, MAX_JOBS] in f64, each beside the
+    plain version's time, the bound, and the instance's registers and
+    resident CTAs an SM."""
     import torch
 
-    cells, M, n_chips = 192, 1000, 256
-    x = _sizes(torch.Generator(device=device).manual_seed(6), (cells, M), device, torch.float64)
-    before = alloc.LAUNCHES
-    ms = _time_ms(lambda: alloc.hesrpt_alloc_fused(x, 0.5, n_chips), 200)
-    plain_ms = _time_ms(lambda: alloc.hesrpt_alloc_fused_ref(x, 0.5, n_chips), 50)
-    alloc.LAUNCHES = before  # timing launches are not the main path's
-    # Least time for the same function: read x once, write theta and chips
-    # once; the operations of a comparison sort (2 M log2 M per cell) and
-    # ~40 scalar ops per job are far below the bytes' time.
-    n_bytes = cells * M * (8 + 8 + 4)
-    n_ops = cells * (2 * M * math.ceil(math.log2(M)) + 40 * M)
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / PEAK_OPS_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    print(f"phase 6: kernel {ms:.4f} ms/launch at [{cells}, {M}] f64, plain version "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({n_bytes} bytes); no single "
-          "PyTorch call computes this function, so there is no library yardstick", flush=True)
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": n_bytes, "ops": n_ops}
+    cells, n_chips = 192, 256
+    gen = torch.Generator(device=device).manual_seed(6)
+    out = {}
+    for name, M, dtype in (("f64", 1000, torch.float64), ("f32", 1000, torch.float32),
+                           (f"f64_{alloc.MAX_JOBS}", alloc.MAX_JOBS, torch.float64)):
+        x = _sizes(gen, (cells, M), device, dtype)
+        before = alloc.LAUNCHES
+        ms = _time_ms(lambda: alloc.hesrpt_alloc_fused(x, 0.5, n_chips), 200)
+        plain_ms = _time_ms(lambda: alloc.hesrpt_alloc_fused_ref(x, 0.5, n_chips), 50)
+        alloc.LAUNCHES = before  # timing launches are not the main path's
+        registers, ctas = alloc.occupancy(M, dtype)
+        # Least time for the same function: read x once, write theta and
+        # chips once; the operations of a comparison sort (2 M log2 M per
+        # cell) and ~40 scalar ops per job are far below the bytes' time.
+        n_bytes = cells * M * (2 * x.element_size() + 4)
+        n_ops = cells * (2 * M * math.ceil(math.log2(M)) + 40 * M)
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / PEAK_OPS_PER_S * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        print(f"phase 6: kernel {ms:.4f} ms/launch at [{cells}, {M}] {name[:3]}, plain version "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({n_bytes} bytes); "
+              f"{registers} registers a thread, {ctas} resident CTAs an SM", flush=True)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes": n_bytes, "ops": n_ops, "registers": registers,
+                     "ctas_per_sm": ctas, "shape": [cells, M]}
+    print("phase 6: no single PyTorch call computes this function, so there is no "
+          "library yardstick", flush=True)
+    return out
 
 
 def _rel(got, want) -> float:
@@ -1174,11 +1208,15 @@ def main() -> int:
         "replaces": "src/repro/kernels/alloc.py:160",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"],
+        "ms": timing["f64"]["ms"],
+        "plain_ms": timing["f64"]["plain_ms"],
+        "bound_ms": timing["f64"]["bound_ms"],
+        "bound_by": timing["f64"]["bound_by"],
         "library_ms": None,
+        "registers": timing["f64"]["registers"],
+        "ctas_per_sm": timing["f64"]["ctas_per_sm"],
+        "ms_f32": timing["f32"]["ms"],
+        f"ms_{alloc.MAX_JOBS}": timing[f"f64_{alloc.MAX_JOBS}"]["ms"],
     }, {
         "name": "flash_attention",
         "route": "cuda",

@@ -8,8 +8,9 @@ Port of ``repro.kernels.alloc``.  Two versions of one function over a
   quantizer with its oversubscription sort replaced by rank arithmetic,
   and one stable argsort for the trim/leftover pass).
 - the CUDA kernel in ``csrc/alloc.cu`` — replaces the TPU kernel
-  ``repro/kernels/alloc.py::_alloc_kernel``.  One CTA per cell, one thread
-  per job, ranks and sort positions by O(M^2) comparison counting in
+  ``repro/kernels/alloc.py::_alloc_kernel``.  One CTA per cell of at most
+  256 threads, each holding several jobs; ranks and sort positions from two
+  bitonic sorts of (key, index) pairs in registers, warp shuffles and
   shared memory; see the source for what bounds it and why.
 
 ``hesrpt_alloc_fused`` / ``hesrpt_theta_fused`` dispatch on where the tensor
@@ -43,8 +44,8 @@ from repro_torch.kernels.build import NVCC_FLAGS, KernelLibrary  # noqa: F401
 #: zeroes it before the main path and reads it after).
 LAUNCHES = 0
 
-#: Largest job count one CTA takes (one thread per job).
-MAX_JOBS = 1024
+#: Largest job count one CTA takes (256 threads of 16 jobs).
+MAX_JOBS = 4096
 
 _SRC = Path(__file__).resolve().parent / "csrc" / "alloc.cu"
 #: Seconds the last build took (0.0 when the library was already built).
@@ -52,10 +53,11 @@ BUILD_SECONDS = 0.0
 
 
 def pad_len(M: int) -> int:
-    """Threads per CTA for ``M`` jobs: the next power of two >= max(M, 32).
+    """Padded row length for ``M`` jobs: the next power of two >= max(M, 32).
 
     The renormalizer's pairwise tree runs over this many entries on both
-    sides (zeros past ``M`` change no partial sum).
+    sides (zeros past ``M`` change no partial sum), and the kernel sorts
+    this many (key, index) pairs a cell.
     """
     return max(32, 1 << max(M - 1, 0).bit_length())
 
@@ -145,12 +147,17 @@ def hesrpt_alloc_fused_ref(x: torch.Tensor, p, n_chips: int, *, min_chips: int =
 
 # -------------------------------------------------------------- CUDA kernel
 _LIBRARY = KernelLibrary(_SRC, {
-    name: [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
-    for name in ("hesrpt_alloc_f64", "hesrpt_alloc_f32")
+    **{
+        name: [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        for name in ("hesrpt_alloc_f64", "hesrpt_alloc_f32")
+    },
+    "hesrpt_alloc_occupancy": [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ],
 })
 
 
@@ -161,6 +168,19 @@ def load_library() -> ctypes.CDLL:
     lib = _LIBRARY.load()
     BUILD_SECONDS = _LIBRARY.build_seconds
     return lib
+
+
+def occupancy(M: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(registers a thread, resident CTAs an SM) of the kernel instance that
+    takes ``M`` jobs of ``dtype`` on the current card."""
+    if dtype not in (torch.float64, torch.float32) or not 0 < M <= MAX_JOBS:
+        raise ValueError(f"no alloc kernel instance for M={M} {dtype}")
+    registers, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    err = load_library().hesrpt_alloc_occupancy(
+        pad_len(M), int(dtype == torch.float64), ctypes.byref(registers), ctypes.byref(ctas))
+    if err != 0:
+        raise RuntimeError(f"alloc kernel occupancy query failed: cudaError {err}")
+    return registers.value, ctas.value
 
 
 def _alloc_cuda(x: torch.Tensor, p, n_chips: int, min_chips: int):

@@ -36,6 +36,12 @@ RTOL = 1e-12
 # oversubscribed pools (more active jobs than n_chips // min_chips).
 COMBOS = ((6, 16, 1), (12, 64, 1), (16, 32, 3), (16, 8, 1), (9, 8, 2), (300, 256, 1))
 INTERPRET_COMBOS = COMBOS[:2] + COMBOS[3:4]  # each interpret compile is slow
+# Past 1024 jobs a cell, where the CUDA kernel holds 8 and 16 jobs a thread
+# (up to MAX_JOBS = 4096): the plain version, which the kernel equals bit
+# for bit on the card, against the TPU kernel's plain version and its
+# Pallas kernel.
+LARGE_COMBOS = ((1500, 256, 1), (4096, 256, 2))
+LARGE_INTERPRET_COMBOS = ((1500, 64, 1),)
 PS = (0.2, 0.5, 0.8)
 
 
@@ -70,12 +76,16 @@ def test_quantize_allocation_matches_jax_and_oracle(combo):
         np.testing.assert_array_equal(got, want_np, err_msg=f"{combo} {trial}")
 
 
-@pytest.mark.parametrize("impl", ["ref", "interpret"])
-def test_fused_ref_matches_jax_fused(impl):
-    combos = COMBOS if impl == "ref" else INTERPRET_COMBOS
+@pytest.mark.parametrize("impl, combos, trials", [
+    pytest.param("ref", COMBOS, 4, id="ref"),
+    pytest.param("interpret", INTERPRET_COMBOS, 4, id="interpret"),
+    pytest.param("ref", LARGE_COMBOS, 2, id="ref-large"),  # each trial's p compiles anew
+    pytest.param("interpret", LARGE_INTERPRET_COMBOS, 2, id="interpret-large"),
+])
+def test_fused_ref_matches_jax_fused(impl, combos, trials):
     rng = np.random.default_rng(11)
     for m, n_chips, min_chips in combos:
-        for trial in range(4):
+        for trial in range(trials):
             x = _sizes(rng, m)
             p = PS[trial % 3]
             theta_j, chips_j = ja.hesrpt_alloc_fused(
@@ -122,7 +132,7 @@ def test_zero_and_degenerate_inputs():
     assert empty.shape == (3, 0)
 
 
-@pytest.mark.parametrize("m", [1, 5, 32, 33, 257, 1000])
+@pytest.mark.parametrize("m", [1, 5, 32, 33, 257, 1000, 1025, 2048, 4096])
 def test_pairwise_sum_is_the_fixed_tree(m):
     v = torch.tensor(np.random.default_rng(m).random((2, m)))
     P = ta.pad_len(m)

@@ -37,10 +37,21 @@ from repro_torch.kernels import ssd_scan as ssd_kernel  # noqa: E402
 from repro_torch.models.common import ModelOptions  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 
-# (M, n_chips, min_chips): plenty of chips, floored (trims), oversubscribed,
-# the lane shape, and the largest M one CTA takes.
-COMBOS = ((6, 16, 1), (16, 32, 3), (16, 8, 1), (9, 8, 2), (300, 256, 1), (1000, 256, 1),
-          (1024, 16, 2))
+# (cells, M, n_chips, min_chips, sizes): plenty of chips, floored (trims),
+# oversubscribed, the lane shape, one to sixteen jobs a thread (1024 and
+# 1025 on either side of four), the largest M one CTA takes; sizes drawn
+# from {1, 2, 3} (ties in the ranks and in the fractional parts), rows with
+# every job inactive, and 1 and 300 cells (more than two CTAs an SM).
+COMBOS = (
+    (4, 6, 16, 1, "pareto"), (4, 16, 32, 3, "pareto"), (4, 16, 8, 1, "pareto"),
+    (4, 9, 8, 2, "pareto"), (4, 300, 256, 1, "pareto"), (4, 1000, 256, 1, "pareto"),
+    (4, 1024, 16, 2, "pareto"), (4, 1025, 256, 1, "pareto"), (4, 2048, 64, 2, "pareto"),
+    (4, alloc.MAX_JOBS, 256, 1, "pareto"), (4, alloc.MAX_JOBS, 16, 3, "pareto"),
+    (4, 37, 8, 1, "ties"), (4, 1000, 256, 1, "ties"), (4, alloc.MAX_JOBS, 256, 2, "ties"),
+    (4, 1000, 256, 1, "inactive"), (4, alloc.MAX_JOBS, 16, 1, "inactive"),
+    (1, 1000, 256, 1, "pareto"), (300, 1000, 256, 1, "pareto"),
+    (300, alloc.MAX_JOBS, 256, 1, "ties"),
+)
 PS = (0.2, 0.5, 0.8)
 
 
@@ -59,12 +70,22 @@ def _sizes(rng, shape, zero_frac=0.3):
     return x
 
 
+def _rows(rng, shape, sizes):
+    """Sizes of one COMBOS kind: "pareto" (_sizes), "ties" (1, 2 or 3 with
+    ~20% departed) or "inactive" (zeros and negatives only)."""
+    if sizes == "ties":
+        return np.where(rng.random(shape) < 0.2, 0.0, rng.integers(1, 4, shape).astype(float))
+    if sizes == "inactive":
+        return np.where(rng.random(shape) < 0.5, 0.0, -1.0)
+    return _sizes(rng, shape)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_kernel_equals_plain_version_on_card(cuda_device, dtype):
     rng = np.random.default_rng(0)
-    for m, n_chips, min_chips in COMBOS:
-        x = torch.tensor(_sizes(rng, (4, m)), device=cuda_device).to(dtype)
+    for cells, m, n_chips, min_chips, sizes in COMBOS:
+        x = torch.tensor(_rows(rng, (cells, m), sizes), device=cuda_device).to(dtype)
         for p in PS:
             before = alloc.LAUNCHES
             theta, chips = alloc.hesrpt_alloc_fused(x, p, n_chips, min_chips=min_chips)
@@ -95,7 +116,7 @@ def test_fused_run_on_card_equals_cpu_run(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
-    x = torch.ones((2, 1025), dtype=torch.float64, device=cuda_device)
+    x = torch.ones((2, alloc.MAX_JOBS + 1), dtype=torch.float64, device=cuda_device)
     with pytest.raises(ValueError, match="at most"):
         alloc.hesrpt_alloc_fused(x, 0.5, 16)
     with pytest.raises(ValueError, match="contiguous"):

@@ -1,7 +1,8 @@
 """Where the time goes in the port's sweep lanes on a CUDA card.
 
-``python3 tools/torch_lane_profile.py [--smoke]`` from the repo root runs
-each canonical lane (``repro_torch.lanes``) on the card after a warm-up:
+``python3 tools/torch_lane_profile.py [--smoke] [--lane LABEL]`` from the
+repo root runs each canonical lane (``repro_torch.lanes``), or only the one
+named (e.g. ``quantized-fused``), on the card after a warm-up:
 once plain, for its wall time, and once under ``torch.profiler`` for the
 device time by kernel.  It prints, per lane, the wall time, the summed
 device time, the device's idle share (1 - device time / plain wall; also
@@ -74,7 +75,10 @@ def main() -> int:
     print(card, flush=True)
     device = torch.device("cuda", 0)
     out = {"card": card, "torch": torch.__version__, "lanes": {}}
+    only = sys.argv[sys.argv.index("--lane") + 1] if "--lane" in sys.argv else None
     for label, spec in lanes.lane_specs(smoke="--smoke" in sys.argv):
+        if only is not None and label != only:
+            continue
         r = _profile_lane(spec, device)
         out["lanes"][label] = r
         print(f"{label:>15s}: wall {r['wall_s']} s ({r['wall_s'] / r['steps'] * 1e3} ms/step), "
