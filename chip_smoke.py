@@ -35,19 +35,24 @@ raises, and the exit code is not 0):
    causal, windows 16 and 100, head dims 16, 128, 160 and 256 and the padded
    80 and 200, the model's transposed views, and the phi4-mini prefill shape
    [4, 24, 1000, 128]; float32 runs the CUDA-core design, bfloat16 the
-   tensor-core one, which must read every one of these inputs in place (no
-   alignment copy).  5e-2 is about a typical |out| at ~1000 keys, so bf16 is
-   also held within 1e-2 + 1e-2 |want| at every element and within
-   ``FLASH_BF16_REL`` in relative norm; at the serve shapes (phi4-mini's and
-   stablelm's) two faulty outputs made with the plain arithmetic (a middle
-   K/V tile dropped; the causal edge 3 keys early for the later rows) must
-   lie beyond that limit, and the float32 kernel's output rounded to bf16
-   within it;
+   tensor-core one, and neither may copy any of these inputs (no alignment
+   copy).  float32 also runs its design's edges at each of the six head
+   dims (``FLASH_F32_EDGES``: q_offset, lengths off its 64-row and 64-key
+   tiles, a window narrower than a tile, one query row, MQA, non-causal,
+   transposed views, and an unaligned q, which must be copied once).  5e-2
+   is about a typical |out| at ~1000 keys, so bf16 is also held within
+   1e-2 + 1e-2 |want| at every element and within ``FLASH_BF16_REL`` in
+   relative norm; at the serve shapes (phi4-mini's and stablelm's) two
+   faulty outputs made with the plain arithmetic (a middle K/V tile
+   dropped; the causal edge 3 keys early for the later rows) must lie
+   beyond that limit in bf16 and beyond 2e-5 in float32, and the float32
+   kernel's output rounded to bf16 within the bf16 limit;
 8. the serving path at full width: phi4-mini-3.8b (32 layers, d_model 3072,
    vocab 200064, 4.45e9 float32 parameters drawn on the card from a seed)
    serves batch 4 x 1000 prompt tokens + 32 greedy tokens through
    ``launch/serve.py::generate``; the flash count is zeroed just before and
-   read just after and must be 32 (one per layer of the one prefill); the
+   read just after and must be 32 (one per layer of the one prefill), with
+   no input copied for alignment; the
    prefill's last logits match the same prefill with ``attn_impl="ref"``;
    then phase 20, on the same weights;
 9. the smoke-size phi4-mini on the same weights on the CPU and on the card:
@@ -57,7 +62,8 @@ raises, and the exit code is not 0):
     [4, 16, 4096, 256] / [4, 1, 4096, 256] causal with window 2048: the
     kernel, its plain version and PyTorch's ``scaled_dot_product_attention``
     (the band as a boolean mask where there is a window; timed as a
-    yardstick only, the port never calls it), beside the kernel's bound;
+    yardstick only, the port never calls it), beside the kernel's bound,
+    and the float32 instance's registers and resident CTAs an SM;
 11. the SSD kernel's build time, and the kernel against its plain version
     (``kernels/chunked.py`` at the kernel's chunk length) and, up to 1000
     steps, the recurrence (``kernels/ref.py``) on the card, float32 and
@@ -93,7 +99,8 @@ raises, and the exit code is not 0):
     drawn on the card from a seed) serves batch 4 x 4096 prompt tokens + 32
     greedy tokens through ``generate``; the counts are zeroed just before
     and read just after, and the one prefill must launch the RG-LRU kernel 26
-    times, flash 12 times and SSD not at all; the prefill's last logits
+    times, flash 12 times (no input copied) and SSD not at all; the prefill's
+    last logits
     match the same prefill with ``mixer_impl="chunked"``;
 17. the smoke-size recurrentgemma on the same weights on the CPU and on the
     card: prefill and teacher-forced decode past the window within 2e-4;
@@ -105,7 +112,8 @@ raises, and the exit code is not 0):
     from 40 to 2 layers (1.6e9 float32 parameters drawn on the card from a
     seed) prefills batch 4 x 1000 tokens through ``generate``; the flash
     count is zeroed just before and read just after and must be 2 (one per
-    layer, at the kernel's D = 160 instance); the prefill's last logits
+    layer, at the kernel's D = 160 instance, no input copied); the prefill's
+    last logits
     match the same prefill with ``attn_impl="ref"``;
 20. (run right after phase 8, on its weights) phi4-mini-3.8b at full width
     and depth with bf16 activations (``ModelOptions()``, the models'
@@ -417,7 +425,8 @@ def _faulty_attention(ref, q, k, v, fault, *, causal, window, q_offset):
 
 def phase_flash_vs_plain(flash, ref, device) -> tuple:
     """Phase 7: the flash kernel against its plain version on the card;
-    returns the max |error| per dtype and the bf16 readings."""
+    returns the max |error| per dtype, the bf16 readings and the float32
+    ones (edge cases, fault controls)."""
     import torch
 
     cases = [  # (b, hq, hkv, sq, skv, d, causal, window, transposed views)
@@ -438,6 +447,8 @@ def phase_flash_vs_plain(flash, ref, device) -> tuple:
     worst = {}
     bf16 = {"rel": 0.0, "tight_used": 0.0, "rounded_f32_rel": 0.0, "tile_rel": math.inf,
             "edge_rel": math.inf, "tile_tight_used": math.inf, "edge_tight_used": math.inf}
+    # float32's fault controls: the share of FLASH_TOL["float32"] each uses
+    f32_faults = {"tile": math.inf, "edge": math.inf}
     copies = flash.ALIGN_COPIES
     for dtype in ("float32", "bfloat16"):
         dt = getattr(torch, dtype)
@@ -457,6 +468,11 @@ def phase_flash_vs_plain(flash, ref, device) -> tuple:
             torch.cuda.synchronize()
             err = (got.float() - want.float()).abs().max().item()
             worst[dtype] = max(worst[dtype], err)
+            if dtype == "float32" and case in serve_cases:
+                for fault in f32_faults:
+                    bad = _faulty_attention(ref, q, k, v, fault, **kw)
+                    f32_faults[fault] = min(f32_faults[fault],
+                                            _tol_used(bad, want, **FLASH_TOL[dtype]))
             if dtype == "bfloat16":
                 bf16["rel"] = max(bf16["rel"], _rel(got, want))
                 bf16["tight_used"] = max(bf16["tight_used"],
@@ -472,6 +488,16 @@ def phase_flash_vs_plain(flash, ref, device) -> tuple:
                             _tol_used(bad, want, **FLASH_BF16_TIGHT))
             torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
     n = len(cases + serve_cases)
+    assert flash.ALIGN_COPIES == copies, "an aligned input was copied"
+    f32_edge = _flash_f32_edges(flash, ref, gen, device)
+    worst["float32"] = max(worst["float32"], f32_edge["max_abs_err"])
+    print(f"phase 7: float32 design's edges at head dims {list(flash.HEAD_DIMS)}: "
+          f"{f32_edge['cases']} cases (q_offset, ragged tiles, a window of 20, one query "
+          f"row, MQA, non-causal, transposed views, an unaligned q copied once), max |err| "
+          f"{f32_edge['max_abs_err']:.3e}, alignment copies {f32_edge['copies']}; float32 "
+          f"faulty outputs at the serve shapes use FLASH_TOL's limit {f32_faults['tile']:.1f}x "
+          f"(a middle tile dropped) and {f32_faults['edge']:.1f}x (the causal edge 3 keys "
+          f"early)", flush=True)
     print(f"phase 7: flash kernel == plain version on {n} shapes x 2 dtypes: "
           f"max |err| float32 {worst['float32']:.3e}, bfloat16 {worst['bfloat16']:.3e}; bf16 "
           f"max ||err|| / ||want|| {bf16['rel']:.3e} (limit {FLASH_BF16_REL}), max share of "
@@ -480,13 +506,58 @@ def phase_flash_vs_plain(flash, ref, device) -> tuple:
           f"tile dropped {bf16['tile_rel']:.3e} (share used {bf16['tile_tight_used']:.3f}), "
           f"the causal edge 3 keys early {bf16['edge_rel']:.3e} (share used "
           f"{bf16['edge_tight_used']:.3f})", flush=True)
-    assert flash.ALIGN_COPIES == copies, "an aligned bf16 input was copied"
+    assert min(f32_faults.values()) > 1, "FLASH_TOL['float32'] would pass a faulty output"
     assert bf16["tight_used"] <= 1, "bf16 flash beyond 1e-2 + 1e-2 |want|"
     assert bf16["rel"] <= FLASH_BF16_REL, "bf16 flash beyond FLASH_BF16_REL"
     assert bf16["rounded_f32_rel"] <= FLASH_BF16_REL, "the limit is below bf16 rounding"
     assert min(bf16["tile_rel"], bf16["edge_rel"]) > FLASH_BF16_REL, (
         "FLASH_BF16_REL would pass a faulty output")
-    return worst, bf16
+    return worst, bf16, {"fault_tol_used": f32_faults, "edges": f32_edge}
+
+
+# (b, hq, hkv, sq, skv, causal, window, layout): the float32 design's edges,
+# as tests/test_torch_kernels_cuda.py holds them: q_offset = skv - sq > 0,
+# lengths that are not multiples of its 64-row and 64-key tiles, a window
+# narrower than a tile, a single query row, MQA, non-causal, the model's
+# transposed views, and a q that is not 16-byte aligned (copied once).
+FLASH_F32_EDGES = (
+    (1, 4, 2, 77, 300, True, 0, "dense"), (2, 4, 2, 130, 190, True, 0, "dense"),
+    (1, 4, 2, 200, 200, True, 20, "dense"), (1, 4, 1, 1, 333, True, 0, "dense"),
+    (1, 2, 1, 1, 1, True, 0, "dense"), (1, 8, 1, 150, 150, True, 0, "dense"),
+    (2, 2, 2, 70, 129, False, 0, "dense"), (2, 6, 2, 150, 150, True, 48, "view"),
+    (1, 4, 2, 90, 90, True, 40, "unaligned"),
+)
+
+
+def _flash_f32_edges(flash, ref, gen, device) -> dict:
+    """Phase 7's float32 edge cases at each of the kernel's head dims, held
+    at FLASH_TOL["float32"]; each launches the kernel once, and only the
+    unaligned q is copied."""
+    import torch
+
+    worst, n = 0.0, 0
+    copies = flash.ALIGN_COPIES
+    for d in flash.HEAD_DIMS:
+        for b, hq, hkv, sq, skv, causal, window, layout in FLASH_F32_EDGES:
+            def make(h, s):
+                if layout == "view":
+                    return torch.randn((b, s, h, d), generator=gen, device=device).transpose(1, 2)
+                return torch.randn((b, h, s, d), generator=gen, device=device)
+            q, k, v = make(hq, sq), make(hkv, skv), make(hkv, skv)
+            if layout == "unaligned":
+                q = torch.randn((b, hq, sq, d + 1), generator=gen, device=device)[..., 1:]
+            kw = dict(causal=causal, window=window, q_offset=skv - sq)
+            launches = flash.LAUNCHES
+            got = flash.flash_attention(q, k, v, **kw)
+            want = ref.attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            assert flash.LAUNCHES == launches + 1 and got.shape == q.shape
+            worst = max(worst, (got - want).abs().max().item())
+            torch.testing.assert_close(got, want, **FLASH_TOL["float32"])
+            n += 1
+    copies = flash.ALIGN_COPIES - copies
+    assert copies == len(flash.HEAD_DIMS), f"{copies} alignment copies, not one a head dim"
+    return {"cases": n, "max_abs_err": worst, "copies": copies}
 
 
 def phase_serve(flash, device) -> dict:
@@ -517,11 +588,12 @@ def phase_serve(flash, device) -> dict:
 
     timings = {}
     torch.cuda.synchronize()
-    flash.LAUNCHES = 0
+    flash.LAUNCHES = flash.ALIGN_COPIES = 0
     ids = generate(model, params, batch, gen_len=SERVE_GEN, timings=timings)
     torch.cuda.synchronize()
     launches = flash.LAUNCHES
     assert launches == cfg.n_layers, f"{launches} flash launches in one prefill, not {cfg.n_layers}"
+    assert flash.ALIGN_COPIES == 0, "the model's float32 views were copied"
     assert ids.shape == (SERVE_BATCH, SERVE_GEN) and int(ids.min()) >= 0
     assert int(ids.max()) < cfg.vocab_size
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
@@ -692,17 +764,21 @@ def phase_flash_timing(flash, ref, device) -> dict:
             n_bytes = (2 * b * hq + 2 * b * hkv) * s * d * q.element_size()
             peak = PEAK_OPS_PER_S if dtype == "float32" else PEAK_BF16_OPS_PER_S
             t_ops, t_bytes = n_ops / peak * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+            occupancy = flash.occupancy(d) if dtype == "float32" else None
             out[name][dtype] = {"shape": [b, hq, hkv, s, d], "window": window, "ms": ms,
                                 "plain_ms": plain_ms, "library_ms": sdpa_ms,
                                 "bound_ms": max(t_ops, t_bytes),
                                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                                "ops": n_ops, "bytes": n_bytes, "tflops": n_ops / ms / 1e9}
+                                "ops": n_ops, "bytes": n_bytes, "tflops": n_ops / ms / 1e9,
+                                "registers": occupancy and occupancy[0],
+                                "ctas_per_sm": occupancy and occupancy[1]}
             print(f"phase 10: flash {dtype} {name} [{b}, {hq}, {s}, {d}] / [{b}, {hkv}, {s}, "
                   f"{d}] causal{f' window {window}' if window else ''}: kernel {ms:.4f} ms "
                   f"({n_ops / ms / 1e9:.2f} TFLOP/s), plain version {plain_ms:.4f} ms, SDPA "
                   f"{sdpa_ms:.4f} ms, bound {max(t_ops, t_bytes):.4f} ms "
-                  f"({out[name][dtype]['bound_by']}: {n_ops:.4e} flop, {n_bytes} bytes)",
-                  flush=True)
+                  f"({out[name][dtype]['bound_by']}: {n_ops:.4e} flop, {n_bytes} bytes)"
+                  + (f"; {occupancy[0]} registers a thread, {occupancy[1]} CTAs an SM"
+                     if occupancy else ""), flush=True)
             del q, k, v
     flash.LAUNCHES, flash.ALIGN_COPIES = before  # timing launches are not the main path's
     return out
@@ -990,9 +1066,10 @@ def phase_serve_hybrid(rglru_kernel, flash, ssd_kernel, card, device) -> dict:
 
     timings = {}
     torch.cuda.synchronize()
-    rglru_kernel.LAUNCHES = flash.LAUNCHES = ssd_kernel.LAUNCHES = 0
+    rglru_kernel.LAUNCHES = flash.LAUNCHES = ssd_kernel.LAUNCHES = flash.ALIGN_COPIES = 0
     ids = generate(model, params, batch, gen_len=HYBRID_GEN, timings=timings)
     torch.cuda.synchronize()
+    assert flash.ALIGN_COPIES == 0, "the model's float32 views were copied"
     launches = {"rglru": rglru_kernel.LAUNCHES, "flash": flash.LAUNCHES,
                 "ssd": ssd_kernel.LAUNCHES}
     assert launches == {"rglru": n_rglru, "flash": n_attn, "ssd": 0} == {
@@ -1100,11 +1177,12 @@ def phase_serve_wide(flash, card, device) -> dict:
 
     timings = {}
     torch.cuda.synchronize()
-    flash.LAUNCHES = 0
+    flash.LAUNCHES = flash.ALIGN_COPIES = 0
     ids = generate(model, params, batch, gen_len=WIDE_GEN, timings=timings)
     torch.cuda.synchronize()
     launches = flash.LAUNCHES
     assert launches == cfg.n_layers == WIDE_LAYERS, f"{launches} flash launches in one prefill"
+    assert flash.ALIGN_COPIES == 0, "the model's float32 views were copied"
     assert ids.shape == (WIDE_BATCH, WIDE_GEN) and int(ids.min()) >= 0
     assert int(ids.max()) < cfg.vocab_size
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
@@ -1179,7 +1257,8 @@ def main() -> int:
     print(f"phase 7: built {flash_attention._SRC.name} in "
           f"{flash_attention.BUILD_SECONDS:.2f} s (in parallel with phase 1's build)",
           flush=True)
-    flash_err, flash_bf16_check = phase_flash_vs_plain(flash_attention, ref, device)
+    flash_err, flash_bf16_check, flash_f32_check = phase_flash_vs_plain(flash_attention, ref,
+                                                                        device)
     serve, params, logits_f32 = phase_serve(flash_attention, device)
     bf16_serve = phase_serve_bf16(flash_attention, params, logits_f32, card, device)
     del params, logits_f32
@@ -1230,6 +1309,9 @@ def main() -> int:
         "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
+        "registers": f32["registers"],
+        "ctas_per_sm": f32["ctas_per_sm"],
+        "ms_recurrentgemma": flash_timing["recurrentgemma"]["float32"]["ms"],
         "launches_bf16": bf16_serve["flash_launches"],
         "ms_bf16": bf16["ms"],
         "plain_ms_bf16": bf16["plain_ms"],
@@ -1278,6 +1360,7 @@ def main() -> int:
         "thm8_max_rel": thm8_gap,
         "flash_max_abs_err": flash_err,
         "flash_bf16_check": flash_bf16_check,
+        "flash_f32_check": flash_f32_check,
         "flash_timing": flash_timing,
         "serve": serve,
         "bf16_serve": bf16_serve,

@@ -12,31 +12,66 @@
 // reference's NEG_INF, not -inf), the denominator clamped at 1e-30, and the
 // output in the input's type (float32 or bfloat16).
 //
-// float32 (flash_fwd<float, D>).  One CTA of 256 threads per (q-tile of
-// BQ = 64 rows, query head, batch row).  The CTA stages its Q tile
-// (pre-scaled) and, in turn, each BK = 64-key tile of K and V in shared
-// memory as float32; rows are padded to D + 1 floats so that the column walks
-// below hit 32 distinct banks.  Thread (ty, tx), ty = tid / 16, tx = tid % 16,
-// owns query rows 4ty..4ty+3, the logits of key columns tx + 16c (c = 0..3)
-// and the output columns tx + 16c (c = 0..D/16-1).  Both products are float32
-// FMAs (no tensor cores, no TF32); a row's max and sum reduce over the 16
-// lanes of a half-warp.  The probability tile P is written over the K tile
-// once the logits are done, which keeps D = 128 at 99 KB of shared memory
-// (two CTAs per SM); D = 160 (stablelm) takes 121 KB and D = 256 193 KB, one
-// CTA per SM.  The instances are D = 16, 32, 64, 128, 160 and 256; the
-// wrapper zero-pads any other D <= 256 to the next one (zero columns change
-// neither q . k nor the output's real columns) and passes the true D's scale.
-// It refuses D > 256: the three [64][D + 1] float32 tiles outgrow shared
-// memory soon after (at D = 320 they take 241 KB, more than the 227 KB a CTA
-// may have).
+// float32 (flash_fwd_f32<D>).  Its bound is the CUDA cores' FFMA rate (no
+// tensor cores and no TF32: the reference is float32), so the design keeps
+// the FFMA pipes fed: few instructions besides FFMA, and K/V copies that run
+// behind the products.  One CTA of 256 threads (8 warps) per (q-tile of
+// F_BQ = 64 rows, query head, batch row); the q-tile is the slowest grid
+// dimension, so the longest causal tiles of every head are issued first.
+//   - Register tiles.  Lane (lr, lk) of warp w, lr = lane / 16, lk = lane %
+//     16, owns query rows 8 w + lr + 2 i (i = 0..3); of a tile's logits, key
+//     columns lk + 16 j (j = 0..3), a 4 x 4 tile; of the output, the 16-byte
+//     column chunks lk + 16 u (4 x 8 floats at D = 128, 4 x 16 at 256).  Every
+//     operand comes from shared memory as a float4 (LDS.128): in S = Q K^T
+//     four d cost 4 loads of Q and 4 of K for 64 FFMAs; in O += P V four keys
+//     cost 4 loads of P and D / 16 of V for 4 D FFMAs.  Each word loaded
+//     feeds 4 FFMAs (Q, K, V) or D / 16 (P), and one load instruction brings
+//     4 words, so loads take few of the issue slots.
+//   - Swizzle.  Q, K and V tiles lie [rows][D], unpadded, with 16-byte chunk
+//     c of row r at c ^ (r % 8) (r % 4 at D = 16, whose rows have 4 chunks),
+//     P [64][64] likewise; a load's rows (the 16 keys lk + 16 j, or Q's and
+//     P's 2 rows a warp) then hit distinct banks.  A lane's offsets follow
+//     from lk % 8 and the parity of lr, with one XOR a K or V load.
+//   - A ring of K/V half-tiles.  K and V tiles of F_BK = 64 keys take turns
+//     in STAGES slots (K of tile t, V of t, K of t + 1, ...), copied with
+//     cp.async (16 bytes a copy, rows past Skv zero-filled) by every thread,
+//     one commit group a half-tile.  Before each half-tile a thread waits for
+//     its own copies of it (cp.async.wait_group STAGES - 2), one
+//     __syncthreads makes everyone's visible and frees the slot of the half
+//     before, and the copy STAGES - 1 halves ahead goes into that slot before
+//     the product starts: V_t lands behind S_t and K_t+1 behind P_t V_t.  Two
+//     barriers a tile.
+//   - P goes to shared memory between the products; a row's 64 entries are
+//     written and read by the 16 lanes of one half-warp.
+//   - Shared memory: Q [64][D] + P [64][64] + STAGES x [64][D] floats.  D =
+//     128: 2 stages, 112 KB, two CTAs an SM (at most 128 registers a thread).
+//     D = 256: 2 stages, 208 KB of the 227 a CTA may have, one CTA (K and V
+//     staged apart: two whole K + V stages would take 336 KB).  D = 160: 3
+//     stages, 176 KB, one CTA.  D = 32 and 64: 3 stages, two CTAs; D = 16
+//     one (at two, its 128 registers spilled).
+//   - Arithmetic: the TPU kernel's operations (Q pre-scaled on load, the
+//     masks, expf, the running max and correction, P in float32, the 1e-30
+//     clamp), the logits summed over d and P V over the keys in order by
+//     fmaf; a row's max and sum reduce over the 16 lanes of a half-warp.
+//   - Inputs: the copies need 16-byte aligned rows (a 16-byte aligned start;
+//     batch, head and sequence strides multiples of 4 elements).  The wrapper
+//     copies any other float32 input once and counts it.
+// The instances are D = 16, 32, 64, 128, 160 and 256; the wrapper zero-pads
+// any other D <= 256 to the next one (zero columns change neither q . k nor
+// the output's real columns) and passes the true D's scale.  It refuses D >
+// 256: at D = 320 the float32 design's Q, P and two half-tile slots would
+// take 256 KB.
 //
 // Bound.  At the main path's shape ([4, 24, 1000, 128], causal) the two
 // products are 4 * D flops per allowed (query, key) pair: about 24.6 GFLOP
 // against 131 MB (float32) or 66 MB (bf16) of q, k, v and o, so both types
 // are bound by operations: 0.37 ms at 67 TFLOP/s float32, 0.025 ms at 989
 // TFLOP/s on the bf16 tensor cores (bytes: 0.04 and 0.02 ms).  The float32
-// design is limited by shared-memory traffic (two loads per two to three
-// FMAs) and by the lack of overlap between tile loads and compute.
+// design reaches ~45% of its bound on an H100.  tools/flash_f32_probe.py
+// times it with one cost taken out at a time (PERF.md): its FFMAs alone run
+// at 54-60% of the bound, at the full clock, so they take most of the gap;
+// operand loads, copies and barriers the rest, none much above a tenth.  Larger register tiles
+// (8 rows a thread) cost the warps that hide latency and ran no faster.
 //
 // bfloat16 (flash_fwd_tc<D>).  Its bound is the tensor cores', 15x below the
 // float32 one, so both products run as wgmma.mma_async m64n64k16, bf16 in,
@@ -104,17 +139,37 @@
 
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int THREADS = 256;
 constexpr float MASKED = -1e30f;  // the reference's NEG_INF
+
+// ------------------------------------------------------------ float32, CUDA cores
+
+constexpr int F_THREADS = 256;  // 8 warps; 16 lanes share a row
+constexpr int F_BQ = 64;        // query rows a CTA: 8 a warp, 4 a thread
+constexpr int F_BK = 64;        // keys a K or V tile: 4 of a tile's logits a thread
 
 struct Strides {  // in elements: batch, head, sequence (the last dim is unit-stride)
   long long q[3], k[3], v[3], o[3];
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
+template <int D>
+struct F32Tile {
+  static constexpr int DC = D / 4;               // 16-byte chunks a row
+  static constexpr int SW = DC < 8 ? DC - 1 : 7;  // chunk c of row r lies at c ^ (r & SW)
+  static constexpr int G = SW + 1;               // chunks a swizzle period
+  static constexpr int NU = (DC + 15) / 16;      // output chunks a thread: lk + 16 u
+  static constexpr bool PARTIAL = 16 * NU > DC;  // the last of them only for lk + 16 u < DC
+  static constexpr int STAGES = (D == 128 || D == 256) ? 2 : 3;  // K/V half-tile slots
+  // Two CTAs an SM cap a thread at 128 registers; D = 16, whose whole logits
+  // product is one unrolled block, spills under that cap, so it takes one.
+  static constexpr int CTAS_PER_SM = D <= 128 && D != 16 ? 2 : 1;
+  static constexpr int SLOT = F_BK * D;          // floats of one K or V tile
+  static constexpr int SMEM = 4 * (F_BQ * D + F_BQ * F_BK + STAGES * SLOT);  // Q, P, ring
+  // Hopper: 227 KB a CTA; two CTAs share 228 KB, with 1 KB reserved for each.
+  static_assert(SMEM <= 232448, "a CTA's shared memory exceeds Hopper's 227 KB");
+  static_assert(CTAS_PER_SM == 1 || CTAS_PER_SM * (SMEM + 1024) <= 233472,
+                "CTAS_PER_SM CTAs do not fit an SM's shared memory");
+  static_assert(D % 16 == 0 && F_BK % 16 == 0, "a tile is whole 16-byte chunks");
+};
 
 __device__ __forceinline__ float half_warp_max(float x) {
 #pragma unroll
@@ -128,41 +183,55 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-template <int D>
-__host__ __device__ constexpr int smem_floats() {
-  constexpr int LD = D + 1;
-  constexpr int kp = BK * LD > BQ * (BK + 1) ? BK * LD : BQ * (BK + 1);  // K tile, then P
-  return BQ * LD + kp + BK * LD;
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, Strides st, int group, int Sq, int Skv, float scale,
-          int causal, int window, int q_offset) {
-  constexpr int LD = D + 1;
-  constexpr int LDP = BK + 1;
-  constexpr int NC = D / 16;
-  extern __shared__ float smem[];
-  float* sq = smem;                                      // [BQ][LD]
-  float* sk = sq + BQ * LD;                              // [BK][LD], then P [BQ][LDP]
-  float* sv = smem + smem_floats<D>() - BK * LD;         // [BK][LD]
-  float* sp = sk;
+// 16 bytes from global memory to shared memory, asynchronously; zeros when
+// src_bytes is 0 (nothing is read).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))), "l"(src),
+                  "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
 
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z, hk = h / group;
-  const T* qb = q + b * st.q[0] + h * st.q[1];
-  const T* kb = k + b * st.k[0] + hk * st.k[1];
-  const T* vb = v + b * st.v[0] + hk * st.v[1];
-  T* ob = o + b * st.o[0] + h * st.o[1];
+// acc (+)= a * b, element by element over b's four lanes.
+__device__ __forceinline__ void fma4(float4& acc, float a, const float4& b) {
+  acc.x = fmaf(a, b.x, acc.x);
+  acc.y = fmaf(a, b.y, acc.y);
+  acc.z = fmaf(a, b.z, acc.z);
+  acc.w = fmaf(a, b.w, acc.w);
+}
 
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D, c = i % D, row = q0 + r;
-    sq[r * LD + c] = row < Sq ? load_f32(qb + row * st.q[2] + c) * scale : 0.f;
-  }
+template <int D>
+__global__ void __launch_bounds__(F_THREADS, F32Tile<D>::CTAS_PER_SM)
+flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ o, Strides st, int group, int Sq,
+              int Skv, float scale, int causal, int window, int q_offset) {
+  using L = F32Tile<D>;
+  constexpr int DC = L::DC, SW = L::SW, G = L::G, NU = L::NU, STAGES = L::STAGES;
+  extern __shared__ float4 f32_smem[];
+  float* sq = reinterpret_cast<float*>(f32_smem);  // [F_BQ][D], pre-scaled
+  float* sp = sq + F_BQ * D;                       // [F_BQ][F_BK]
+  float* ring = sp + F_BQ * F_BK;                  // STAGES x [F_BK][D]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lr = (tid >> 4) & 1, lk = tid & 15;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * F_BQ;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / group;
+  const float* qb = q + b * st.q[0] + h * st.q[1];
+  const float* kb = k + b * st.k[0] + hk * st.k[1];
+  const float* vb = v + b * st.v[0] + hk * st.v[1];
+  float* ob = o + b * st.o[0] + h * st.o[1];
 
   // Key tiles that can hold an allowed key for some row of this CTA.
-  const int q_last = min(q0 + BQ, Sq) - 1;
+  const int q_last = min(q0 + F_BQ, Sq) - 1;
   int kv_lo = 0, kv_hi = Skv;
   if (causal) kv_hi = min(kv_hi, q_last + q_offset + 1);
   if (window > 0) kv_lo = max(0, q0 + q_offset - window + 1);
@@ -170,109 +239,210 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     kv_lo = 0;
     kv_hi = Skv;
   }
-  const int t_lo = kv_lo / BK, t_hi = (kv_hi + BK - 1) / BK;
+  const int t_lo = kv_lo / F_BK, t_hi = (kv_hi + F_BK - 1) / F_BK;
+  const int halves = 2 * (t_hi - t_lo);  // K of tile t_lo, V of t_lo, K of t_lo + 1, ...
 
-  float m[4], l[4], acc[4][NC];
+  // Half-tile n into slot n % STAGES, one commit group (empty past the last).
+  // Where a row's chunks divide the CTA (D != 160), a thread copies chunk cc
+  // of rows cr + RSTEP m; as RSTEP % 4 == 0, row cr + RSTEP m's swizzle is
+  // cr's, with bit 2 flipped for odd m when RSTEP % 8 == 4 (D = 256).
+  constexpr int RSTEP = F_THREADS % DC == 0 ? F_THREADS / DC : 0;
+  const int cr = RSTEP ? tid / DC : 0, cc = RSTEP ? tid % DC : 0;
+  const int cx = cc ^ (cr & SW);
+  const int d_even = cr * D + 4 * cx, d_odd = cr * D + 4 * (cx ^ 4);
+  auto issue = [&](int n) {
+    if (n < halves) {
+      const int k0 = (t_lo + (n >> 1)) * F_BK;
+      const float* src = (n & 1) ? vb : kb;
+      const long long rs = (n & 1) ? st.v[2] : st.k[2];
+      float* dst = ring + (n % STAGES) * L::SLOT;
+      if constexpr (RSTEP != 0) {
+        static_assert(RSTEP % 4 == 0 && F_BK % RSTEP == 0, "rows a pass");
+        const float* s0 = src + (k0 + cr) * rs + cc * 4;
+#pragma unroll
+        for (int m = 0; m < F_BK / RSTEP; ++m) {
+          const bool in = k0 + cr + RSTEP * m < Skv;
+          const int d = (((RSTEP * m) & SW) ? d_odd : d_even) + RSTEP * m * D;
+          cp_async16(dst + d, in ? s0 + RSTEP * m * rs : src, in ? 16 : 0);
+        }
+      } else {
+#pragma unroll
+        for (int m = 0; m < F_BK * DC / F_THREADS; ++m) {
+          const int i = tid + m * F_THREADS, r = i / DC, c = i % DC, row = k0 + r;
+          const bool in = row < Skv;
+          cp_async16(dst + r * D + 4 * (c ^ (r & SW)), in ? src + row * rs + 4 * c : src,
+                     in ? 16 : 0);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int n = 0; n < STAGES - 1; ++n) issue(n);
+
+  for (int i = tid; i < F_BQ * DC; i += F_THREADS) {
+    const int r = i / DC, c = i % DC, row = q0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row < Sq) {
+      x = __ldg(reinterpret_cast<const float4*>(qb + row * st.q[2]) + c);
+      x.x *= scale;
+      x.y *= scale;
+      x.z *= scale;
+      x.w *= scale;
+    }
+    *reinterpret_cast<float4*>(sq + r * D + 4 * (c ^ (r & SW))) = x;
+  }
+
+  // This lane's rows are row0 + 2 i; their swizzle is (2 i & SW) ^ lr, so a
+  // Q or P chunk y ^ lr lies at y + lr (y even) or y - lr (y odd).  Its keys
+  // lk + 16 j share lk & SW: K and V chunk x of a swizzle period lies at
+  // x ^ (lk & SW), 4 (x ^ (lk & SW)) = (4 x) ^ lk4 floats into it.
+  const int row0 = 8 * warp + lr, lk4 = 4 * (lk & SW);
+  const float* q_even = sq + row0 * D + 4 * lr;
+  const float* q_odd = sq + row0 * D - 4 * lr;
+  const float* p_row = sp + row0 * F_BK;
+  const bool lk_in = !L::PARTIAL || lk + 16 * (NU - 1) < DC;
+
+  float m[4], l[4], s[4][4];
+  float4 acc[4][NU];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = MASKED;
     l[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
+    for (int u = 0; u < NU; ++u) acc[i][u] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
 
-  for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's P and V are read
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D, c = i % D, row = k0 + r;
-      const bool in = row < Skv;
-      sk[r * LD + c] = in ? load_f32(kb + row * st.k[2] + c) : 0.f;
-      sv[r * LD + c] = in ? load_f32(vb + row * st.v[2] + c) : 0.f;
-    }
-    __syncthreads();
+  for (int n = 0; n < halves; ++n) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of half n have landed
+    __syncthreads();              // everyone's have, and half n - 1 is done with
+    issue(n + STAGES - 1);        // into the slot of half n - 1
+    const float* tile = ring + (n % STAGES) * L::SLOT;
+    const int k0 = (t_lo + (n >> 1)) * F_BK;
 
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    }
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[4], ka[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = sq[(4 * ty + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ka[j] = sk[(tx + 16 * j) * LD + d];
+    if (!(n & 1)) {  // S = Q K^T, then the online softmax; P to shared memory
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
       }
-    }
-    __syncthreads();  // every thread is done with K: P goes over it
+      const float* k_row = tile + lk * D;
+#pragma unroll 1
+      for (int c0 = 0; c0 < DC; c0 += G) {
+#pragma unroll
+        for (int x = 0; x < G; ++x) {
+          float4 qa[4], ka[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int y = x ^ ((2 * i) & SW);
+            qa[i] = lds4(((y & 1) ? q_odd : q_even) + 2 * i * D + 4 * (c0 + y));
+          }
+          const float* kx = k_row + 4 * c0 + ((4 * x) ^ lk4);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) ka[j] = lds4(kx + 16 * j * D);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              s[i][j] = fmaf(qa[i].x, ka[j].x, s[i][j]);
+              s[i][j] = fmaf(qa[i].y, ka[j].y, s[i][j]);
+              s[i][j] = fmaf(qa[i].z, ka[j].z, s[i][j]);
+              s[i][j] = fmaf(qa[i].w, ka[j].w, s[i][j]);
+            }
+          }
+        }
+      }
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = q0 + 4 * ty + i + q_offset;
-      float row_max = -INFINITY;
+      for (int i = 0; i < 4; ++i) {
+        const int row = row0 + 2 * i, q_pos = q0 + row + q_offset;
+        float row_max = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k_pos = k0 + tx + 16 * j;
-        float x = s[i][j];
-        if (k_pos >= Skv) x = -INFINITY;
-        else if ((causal && k_pos > q_pos) || (window > 0 && k_pos <= q_pos - window)) x = MASKED;
-        s[i][j] = x;
-        row_max = fmaxf(row_max, x);
+        for (int j = 0; j < 4; ++j) {
+          const int k_pos = k0 + lk + 16 * j;
+          float x = s[i][j];
+          if (k_pos >= Skv) x = -INFINITY;
+          else if ((causal && k_pos > q_pos) || (window > 0 && k_pos <= q_pos - window)) x = MASKED;
+          s[i][j] = x;
+          row_max = fmaxf(row_max, x);
+        }
+        const float m_new = fmaxf(m[i], half_warp_max(row_max));
+        const float corr = expf(m[i] - m_new);
+        float row_sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = expf(s[i][j] - m_new);
+          sp[row * F_BK + 4 * (((lk >> 2) + 4 * j) ^ (row & 7)) + (lk & 3)] = p;
+          row_sum += p;
+        }
+        l[i] = corr * l[i] + half_warp_sum(row_sum);
+        m[i] = m_new;
+#pragma unroll
+        for (int u = 0; u < NU; ++u) {
+          acc[i][u].x *= corr;
+          acc[i][u].y *= corr;
+          acc[i][u].z *= corr;
+          acc[i][u].w *= corr;
+        }
       }
-      const float m_new = fmaxf(m[i], half_warp_max(row_max));
-      const float corr = expf(m[i] - m_new);
-      float row_sum = 0.f;
+    } else {  // O += P V, keys in order; P's chunk z of a 16-key group g lies
+              // at 4 (g ^ (i >> 1)) + (z ^ 2 (i & 1)) ^ lr for row i
+      const float* v_row = tile + 4 * (lk & ~SW);
+#pragma unroll 1
+      for (int g = 0; g < F_BK / 16; ++g) {
+        const float* p_g[2] = {p_row + 16 * g, p_row + 16 * (g ^ 1)};
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        sp[(4 * ty + i) * LDP + tx + 16 * j] = p;
-        row_sum += p;
-      }
-      l[i] = corr * l[i] + half_warp_sum(row_sum);
-      m[i] = m_new;
+        for (int z = 0; z < 4; ++z) {
+          float4 pa[4];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pa[4];
+          for (int i = 0; i < 4; ++i) {
+            const int y = z ^ (2 * (i & 1));
+            pa[i] = lds4(p_g[i >> 1] + 2 * i * F_BK + 4 * y + ((y & 1) ? -4 * lr : 4 * lr));
+          }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = sp[(4 * ty + i) * LDP + j];
+          for (int jj = 0; jj < 4; ++jj) {
+            const int key = 16 * g + 4 * z + jj;
+            const float* vk = v_row + key * D + ((4 * ((4 * z + jj) & SW)) ^ lk4);
+            float4 vv[NU];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float vv = sv[j * LD + tx + 16 * c];
+            for (int u = 0; u < NU; ++u) {
+              vv[u] = (u < NU - 1 || lk_in) ? lds4(vk + 64 * u) : make_float4(0.f, 0.f, 0.f, 0.f);
+            }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(pa[i], vv, acc[i][c]);
+            for (int i = 0; i < 4; ++i) {
+              const float p = jj == 0 ? pa[i].x : jj == 1 ? pa[i].y : jj == 2 ? pa[i].z : pa[i].w;
+#pragma unroll
+              for (int u = 0; u < NU; ++u) fma4(acc[i][u], p, vv[u]);
+            }
+          }
+        }
       }
     }
   }
+  cp_async_wait<0>();  // no copy outlives the CTA (the last groups are empty)
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
+    const int row = q0 + row0 + 2 * i;
     if (row >= Sq) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = ob + row * st.o[2];
+    float4* orow = reinterpret_cast<float4*>(ob + row * st.o[2]);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) store(orow + tx + 16 * c, acc[i][c] / denom);
+    for (int u = 0; u < NU; ++u) {
+      if (u < NU - 1 || lk_in) {
+        const float4 a = acc[i][u];
+        orow[lk + 16 * u] = make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom);
+      }
+    }
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-           int Sq, int Skv, const long long* strides, float scale, int causal, int window,
-           int q_offset, cudaStream_t stream) {
-  constexpr int bytes = smem_floats<D>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T, D>,
+template <int D>
+int launch_f32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+               int Sq, int Skv, const long long* strides, float scale, int causal, int window,
+               int q_offset, cudaStream_t stream) {
+  constexpr int bytes = F32Tile<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   Strides st;
@@ -282,25 +452,52 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Hq, 
     st.v[i] = strides[6 + i];
     st.o[i] = strides[9 + i];
   }
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd<T, D><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), st, Hq / Hkv, Sq, Skv, scale, causal, window, q_offset);
+  const dim3 grid(Hq, B, (Sq + F_BQ - 1) / F_BQ);
+  flash_fwd_f32<D><<<grid, F_THREADS, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), st, Hq / Hkv, Sq, Skv, scale, causal, window, q_offset);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
-             int Sq, int Skv, int D, const long long* strides, float scale, int causal,
-             int window, int q_offset, void* stream) {
+// Registers a thread and resident CTAs an SM of the instance for head dim D.
+template <int D>
+int instance_occupancy(int* registers, int* ctas_per_sm) {
+  constexpr int bytes = F32Tile<D>::SMEM;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  cudaFuncAttributes attr;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, flash_fwd_f32<D>);
+  if (err == cudaSuccess) {
+    *registers = attr.numRegs;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, flash_fwd_f32<D>,
+                                                        F_THREADS, bytes);
+  }
+  return (int)err;
+}
+
+int dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, int Hq, int Hkv,
+                 int Sq, int Skv, int D, const long long* strides, float scale, int causal,
+                 int window, int q_offset, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
-    case 160: return launch<T, 160>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
-    case 256: return launch<T, 256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
+    case 16: return launch_f32<16>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
+    case 32: return launch_f32<32>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
+    case 64: return launch_f32<64>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
+    case 128: return launch_f32<128>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
+    case 160: return launch_f32<160>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
+    case 256: return launch_f32<256>(q, k, v, o, B, Hq, Hkv, Sq, Skv, strides, scale, causal, window, q_offset, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int occupancy_f32(int D, int* registers, int* ctas_per_sm) {
+  switch (D) {
+    case 16: return instance_occupancy<16>(registers, ctas_per_sm);
+    case 32: return instance_occupancy<32>(registers, ctas_per_sm);
+    case 64: return instance_occupancy<64>(registers, ctas_per_sm);
+    case 128: return instance_occupancy<128>(registers, ctas_per_sm);
+    case 160: return instance_occupancy<160>(registers, ctas_per_sm);
+    case 256: return instance_occupancy<256>(registers, ctas_per_sm);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -748,8 +945,8 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
                                    int B, int Hq, int Hkv, int Sq, int Skv, int D,
                                    const long long* strides, float scale, int causal,
                                    int window, int q_offset, void* stream) {
-  return dispatch<float>(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides, scale, causal, window,
-                         q_offset, stream);
+  return dispatch_f32(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides, scale, causal, window,
+                      q_offset, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
@@ -758,4 +955,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     int window, int q_offset, void* stream) {
   return dispatch_tc(q, k, v, o, B, Hq, Hkv, Sq, Skv, D, strides, scale, causal, window,
                      q_offset, stream);
+}
+// Registers a thread and resident CTAs an SM of the float32 instance for head
+// dim D.  Returns a cudaError_t (0 = success).
+extern "C" int flash_attention_f32_occupancy(int D, int* registers, int* ctas_per_sm) {
+  return occupancy_f32(D, registers, ctas_per_sm);
 }

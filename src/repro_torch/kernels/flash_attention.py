@@ -17,17 +17,22 @@ padded D still runs the kernel.  It raises on anything else; it never falls
 back to the plain version.  The kernel is compiled at first use
 (``kernels/build.py``).
 
-Two designs share the source, one per type.  float32 runs on the CUDA cores
-(64-row tiles, 4 x 4 register tiles fed from shared memory), bound at 0.37
-ms by the 67 TFLOP/s float32 rate at the phi4-mini prefill shape
-[4, 24, 1000, 128].  bfloat16 is bound 15x lower, at 0.025 ms by the 989
-TFLOP/s tensor cores, so its kernel runs both products as ``wgmma`` on 128
-query rows a CTA (``TcTile`` in the source), with K/V tiles brought by TMA into
-a ring of shared-memory stages ahead of the products, and P rounded to bf16
-in registers between the two products.  TMA reads a tensor in place only
-when it is 16-byte aligned (:func:`copies_in_place`); the model's
-transposed views are, and any other bf16 input is copied contiguous first
-and counted in :data:`ALIGN_COPIES`.
+Two designs share the source, one per type.  float32 runs on the CUDA cores,
+bound at 0.37 ms by the 67 TFLOP/s float32 rate at the phi4-mini prefill
+shape [4, 24, 1000, 128]: 64 query rows a CTA, 4 x 4 logits and 4 x D / 16
+outputs a thread in registers, every operand a 16-byte shared-memory load
+that feeds 4 FMAs or more, and K/V tiles copied by ``cp.async`` into a ring
+of half-tile slots ahead of the products (``F32Tile`` in the source).  Its
+copies read 16-byte rows in place (:func:`f32_copies_in_place`); the model's
+transposed views are such, and any other float32 input is copied contiguous
+first and counted in :data:`ALIGN_COPIES`.  bfloat16 is bound 15x lower, at
+0.025 ms by the 989 TFLOP/s tensor cores, so its kernel runs both products as
+``wgmma`` on 128 query rows a CTA (``TcTile`` in the source), with K/V tiles
+brought by TMA into a ring of shared-memory stages ahead of the products, and
+P rounded to bf16 in registers between the two products.  TMA reads a tensor
+in place only when it is 16-byte aligned (:func:`copies_in_place`); the
+model's transposed views are, and any other bf16 input is copied contiguous
+first and counted in :data:`ALIGN_COPIES`.
 """
 
 from __future__ import annotations
@@ -44,9 +49,9 @@ from repro_torch.kernels.build import KernelLibrary
 #: zeroes it before the main path and reads it after).
 LAUNCHES = 0
 
-#: Copies of bf16 inputs that the kernel's TMA copies cannot read in place
-#: (:func:`copies_in_place`), since the last reset (the model's path makes
-#: none).
+#: Copies of inputs that the kernel's tile copies cannot read in place
+#: (:func:`copies_in_place` for bf16, :func:`f32_copies_in_place` for
+#: float32), since the last reset (the model's path makes none).
 ALIGN_COPIES = 0
 
 #: Head dims the kernel is built for; any other D up to the last is padded.
@@ -64,6 +69,10 @@ _LIBRARY = KernelLibrary(_SRC, {
         ctypes.c_void_p,
     ]
     for name in ("flash_attention_f32", "flash_attention_bf16")
+} | {
+    "flash_attention_f32_occupancy": [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+    ],
 })
 
 
@@ -84,6 +93,20 @@ def padded_head_dim(d: int) -> int:
     raise ValueError(f"the flash kernel takes head dim at most {HEAD_DIMS[-1]}, got {d}")
 
 
+def occupancy(d: int) -> tuple[int, int]:
+    """(registers a thread, resident CTAs an SM) of the float32 kernel's
+    instance for head dim ``d`` (one of :data:`HEAD_DIMS`) on the current
+    card."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"no float32 flash instance for head dim {d}")
+    registers, ctas = ctypes.c_int(0), ctypes.c_int(0)
+    err = load_library().flash_attention_f32_occupancy(d, ctypes.byref(registers),
+                                                       ctypes.byref(ctas))
+    if err != 0:
+        raise RuntimeError(f"flash kernel occupancy query failed: cudaError {err}")
+    return registers.value, ctas.value
+
+
 def copies_in_place(t: torch.Tensor) -> bool:
     """Whether the bf16 kernel's tile copies (TMA) can read ``t`` where it
     lies: the start 16-byte aligned and the batch, head and sequence
@@ -97,6 +120,23 @@ def copies_in_place(t: torch.Tensor) -> bool:
 def _in_place_or_copy(t: torch.Tensor) -> torch.Tensor:
     global ALIGN_COPIES
     if copies_in_place(t):
+        return t
+    ALIGN_COPIES += 1
+    return t.clone(memory_format=torch.contiguous_format)  # a new, aligned allocation
+
+
+def f32_copies_in_place(t: torch.Tensor) -> bool:
+    """Whether the float32 kernel's 16-byte copies can read ``t`` where it
+    lies: the head dim unit-stride, the start 16-byte aligned and the batch,
+    head and sequence strides multiples of 4 elements (16 bytes); a dim of
+    size 1 is never stepped, so its stride does not matter."""
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(n == 1 or s % 4 == 0 for s, n in zip(t.stride()[:3], t.shape[:3])))
+
+
+def _f32_in_place_or_copy(t: torch.Tensor) -> torch.Tensor:
+    global ALIGN_COPIES
+    if f32_copies_in_place(t):
         return t
     ALIGN_COPIES += 1
     return t.clone(memory_format=torch.contiguous_format)  # a new, aligned allocation
@@ -133,7 +173,7 @@ def flash_attention(
     if q.dtype == torch.bfloat16:
         q, k, v = (_in_place_or_copy(t) for t in (q, k, v))
     else:
-        q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+        q, k, v = (_f32_in_place_or_copy(t) for t in (q, k, v))
     o = torch.empty_like(q)  # dense q keeps its strides, so o's layout is q's
     if o.numel() == 0:
         return o[..., :D]

@@ -164,3 +164,31 @@ def test_copies_in_place_decides_which_bf16_inputs_are_copied(make, in_place):
     """The kernel's TMA copies need a 16-byte aligned start and batch, head
     and sequence strides that are positive multiples of 8 elements."""
     assert tflash.copies_in_place(make()) is in_place
+
+
+def _f32(*shape):
+    return torch.zeros(shape, dtype=torch.float32)
+
+
+_FLAT32 = _f32(2 * 3 * 40 * 64 + 4)
+
+
+@pytest.mark.parametrize("make,in_place", [
+    pytest.param(lambda: _f32(2, 3, 40, 64), True, id="dense"),
+    # the model's transposed views of its [B, S, H, D] projections
+    pytest.param(lambda: _f32(2, 40, 3, 64).transpose(1, 2), True, id="model-view"),
+    pytest.param(lambda: _FLAT32[4:].view(2, 3, 40, 64), True, id="16-byte-offset"),
+    pytest.param(lambda: _FLAT32[1:1 - 4].view(2, 3, 40, 64), False, id="4-byte-offset"),
+    pytest.param(lambda: _f32(2, 3, 40, 65)[..., :64], False, id="row-stride-65"),
+    # 68 elements are 16 bytes a multiple: in place for float32, not for bf16
+    pytest.param(lambda: _f32(2, 3, 40, 68)[..., :64], True, id="row-stride-68"),
+    pytest.param(lambda: _f32(2, 3, 40, 64).transpose(-1, -2), False, id="d-not-unit-stride"),
+    # cp.async reads a stride-0 head as it reads any other
+    pytest.param(lambda: _f32(2, 1, 40, 64).expand(2, 3, 40, 64), True, id="head-stride-0"),
+    pytest.param(lambda: _f32(40 * 64).as_strided((1, 1, 40, 64), (7, 3, 64, 1)), True,
+                 id="size-1-dims"),
+])
+def test_f32_copies_in_place_decides_which_float32_inputs_are_copied(make, in_place):
+    """The float32 kernel's 16-byte copies need a 16-byte aligned start and
+    batch, head and sequence strides that are multiples of 4 elements."""
+    assert tflash.f32_copies_in_place(make()) is in_place

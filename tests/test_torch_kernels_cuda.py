@@ -3,7 +3,8 @@
 - the fused allocate: bit for bit;
 - flash attention: within the tolerances of ``tests/test_kernels.py``
   (float32 2e-5, bfloat16 5e-2: the kernel sums in another order than the
-  plain version's einsum, and bf16 rounds the float32 result once);
+  plain version's einsum, and bf16 rounds the float32 result once), float32
+  at the edges of its design's tiles at each of its six instances;
 - the SSD chunked scan: against its plain version ``kernels.chunked.ssd``
   and the recurrence ``kernels.ref.ssd``, y at the same tolerances and the
   final state within 1e-3 (those of ``tests/test_kernels.py``'s SSD test);
@@ -208,6 +209,48 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda_device):
         flash.flash_attention(q, q[:, :1].expand(1, 3, 8, 16), q[:, :1].expand(1, 3, 8, 16))
     with pytest.raises(ValueError, match="CUDA tensors"):
         flash.flash_attention(q, q.cpu(), q)
+
+
+# (b, hq, hkv, sq, skv, causal, window, layout): the float32 design's edges:
+# q_offset = skv - sq > 0, lengths that are not multiples of its 64-row and
+# 64-key tiles, a window narrower than a tile, a single query row, MQA,
+# non-causal, the model's transposed views ("view"), and a q that is not
+# 16-byte aligned ("unaligned": one element into its storage, rows d + 1
+# apart), which the wrapper copies once.
+F32_EDGE_CASES = (
+    (1, 4, 2, 77, 300, True, 0, "dense"), (2, 4, 2, 130, 190, True, 0, "dense"),
+    (1, 4, 2, 200, 200, True, 20, "dense"), (1, 4, 1, 1, 333, True, 0, "dense"),
+    (1, 2, 1, 1, 1, True, 0, "dense"), (1, 8, 1, 150, 150, True, 0, "dense"),
+    (2, 2, 2, 70, 129, False, 0, "dense"), (2, 6, 2, 150, 150, True, 48, "view"),
+    (1, 4, 2, 90, 90, True, 40, "unaligned"),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 160, 256])
+def test_f32_flash_kernel_matches_plain_version_at_its_edges(cuda_device, d):
+    """The CUDA-core design at each of its six instances, on the edges of its
+    tiles, its ring of K/V copies and its 16-byte copies."""
+    gen = torch.Generator(device=cuda_device).manual_seed(100 + d)
+    for b, hq, hkv, sq, skv, causal, window, layout in F32_EDGE_CASES:
+        def make(h, s):
+            if layout == "view":  # [B, S, H, D] memory, as the model's projections
+                return torch.randn((b, s, h, d), generator=gen, device=cuda_device).transpose(1, 2)
+            return torch.randn((b, h, s, d), generator=gen, device=cuda_device)
+        q, k, v = make(hq, sq), make(hkv, skv), make(hkv, skv)
+        if layout == "unaligned":
+            q = torch.randn((b, hq, sq, d + 1), generator=gen, device=cuda_device)[..., 1:]
+            assert not flash.f32_copies_in_place(q) and flash.f32_copies_in_place(k)
+        kw = dict(causal=causal, window=window, q_offset=skv - sq)
+        launches, copies = flash.LAUNCHES, flash.ALIGN_COPIES
+        got = flash.flash_attention(q, k, v, **kw)
+        assert flash.LAUNCHES == launches + 1
+        assert flash.ALIGN_COPIES == copies + (layout == "unaligned")
+        assert got.dtype == torch.float32 and got.shape == q.shape
+        if layout == "view":
+            assert got.stride() == q.stride()
+        torch.testing.assert_close(got, ref.attention(q, k, v, **kw),
+                                   **FLASH_TOL[torch.float32])
 
 
 # The bf16 kernel is also held closer than FLASH_TOL, as chip_smoke.py's phase
