@@ -124,7 +124,28 @@ raises, and the exit code is not 0):
     layers any bf16-sized change of one layer's output grows to ~6e-2 at
     |logit| ~3, so the kernel's rounding of P is held to the spread of
     bf16 itself; a wrong mask or scale moves them by O(1)); prefill time
-    and peak memory.
+    and peak memory;
+21. the paper's figures on the card (``repro_torch/figures.py``): Fig 3's
+    trace (epoch-0 shares (1/9, 3/9, 5/9) within 1e-12, SJF completion
+    order), then Fig 4 at ``FIG4``'s full size (N = 1e6, M = 500,
+    Pareto(1.5), 10 seeds, p in {.05, .3, .5, .9, .99}, KNEE's best of 12
+    alphas: each policy one batch run a p, 10 rows or 120 for KNEE); the
+    alloc count is zeroed just before and read just after, and the heSRPT
+    column must launch the kernel once per event step, 5 x 500 times.  Its
+    flows equal the unfused heSRPT run bit for bit and lie within 1e-9
+    relative of Theorem 8 and of the batch closed form; heSRPT's median is
+    at most every competitor's x (1 + 1e-9) at every p; Fig 4 at its quick
+    size on the card equals the CPU run within 1e-12 relative.  Prints the
+    medians, heSRPT's advantage, the figure's wall time, and the kernel's
+    theta pass at Fig 4's shape [10, 500] beside its plain version and bound;
+22. the closed-form superstep path at the lanes' size (24 rates x 8 seeds x
+    1000 jobs, 256 servers, p = 0.5, the lanes' tapes): heSRPT, EQUI and
+    SRPT through ``Sweep(superstep=True)`` (M + 1 steps) against the
+    carried-rank sweep (2M steps), every cell's mean flow within 1e-9
+    relative; the pre-arrived [192, 1000] batch by ``batch_result_closed_form``
+    equal bit for bit to ``flowtime.hesrpt_completion_times`` and within
+    1e-9 relative of ``simulator.simulate``, job by job; both paths' wall
+    times.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -1211,6 +1232,138 @@ def phase_serve_wide(flash, card, device) -> dict:
             "logits_max_abs_err_vs_plain": err, "sample_ids": ids[0, :16].tolist()}
 
 
+def phase_figures(alloc, figures, simulator, flowtime, superstep, policies, card,
+                  device) -> dict:
+    """Phase 21: Fig 3 and Fig 4 at the paper's size on the card."""
+    import numpy as np
+    import torch
+
+    trace = figures.fig3_trace(device=device)
+    fig3_err = float(np.max(np.abs(trace["theta_trace"][0] - np.array([1, 3, 5]) / 9)))
+    ct = trace["completion_times"]
+    assert fig3_err <= 1e-12, f"Fig 3 epoch-0 shares off by {fig3_err}"
+    assert ct[2] <= ct[1] <= ct[0], f"Fig 3 completion order {ct}"
+
+    exp = figures.FIG4
+    torch.cuda.synchronize()
+    alloc.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = figures.fig4_policies(device=device)  # its flows come back to the host
+    wall_s = time.perf_counter() - t0
+    launches = alloc.LAUNCHES
+    want_launches = len(exp.p_values) * exp.n_jobs
+    assert launches == want_launches, f"Fig 4 launched alloc {launches} times, not {want_launches}"
+
+    x = torch.as_tensor(res.sizes, device=device)
+    thm8_gap = closed_gap = 0.0
+    for p in exp.p_values:
+        fused = res.flows[p]["hesrpt"]
+        plain = simulator.total_flowtime(x, p, exp.n_servers, policies.hesrpt, device=device)
+        assert np.array_equal(fused, plain.cpu().numpy() / exp.n_jobs), f"fused != unfused, p={p}"
+        thm8 = flowtime.hesrpt_total_flowtime(x, p, exp.n_servers).cpu().numpy() / exp.n_jobs
+        closed = superstep.batch_result_closed_form(x, p, "hesrpt", n_servers=exp.n_servers)
+        closed = closed.completion_times.sum(-1).cpu().numpy() / exp.n_jobs
+        thm8_gap = max(thm8_gap, float(np.max(np.abs(fused - thm8) / thm8)))
+        closed_gap = max(closed_gap, float(np.max(np.abs(fused - closed) / closed)))
+        meds = res.medians[p]
+        for name, med in meds.items():
+            assert meds["hesrpt"] <= med * (1 + 1e-9), f"p={p}: {name} {med} beats heSRPT"
+    assert thm8_gap <= 1e-9 and closed_gap <= 1e-9, (thm8_gap, closed_gap)
+
+    # The heSRPT column's launch: theta alone over [seeds, M] (n_chips = 0),
+    # timed beside its plain version, policies.hesrpt on the card.
+    ms = _time_ms(lambda: alloc.hesrpt_theta_fused(x, 0.5), 200)
+    plain_ms = _time_ms(lambda: policies.hesrpt(x, 0.5), 50)
+    alloc.LAUNCHES = launches  # timing launches are not the figure's
+    # Least time: x read once, theta written once; a sort's 2 M log2 M and
+    # ~40 scalar ops a job are far below the bytes' time.
+    cells, M = x.shape
+    n_bytes, n_ops = 2 * x.numel() * x.element_size(), cells * (2 * M * math.ceil(math.log2(M))
+                                                                 + 40 * M)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / PEAK_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    quick_card = figures.fig4_policies(quick=True, device=device).medians
+    quick_cpu = figures.fig4_policies(quick=True, device="cpu").medians
+    quick_gap = max(abs(quick_card[p][n] - v) / abs(v)
+                    for p, meds in quick_cpu.items() for n, v in meds.items())
+    assert quick_gap <= 1e-12, f"Fig 4 quick card vs CPU {quick_gap}"
+    adv = figures.advantage(res.medians)
+    print(f"phase 21: Fig 3 epoch-0 shares within {fig3_err:.1e} of (1/9, 3/9, 5/9), SJF "
+          f"order; Fig 4 at N = {exp.n_servers:g}, M = {exp.n_jobs}, {exp.n_seeds} seeds on "
+          f"{card}: wall {wall_s:.3f} s, alloc launches {launches} (5 x {exp.n_jobs}); heSRPT "
+          f"fused == unfused bit for bit, vs Thm 8 {thm8_gap:.2e}, vs closed form "
+          f"{closed_gap:.2e}; quick size card vs CPU {quick_gap:.2e}", flush=True)
+    print(f"phase 21: alloc theta pass at [{cells}, {M}] f64: kernel {ms:.4f} ms/launch, plain "
+          f"version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({n_bytes} bytes)", flush=True)
+    for line in figures.fig4_table(res.medians).splitlines():
+        print(f"phase 21: {line}", flush=True)
+    return {"fig3_theta0_err": fig3_err, "fig3_completion_times": ct.tolist(),
+            "wall_s": wall_s, "alloc_launches": launches, "alloc_shape": [cells, M],
+            "alloc_ms": ms, "alloc_plain_ms": plain_ms, "alloc_bound_ms": bound_ms,
+            "alloc_bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "medians": {str(p): m for p, m in res.medians.items()},
+            "advantage": {str(p): a for p, a in adv.items()}, "thm8_max_rel": thm8_gap,
+            "closed_form_max_rel": closed_gap, "quick_card_vs_cpu_max_rel": quick_gap}
+
+
+def phase_superstep(lanes, sweeps, superstep, flowtime, simulator, policies, card,
+                    device) -> dict:
+    """Phase 22: the superstep path against the carried-rank sweep at the
+    lanes' size, and the closed-form batch."""
+    import numpy as np
+    import torch
+
+    names = ("hesrpt", "equi", "srpt")
+    ranked = dict(lanes.lane_specs())["continuous"]._replace(policies=names)
+    fast = ranked._replace(superstep=True)
+    x0, arr = sweeps.draw_tapes(ranked, device=device)
+    walls, stats = {}, {}
+    for label, spec in (("ranked", ranked), ("superstep", fast), ("superstep_2", fast),
+                        ("ranked_2", ranked)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats[label] = sweeps.simulate_cells(spec, x0, arr, device=device)  # ends on the host
+        walls[label] = time.perf_counter() - t0
+    M = ranked.n_jobs
+    cells = len(ranked.rates) * ranked.n_seeds
+    gap = 0.0
+    for name in names:
+        want = stats["ranked"][name]["mean_flowtime"]
+        got = stats["superstep"][name]["mean_flowtime"]
+        assert got.shape == (len(ranked.rates), ranked.n_seeds) and np.all(np.isfinite(got))
+        gap = max(gap, float(np.max(np.abs(got - want) / want)))
+    assert gap <= 1e-9, f"superstep vs ranked sweep {gap}"
+
+    xb = torch.sort(x0.reshape(-1, M), dim=-1, descending=True, stable=True).values
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    closed = superstep.batch_result_closed_form(xb, ranked.p, "hesrpt",
+                                                n_servers=ranked.n_servers).completion_times
+    torch.cuda.synchronize()
+    closed_s = time.perf_counter() - t0
+    thm3 = flowtime.hesrpt_completion_times(xb, ranked.p, ranked.n_servers)
+    assert torch.equal(closed, thm3), "batch closed form != Thm-3 completion times"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim = simulator.simulate(xb, ranked.p, ranked.n_servers, policies.hesrpt, device=device)
+    torch.cuda.synchronize()
+    sim_s = time.perf_counter() - t0
+    batch_gap = ((sim.completion_times - closed).abs() / closed).max().item()
+    del sim
+    torch.cuda.empty_cache()
+    assert batch_gap <= 1e-9, f"batch closed form vs simulate {batch_gap}"
+    print(f"phase 22: superstep sweep ({M + 1} steps) vs carried-rank sweep ({2 * M} steps), "
+          f"{cells} cells x {len(names)} policies on {card}: max rel mean-flow gap {gap:.2e}; "
+          f"wall ranked {walls['ranked']:.3f} / {walls['ranked_2']:.3f} s, superstep "
+          f"{walls['superstep']:.3f} / {walls['superstep_2']:.3f} s; pre-arrived [{cells}, {M}] "
+          f"batch: closed form == Thm-3 bit for bit, vs simulate (M = {M} steps) {batch_gap:.2e} "
+          f"per job; closed form {closed_s:.4f} s, simulate {sim_s:.3f} s", flush=True)
+    return {"cells": cells, "n_jobs": M, "policies": list(names),
+            "steps": {"superstep": M + 1, "ranked": 2 * M}, "wall_s": walls,
+            "max_rel_gap": gap, "batch_vs_simulate_max_rel": batch_gap,
+            "batch_closed_form_s": closed_s, "batch_simulate_s": sim_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -1227,8 +1380,8 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import lanes
-    from repro_torch.core import engine, flowtime, policies, simulator, sweeps
+    from repro_torch import figures, lanes
+    from repro_torch.core import engine, flowtime, policies, simulator, superstep, sweeps
     from repro_torch.kernels import alloc, chunked, flash_attention, ops, ref, rglru_scan, ssd_scan
 
     # Float32 products in full float32 (these are PyTorch's defaults, stated).
@@ -1279,6 +1432,8 @@ def main() -> int:
     hybrid_cpu_gap = phase_serve_cpu_vs_cuda(device, HYBRID_ARCH, phase=17)
     rglru_timing = phase_rglru_timing(rglru_scan, ref, card, device)
     wide_serve = phase_serve_wide(flash_attention, card, device)
+    fig = phase_figures(alloc, figures, simulator, flowtime, superstep, policies, card, device)
+    ss = phase_superstep(lanes, sweeps, superstep, flowtime, simulator, policies, card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -1286,6 +1441,10 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/alloc.cu",
         "replaces": "src/repro/kernels/alloc.py:160",
         "launches": launches,
+        "launches_fig4": fig["alloc_launches"],
+        "ms_fig4": fig["alloc_ms"],
+        "plain_ms_fig4": fig["alloc_plain_ms"],
+        "bound_ms_fig4": fig["alloc_bound_ms"],
         "max_abs_err": max_err,
         "ms": timing["f64"]["ms"],
         "plain_ms": timing["f64"]["plain_ms"],
@@ -1375,6 +1534,8 @@ def main() -> int:
         "hybrid_cpu_vs_cuda_max_abs": hybrid_cpu_gap,
         "rglru_timing": rglru_timing,
         "wide_serve": wide_serve,
+        "figures": fig,
+        "superstep": ss,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -1,6 +1,7 @@
 """Online (arrival-stream) simulation — thin wrappers over ``core/engine.py``.
 
-Port of the noise-free part of ``repro.core.arrivals``: each wrapper takes
+Port of the noise-free part of ``repro.core.arrivals`` (the generic, the
+carried-rank, the superstep and the whole-chips paths): each wrapper takes
 ``[..., M]`` tapes (array-likes or tensors, moved to ``device``), runs the
 engine over every cell at once and reduces completion times to per-job
 flow times and slowdowns (:class:`OnlineSimResult`, per-cell scalars over
@@ -17,6 +18,7 @@ from repro_torch.core import engine
 from repro_torch.core.flowtime import speedup
 from repro_torch.core.policies import Policy
 from repro_torch.core.scenarios import Scenario
+from repro_torch.core.superstep import run_superstep
 from repro_torch.device import as_tensor, resolve_device
 
 
@@ -77,6 +79,22 @@ def simulate_online_ranked(
     return _finalize(x0, arr, times, p, n_servers)
 
 
+def simulate_online_superstep(
+    x0, arrival_times, p, n_servers, policy: str = "hesrpt", *, weights=None,
+    pre_arrived: bool = False, horizon: int | None = None, p_drift=None, device="cuda",
+) -> OnlineSimResult:
+    """Closed-form superstep path of :func:`simulate_online`: one step per
+    arrival and none for ``pre_arrived`` batches (``core/superstep.py``).
+    ``policy`` names one of ``superstep.SUPERSTEP_POLICIES``;
+    ``weighted_hesrpt`` reads per-job ``weights`` (input order)."""
+    x0, arr = _tapes(x0, arrival_times, device)
+    res = run_superstep(
+        x0, arr, p, n_servers, policy, weights=weights, pre_arrived=pre_arrived,
+        horizon=horizon, p_drift=p_drift,
+    )
+    return _finalize(x0, arr, res.completion_times, p, n_servers)
+
+
 def simulate_online_quantized(
     x0, arrival_times, p, n_chips: int, policy: Policy, *, min_chips: int = 1,
     rel_tol: float = 1e-9, horizon: int | None = None, record: bool = False,
@@ -120,5 +138,6 @@ __all__ = [
     "simulate_online",
     "simulate_online_quantized",
     "simulate_online_ranked",
+    "simulate_online_superstep",
     "simulate_scenario",
 ]

@@ -16,11 +16,16 @@ tensor value — so the loop is bound by launches, not by syncs.
 - Over the heSRPT policy both carry a ``fused_variant``: the
   ``kernels/alloc.py`` allocate, which :func:`run` swaps in under
   ``fused=True`` (the CUDA kernel on the card, its plain version on CPU).
+- :func:`knee_rule` — KNEE with its ``alpha`` refit from the active
+  set's median at every event, continuous or whole chips.
 - :func:`run_ranked` — the sort-free fast path for the rank policies,
   carrying descending-size ranks across events.
+- ``run(superstep=True)`` — the closed-form arrival-superstep path
+  (``core/superstep.py``) for :func:`continuous_rule` over heSRPT, EQUI and
+  SRPT: ``M + 1`` steps online, none for a batch.
 
-Not ported yet (ROADMAP.md): ``p_drift``, ``telemetry``, ``superstep``,
-slice snapping, estimation noise, KNEE and the bounded-slot streaming loop.
+Not ported yet (ROADMAP.md Queue A): ``p_drift``, ``telemetry``, slice
+snapping, estimation noise and the bounded-slot streaming loop.
 """
 
 from __future__ import annotations
@@ -31,7 +36,8 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch.core.flowtime import speedup
-from repro_torch.core.policies import Policy, hesrpt
+from repro_torch.core import policies
+from repro_torch.core.policies import Policy, hesrpt, knee
 from repro_torch.kernels.alloc import (
     hesrpt_alloc_fused,
     hesrpt_theta_fused,
@@ -109,12 +115,19 @@ def continuous_rule(policy: Policy, n_servers, *, dtype=torch.float64) -> AllocR
     """The paper's continuously-divisible allocation: ``rate = s(theta N)``.
 
     Over :func:`~repro_torch.core.policies.hesrpt` the rule carries a
-    ``fused_variant`` (``kernels/alloc.py::hesrpt_theta_fused``).
+    ``fused_variant`` (``kernels/alloc.py::hesrpt_theta_fused``); over
+    heSRPT, EQUI and SRPT a ``superstep_spec`` ``(name, n_servers)``, which
+    :func:`run` reads under ``superstep=True``.
     """
 
     def rule(x_act, p):
         return finish_alloc(policy(x_act, p), p, n_alloc=n_servers, n_chips=None, dtype=dtype)
 
+    from repro_torch.core.superstep import SUPERSTEP_RULE_POLICIES
+
+    name = getattr(policy, "__name__", None)
+    if name in SUPERSTEP_RULE_POLICIES and policy is getattr(policies, name):
+        rule.superstep_spec = (name, n_servers)
     if policy is hesrpt:
 
         def fused(x_act, p):
@@ -151,6 +164,32 @@ def quantized_rule(
     return rule
 
 
+def knee_rule(
+    n_servers, *, n_chips: int | None = None, min_chips: int = 1, dtype=torch.float64
+) -> StatefulRule:
+    """KNEE with its per-epoch ``alpha`` refit, as an engine rule.
+
+    At every event ``alpha = median(active remaining sizes) * p / N``, the
+    masked median being ``np.median``'s over the active subset (the mean of
+    the two middle order statistics), so the state stays empty.
+    Continuous when ``n_chips`` is None, else whole chips with a min-chips
+    floor, as :func:`continuous_rule` / :func:`quantized_rule`.
+    """
+    n_alloc = float(n_chips) if n_chips is not None else float(n_servers)
+
+    def rule(x_act, p):
+        active = x_act > 0
+        m = active.sum(-1, keepdim=True).clamp(min=1)
+        v = torch.sort(torch.where(active, x_act, torch.inf), dim=-1, stable=True).values
+        med = 0.5 * (v.gather(-1, (m - 1) // 2) + v.gather(-1, m // 2))
+        theta = knee(x_act, p, n_alloc, med * p / n_alloc)
+        return finish_alloc(
+            theta, p, n_alloc=n_alloc, n_chips=n_chips, min_chips=min_chips, dtype=dtype
+        )
+
+    return as_stateful(rule)
+
+
 def _resolve_fused(rule, fused: bool):
     """Swap in the rule's fused allocate when ``fused=True``."""
     if not fused:
@@ -162,6 +201,33 @@ def _resolve_fused(rule, fused: bool):
             "continuous_rule/quantized_rule over the heSRPT policy"
         )
     return fused_rule
+
+
+def _resolve_superstep(rule, *, fused: bool, record: bool, p):
+    """The rule's ``(policy_name, n_servers)`` superstep spec, or
+    ``ValueError`` for what the closed form cannot represent (that takes the
+    generic per-event loop: drop ``superstep=True``)."""
+    fallback = " — this configuration takes the generic per-event loop"
+    spec = getattr(rule, "superstep_spec", None)
+    if spec is None:
+        raise ValueError(
+            "superstep=True needs a rule with a superstep_spec — built by "
+            "continuous_rule over heSRPT/EQUI/SRPT (quantized and stateful "
+            "rules have none)" + fallback
+        )
+    if fused:
+        raise ValueError(
+            "superstep=True already replaces the loop; fused= fuses the "
+            "per-event allocate" + fallback
+        )
+    if record:
+        raise ValueError("record=True needs the per-event trajectory" + fallback)
+    if isinstance(p, torch.Tensor) and p.ndim >= 1:
+        raise ValueError(
+            "superstep=True needs a scalar p (per-job exponents break the "
+            "rank-order departure invariant)" + fallback
+        )
+    return spec
 
 
 def _cells(x0, arrival_times):
@@ -209,15 +275,24 @@ def run(
     steps after a cell's last event are no-ops.  ``p`` is a scalar.
 
     ``record=True`` also returns the per-event trajectory; ``fused=True``
-    swaps in the rule's ``fused_variant``.  Jobs that never depart within
-    the horizon report ``inf``.
+    swaps in the rule's ``fused_variant``.  ``superstep=True`` hands the
+    run to ``core/superstep.py::run_superstep`` for the rules that carry a
+    ``superstep_spec`` (``rel_tol`` is not read there) and raises
+    ``ValueError`` for the rest.  Jobs that never depart within the horizon
+    report ``inf``.
     """
     if p_drift is not None:
         _not_ported("p_drift")
     if telemetry is not None:
         _not_ported("telemetry")
     if superstep:
-        _not_ported("superstep")
+        pol_name, n_srv = _resolve_superstep(rule, fused=fused, record=record, p=p)
+        from repro_torch.core.superstep import run_superstep
+
+        return run_superstep(
+            x0, arrival_times, p, n_srv, pol_name,
+            pre_arrived=pre_arrived, horizon=horizon, t0=t0,
+        )
     rule = _resolve_fused(rule, fused)
     x0, arr_in, lead, dtype = _cells(x0, arrival_times)
     C, M = x0.shape
@@ -398,6 +473,7 @@ __all__ = [
     "as_stateful",
     "continuous_rule",
     "finish_alloc",
+    "knee_rule",
     "quantize_allocation",
     "quantized_rule",
     "run",

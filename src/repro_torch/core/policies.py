@@ -1,10 +1,12 @@
-"""Server-allocation policies: heSRPT and the competitors on the sweep path.
+"""Server-allocation policies: heSRPT and its competitors.
 
-Port of ``repro.core.policies`` for ``hesrpt``, ``helrpt``, ``srpt``,
-``equi`` and the rank-space forms.  Every policy maps remaining sizes
-``x[..., M]`` (entries ``<= 0`` are departed jobs) and the speedup exponent
-``p`` to shares ``theta[..., M]`` row by row, so a ``[cells, M]`` batch is
-one call.
+Port of ``repro.core.policies``: ``hesrpt``, ``helrpt``, ``srpt``,
+``equi``, the rank-space forms, the paper's Fig-4 competitors ``hell`` and
+``knee``, ``waterfill`` and ``weighted_hesrpt``.  Every policy maps
+remaining sizes ``x[..., M]`` (entries ``<= 0`` are departed jobs) and the
+speedup exponent ``p`` to shares ``theta[..., M]`` row by row, so a
+``[cells, M]`` batch is one call.  The JAX package's ``lax.cond`` branches
+become ``torch.where`` over both branches, decided per row.
 
 Paper: Berg, Vesilo, Harchol-Balter, "heSRPT: Optimal Parallel Scheduling of
 Jobs With Known Sizes", 2019.
@@ -12,11 +14,12 @@ Jobs With Known Sizes", 2019.
 
 from __future__ import annotations
 
+import functools
 from collections.abc import Callable
 
 import torch
 
-from repro_torch.core.ranking import ranks_from_order, size_order_desc
+from repro_torch.core.ranking import inv_rank, ranks_from_order, size_order_desc
 
 Policy = Callable[..., torch.Tensor]  # (x, p) -> theta
 
@@ -104,6 +107,96 @@ def equi(x: torch.Tensor, p=None) -> torch.Tensor:
     return torch.where(active, share, 0.0)
 
 
+def _tiny(x: torch.Tensor) -> float:
+    return torch.finfo(x.dtype).tiny
+
+
+def hell(x: torch.Tensor, p, n_servers=None) -> torch.Tensor:
+    """HELL: the greedy efficiency-to-remaining-time heuristic in its
+    continuous limit.  For ``p >= 1/2`` the greedy pick is SRPT; below it
+    water-fills to ``k_i ~ x_i^(-1/(1-2p))``.  ``p`` may be a scalar or a
+    tensor broadcasting per row; both branches are computed, so the
+    water-fill's exponent keeps the reference's ``1e-12`` guard.
+    """
+    del n_servers  # the continuous fixed point does not depend on N
+    active = x > 0
+    p = torch.as_tensor(p, dtype=x.dtype, device=x.device)
+    xs = torch.where(active, x, 1.0)
+    xmin = torch.where(active, x, torch.inf).amin(-1, keepdim=True)
+    expo = -1.0 / torch.clamp(1.0 - 2.0 * p, min=1e-12)
+    w = torch.where(active, (xs / xmin).pow(expo), 0.0)
+    fill = w / w.sum(-1, keepdim=True).clamp(min=_tiny(x))
+    return torch.where(p < 0.5, fill, srpt(x))
+
+
+def knee(x: torch.Tensor, p, n_servers, alpha) -> torch.Tensor:
+    """KNEE: each job its knee ``(p x_i / alpha)^(1/(1+p))`` of servers.
+
+    Rows whose knees undersubscribe ``n_servers`` split the whole system in
+    proportion to the knees; oversubscribed rows serve the smallest knees
+    first (stable on ties) until the servers run out.  ``alpha`` may be a
+    scalar or a ``[C, 1]`` column, one value per row (an alpha grid).
+    """
+    active = x > 0
+    xs = torch.where(active, x, 0.0)
+    kn = torch.where(active, (p * xs / alpha).pow(1.0 / (1.0 + p)), 0.0)
+    total = kn.sum(-1, keepdim=True)
+    under = kn / total.clamp(min=_tiny(x))
+    order = torch.argsort(torch.where(active, kn, torch.inf), dim=-1, stable=True)
+    kn_sorted = kn.gather(-1, order)
+    prev = kn_sorted.cumsum(-1) - kn_sorted
+    grant_sorted = torch.minimum(torch.clamp(n_servers - prev, min=0.0), kn_sorted)
+    grant = torch.zeros_like(kn).scatter_(-1, order, grant_sorted)
+    over = torch.where(active, grant / n_servers, 0.0)
+    return torch.where(total <= n_servers, under, over)
+
+
+def weighted_hesrpt(x: torch.Tensor, p, w: torch.Tensor) -> torch.Tensor:
+    """Weighted heSRPT: Thm-7 brackets over cumulative *weight* fractions
+    ``W_r / W`` of the jobs ranked largest to smallest, renormalized.
+    Uniform weights give :func:`hesrpt` up to the last ulp."""
+    active = x > 0
+    order = size_order_desc(x)
+    w_act = torch.where(active, w, 0.0)
+    csum_sorted = w_act.gather(-1, order).cumsum(-1)
+    w_hi = csum_sorted.gather(-1, inv_rank(order))
+    w_lo = w_hi - w_act
+    w_tot = csum_sorted[..., -1:].clamp(min=_tiny(x))
+    c = 1.0 / (1.0 - p)
+    th = torch.where(active, (w_hi / w_tot).pow(c) - (w_lo / w_tot).pow(c), 0.0)
+    return th / th.sum(-1, keepdim=True).clamp(min=_tiny(x))
+
+
+def waterfill(x: torch.Tensor, p, n_servers, w=None, *, n_iter: int = 64) -> torch.Tensor:
+    """Class-weighted water-filling: ``theta`` maximizing ``sum_i w_i / x_i
+    s(theta_i N)`` subject to ``sum theta = 1``, by ``n_iter`` bisection
+    steps on the log water level (a fixed number of batched steps, each row
+    its own bracket), then renormalized."""
+    active = x > 0
+    dtype = x.dtype
+    p = torch.as_tensor(p, dtype=dtype, device=x.device).expand_as(x)
+    xs = torch.where(active, x, 1.0)
+    wv = torch.ones_like(x) if w is None else torch.as_tensor(w, dtype=dtype, device=x.device)
+    wv = torch.where(active, wv.clamp(min=_tiny(x)), 1.0)
+    n = torch.as_tensor(n_servers, dtype=dtype, device=x.device)
+    log_g = torch.log(wv) - torch.log(xs) + torch.log(p) + p * torch.log(n)
+    m = active.sum(-1, keepdim=True).clamp(min=1).to(dtype)
+    one_minus_p = 1.0 - p
+    lo = torch.where(active, log_g, -torch.inf).amax(-1, keepdim=True)
+    hi = torch.where(active, log_g + one_minus_p * torch.log(m), -torch.inf).amax(-1, keepdim=True)
+
+    def theta_of(log_lam):
+        return torch.where(active, torch.exp((log_g - log_lam) / one_minus_p), 0.0)
+
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        too_big = theta_of(mid).sum(-1, keepdim=True) > 1.0
+        lo, hi = torch.where(too_big, mid, lo), torch.where(too_big, hi, mid)
+    th = theta_of(0.5 * (lo + hi))
+    th = th / th.sum(-1, keepdim=True).clamp(min=_tiny(x))
+    return torch.where(active.any(-1, keepdim=True), th, 0.0)
+
+
 #: Policies whose allocation is a pure function of the descending-size ranks;
 #: the carried-rank event loop (``engine.run_ranked``) runs these.
 RANK_POLICIES = {
@@ -113,7 +206,8 @@ RANK_POLICIES = {
 }
 
 _POLICIES = {"hesrpt": hesrpt, "helrpt": helrpt, "srpt": srpt, "equi": equi}
-_NOT_PORTED = ("hell", "knee", "waterfill")
+
+POLICY_NAMES = ("hesrpt", "helrpt", "srpt", "equi", "hell", "knee", "waterfill")
 
 
 def make_rank_policy(name: str):
@@ -122,15 +216,18 @@ def make_rank_policy(name: str):
 
 
 def make_policy(name: str, *, n_servers: float = 1.0, alpha: float = 1.0) -> Policy:
-    """The policy function by name.  Returns the module's function itself,
-    so the engine can attach the fused allocate by an identity check."""
-    del n_servers, alpha  # only the unported hell/knee/waterfill read them
+    """The policy function by name.  heSRPT, heLRPT, SRPT and EQUI come
+    back as the module's functions themselves, so the engine attaches the
+    fused allocate and the superstep path by an identity check; HELL, KNEE
+    and water-filling close over ``n_servers`` (and KNEE over ``alpha``,
+    a scalar or a ``[C, 1]`` column)."""
     name = name.lower()
     if name in _POLICIES:
         return _POLICIES[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"policy {name!r} is not ported yet (ROADMAP.md Queue A, item 10: "
-            "estimation and multi-class)"
-        )
+    if name == "hell":
+        return functools.partial(hell, n_servers=n_servers)
+    if name == "knee":
+        return functools.partial(knee, n_servers=n_servers, alpha=alpha)
+    if name == "waterfill":
+        return functools.partial(waterfill, n_servers=n_servers)
     raise ValueError(f"unknown policy {name!r}")

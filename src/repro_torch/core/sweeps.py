@@ -7,13 +7,16 @@ tape per seed — sizes and unit gaps once, the gaps scaled per rate, the
 JAX sweep's pairing — then runs every ``(rate, seed)`` cell of a policy as
 one ``[R * S, M]`` batch through the engine (:func:`simulate_cells`).
 
-Dispatch follows the JAX cell function: a continuous sweep over a rank
-policy takes the carried-rank loop ``engine.run_ranked``; quantized sweeps
-take ``engine.run`` with ``quantized_rule``, and ``fused=True`` swaps in
-the ``kernels/alloc.py`` allocate (one CUDA launch per event on the card).
+Dispatch follows the JAX cell function: ``superstep=True`` takes the
+closed-form superstep path (``arrivals.simulate_online_superstep``); else a
+continuous sweep over a rank policy takes the carried-rank loop
+``engine.run_ranked``; the rest take ``engine.run`` with
+``continuous_rule`` or ``quantized_rule``, and ``fused=True`` swaps in the
+``kernels/alloc.py`` allocate (one CUDA launch per event on the card).
+HELL, KNEE and water-filling close over ``n_chips`` (or ``n_servers``).
 
-Not ported yet (ROADMAP.md): multi-class ``classes``, estimation ``arm``,
-``telemetry``, ``stream``, ``superstep``, ``snap_slices``, seed chunking and
+Not ported yet (ROADMAP.md Queue A): multi-class ``classes``, estimation
+``arm``, ``telemetry``, ``stream``, ``snap_slices``, seed chunking and
 sharding, the ``BENCH_sweeps.json`` run log.
 """
 
@@ -30,9 +33,10 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.analysis import seed_axis_stats
-from repro_torch.core.arrivals import OnlineSimResult, _finalize
+from repro_torch.core.arrivals import OnlineSimResult, _finalize, simulate_online_superstep
 from repro_torch.core.policies import make_policy, make_rank_policy
 from repro_torch.core.scenarios import make_scenario, seed_generator
+from repro_torch.core.superstep import SUPERSTEP_RULE_POLICIES
 from repro_torch.device import as_tensor, resolve_device
 
 #: Layout version of :meth:`SweepResult.record` (the JAX package's v2 plus
@@ -45,7 +49,7 @@ SCALAR_METRICS = ("total_flowtime", "mean_flowtime", "mean_slowdown", "makespan"
 #: Regimes of the JAX ``Sweep`` not ported yet, with their "off" values.
 UNPORTED = {
     "classes": None, "arm": None, "arm_kw": (), "telemetry": (), "stream": (),
-    "superstep": False, "snap_slices": False,
+    "snap_slices": False,
 }
 
 
@@ -94,13 +98,15 @@ class Sweep(NamedTuple):
     min_chips: int = 1
     metrics: tuple[str, ...] = ("mean_flowtime",)
     fused: bool = False  # kernels/alloc.py fused allocate (quantized heSRPT)
+    superstep: bool = False  # core/superstep.py closed-form path (continuous)
 
     @classmethod
     def create(
         cls, policies, rates, *, scenario: str = "poisson", scenario_kw=None,
         n_jobs: int = 1000, n_seeds: int = 100, seed: int = 0, p: float = 0.5,
         n_servers: float = 256.0, size_alpha: float = 1.5, n_chips: int | None = None,
-        min_chips: int = 1, metrics=None, fused: bool = False, **regimes,
+        min_chips: int = 1, metrics=None, fused: bool = False, superstep: bool = False,
+        **regimes,
     ) -> Sweep:
         for key, value in regimes.items():
             if key not in UNPORTED:
@@ -126,6 +132,17 @@ class Sweep(NamedTuple):
             bad = tuple(q for q in policies if q != "hesrpt")
             if bad:
                 raise ValueError(f"fused sweeps support only heSRPT, got {bad}")
+        if superstep:
+            # Exact only for the continuous, noise-free, scalar-p rank family
+            # (estimation noise raised above; fused already needs n_chips).
+            if n_chips is not None:
+                raise ValueError(
+                    "superstep=True is the continuous closed-form path "
+                    "(quantized chips need the per-event loop)"
+                )
+            bad = tuple(q for q in policies if q not in SUPERSTEP_RULE_POLICIES)
+            if bad:
+                raise ValueError(f"superstep sweeps support heSRPT/EQUI/SRPT, got {bad}")
         return cls(
             policies=tuple(policies),
             rates=tuple(float(r) for r in rates),
@@ -141,6 +158,7 @@ class Sweep(NamedTuple):
             min_chips=int(min_chips),
             metrics=metrics,
             fused=bool(fused),
+            superstep=bool(superstep),
         )
 
     @classmethod
@@ -153,7 +171,7 @@ class Sweep(NamedTuple):
             n_jobs=d["n_jobs"], n_seeds=d["n_seeds"], seed=d["seed"], p=d["p"],
             n_servers=d["n_servers"], size_alpha=d["size_alpha"],
             n_chips=d["n_chips"], min_chips=d["min_chips"], metrics=d["metrics"],
-            fused=d.get("fused", False),
+            fused=d.get("fused", False), superstep=d.get("superstep", False),
             **{k: d[k] for k in UNPORTED if k in d},
         )
 
@@ -215,11 +233,17 @@ class SweepResult(NamedTuple):
 # --------------------------------------------------------------- executors
 def _policy_cells(spec: Sweep, name: str, x0, arr) -> OnlineSimResult:
     """Every cell of one policy column, as one batch."""
+    if spec.superstep:
+        return simulate_online_superstep(
+            x0, arr, spec.p, spec.n_servers, name, device=x0.device
+        )
     rank_pol = make_rank_policy(name) if spec.n_chips is None else None
     if rank_pol is not None:
         times = engine.run_ranked(x0, arr, spec.p, spec.n_servers, rank_pol)
         return _finalize(x0, arr, times, spec.p, spec.n_servers)
-    pol = make_policy(name)
+    pol = make_policy(
+        name, n_servers=spec.n_chips if spec.n_chips is not None else spec.n_servers
+    )
     if spec.n_chips is None:
         rule = engine.continuous_rule(pol, spec.n_servers, dtype=x0.dtype)
         n_alone = spec.n_servers

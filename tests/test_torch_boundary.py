@@ -49,13 +49,14 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("kernels.alloc", "core.sweeps", "kernels.flash_attention", "kernels.ops",
                  "kernels.ssd_scan", "kernels.chunked", "models.model", "models.ssm",
-                 "models.convert", "launch.serve", "train.serve_step"):
+                 "models.convert", "launch.serve", "train.serve_step", "core.superstep",
+                 "configs.paper", "figures"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["bad"] == []
 
 
 def _entry_points():
-    from repro_torch import lanes
+    from repro_torch import figures, lanes
     from repro_torch.core import arrivals, flowtime, scenarios, simulator, sweeps
     from repro_torch.configs import smoke_config
     from repro_torch.core.policies import hesrpt
@@ -73,7 +74,14 @@ def _entry_points():
         "simulate_online_quantized": lambda: arrivals.simulate_online_quantized(
             x, a, 0.5, 4, hesrpt
         ),
+        "simulate_online_superstep": lambda: arrivals.simulate_online_superstep(
+            x, a, 0.5, 4.0, "hesrpt"
+        ),
         "simulate": lambda: simulator.simulate(x, 0.5, 4.0, hesrpt),
+        "total_flowtime": lambda: simulator.total_flowtime(x, 0.5, 4.0, hesrpt),
+        "rank_bracket_powers": lambda: flowtime.rank_bracket_powers(4, 0.5),
+        "fig3_trace": lambda: figures.fig3_trace(),
+        "fig4_policies": lambda: figures.fig4_policies(quick=True),
         "tape_from_numpy": lambda: scenarios.tape_from_numpy(x, a),
         "seed_generator": lambda: scenarios.seed_generator(0, 0),
         "omega_star": lambda: flowtime.omega_star(4, 0.5),

@@ -140,9 +140,11 @@ def test_batch_simulate_matches_theorem_8():
 
 
 def test_unported_engine_options_raise():
+    """telemetry and p_drift are still refused, naming ROADMAP.md;
+    superstep, ported since, is held in tests/test_torch_superstep.py."""
     x, a = (torch.tensor(v[0]) for v in _tapes())
     rule = te.quantized_rule(tp.hesrpt, 16)
-    for kw in ({"superstep": True}, {"telemetry": object()}, {"p_drift": object()}):
+    for kw in ({"telemetry": object()}, {"p_drift": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             te.run(x, a, P, rule, **kw)
     with pytest.raises(ValueError, match="fused_variant"):

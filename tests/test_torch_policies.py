@@ -108,14 +108,125 @@ def test_flowtime_closed_forms_match_jax(p):
 
 def test_make_policy_identity_and_unported_names():
     """make_policy returns the module functions themselves (the engine
-    attaches the fused allocate by identity); unported names say so."""
+    attaches the fused allocate by identity); HELL, KNEE and water-filling,
+    refused until they were ported, now come back as working policies that
+    close over n_servers (and alpha), equal to JAX's; unknown names raise."""
     assert tp.make_policy("heSRPT") is tp.hesrpt
     assert tp.make_policy("srpt") is tp.srpt
+    assert tp.POLICY_NAMES == jp.POLICY_NAMES
+    x = _sizes(5)
     for name in ("hell", "knee", "waterfill"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tp.make_policy(name)
+        for p in (0.3, 0.7):
+            kw = dict(n_servers=64.0, alpha=0.05)
+            theta_t = tp.make_policy(name, **kw)(torch.tensor(x), p).numpy()
+            theta_j = np.asarray(jp.make_policy(name, **kw)(jnp.asarray(x), p))
+            np.testing.assert_allclose(theta_t, theta_j, rtol=RTOL, atol=0, err_msg=name)
+            assert theta_t.sum() == pytest.approx(1.0, rel=1e-12)
     with pytest.raises(ValueError):
         tp.make_policy("nope")
+
+
+# p on both sides of 1/2 (HELL water-fills below it, is SRPT at and above it)
+COMPETITOR_PS = (0.05, 0.3, 0.5, 0.7, 0.99)
+
+
+@pytest.mark.parametrize("p", COMPETITOR_PS)
+def test_hell_matches_jax(p):
+    xs = np.stack([_sizes(s) for s in range(3)])
+    got = tp.hell(torch.tensor(xs), p, 64.0).numpy()
+    for row, x in zip(got, xs, strict=True):
+        want = np.asarray(jp.hell(jnp.asarray(x), p, 64.0))
+        np.testing.assert_allclose(row, want, rtol=RTOL, atol=0)
+    # A per-row tensor p takes each row's own branch.
+    p_col = torch.tensor([[0.3], [0.5], [0.7]], dtype=torch.float64)
+    rows = tp.hell(torch.tensor(xs), p_col).numpy()
+    for row, x, pv in zip(rows, xs, (0.3, 0.5, 0.7), strict=True):
+        np.testing.assert_allclose(row, np.asarray(jp.hell(jnp.asarray(x), pv, 64.0)),
+                                   rtol=RTOL, atol=0)
+
+
+@pytest.mark.parametrize("p", COMPETITOR_PS)
+def test_knee_matches_jax_under_and_oversubscribed(p):
+    """Small alphas oversubscribe (the largest knees are cut), large ones
+    undersubscribe (a proportional split); a [C, 1] alpha column is one
+    alpha a row, the Fig-4 grid in one call."""
+    x = _sizes(2)
+    alphas = np.logspace(-6, 2, 9)
+    n = 64.0
+    got = tp.knee(torch.tensor(x).expand(len(alphas), -1), p, n,
+                  torch.tensor(alphas)[:, None]).numpy()
+    regimes = set()
+    for row, a in zip(got, alphas, strict=True):
+        want = np.asarray(jp.knee(jnp.asarray(x), p, n, a))
+        np.testing.assert_allclose(row, want, rtol=RTOL, atol=0)
+        kn = np.where(x > 0, (p * np.where(x > 0, x, 0) / a) ** (1 / (1 + p)), 0)
+        regimes.add(bool(kn.sum() <= n))
+    assert regimes == {True, False}
+
+
+@pytest.mark.parametrize("p", COMPETITOR_PS)
+def test_waterfill_and_weighted_hesrpt_match_jax(p):
+    xs = np.stack([_sizes(s) for s in range(3)])
+    w = np.random.default_rng(1).uniform(0.5, 2.0, xs.shape)
+    got_wf = tp.waterfill(torch.tensor(xs), p, 64.0, torch.tensor(w)).numpy()
+    got_wh = tp.weighted_hesrpt(torch.tensor(xs), p, torch.tensor(w)).numpy()
+    for i, x in enumerate(xs):
+        want_wf = np.asarray(jp.waterfill(jnp.asarray(x), p, 64.0, jnp.asarray(w[i])))
+        np.testing.assert_allclose(got_wf[i], want_wf, rtol=RTOL, atol=0)
+        want_wh = np.asarray(jp.weighted_hesrpt(jnp.asarray(x), p, jnp.asarray(w[i])))
+        np.testing.assert_allclose(got_wh[i], want_wh, rtol=RTOL, atol=0)
+    # Uniform weights are heSRPT; no active job gives no shares.
+    uni = tp.weighted_hesrpt(torch.tensor(xs), p, torch.ones_like(torch.tensor(xs)))
+    np.testing.assert_allclose(uni.numpy(), tp.hesrpt(torch.tensor(xs), p).numpy(), rtol=1e-12)
+    none = torch.zeros(2, 5, dtype=torch.float64)
+    assert not tp.waterfill(none, p, 64.0).any() and not tp.hell(none, p).any()
+
+
+def _knee_tapes():
+    import jax
+
+    from repro.core.scenarios import make_scenario
+
+    scns = [make_scenario("poisson")(jax.random.PRNGKey(s), 24, 4.0) for s in range(3)]
+    x = np.stack([np.asarray(c.x0) for c in scns])
+    x[:, :4] = x[:, 4:8]  # exact ties, which the masked median and KNEE's sort meet
+    return x, np.stack([np.asarray(c.arrival_times) for c in scns])
+
+
+@pytest.mark.parametrize("n_chips", [None, 16])
+@pytest.mark.parametrize("p", (0.3, 0.5, 0.9))
+def test_knee_rule_matches_jax(n_chips, p):
+    """engine.knee_rule (alpha refit from the active set's median at every
+    event), continuous and whole chips: the allocation on sizes with zeros
+    and ties, and a whole online run, recorded event by event."""
+    import jax
+
+    from repro.core import engine as je
+    from repro_torch.core import engine as te
+
+    x = np.stack([_sizes(s, m=25) for s in range(3)])
+    rule_t = te.knee_rule(16.0, n_chips=n_chips)
+    rule_j = je.knee_rule(16.0, n_chips=n_chips, dtype=jnp.float64)
+    alloc_t, rate_t = rule_t.allocate((), torch.tensor(x), p)
+    for i, row in enumerate(x):
+        alloc_j, rate_j = rule_j.allocate((), jnp.asarray(row), p)
+        np.testing.assert_allclose(alloc_t[i].numpy(), np.asarray(alloc_j), rtol=RTOL, atol=0)
+        np.testing.assert_allclose(rate_t[i].numpy(), np.asarray(rate_j), rtol=RTOL, atol=0)
+    xt, at = _knee_tapes()
+    got = te.run(torch.tensor(xt), torch.tensor(at), p, rule_t, record=True)
+
+    def one(xv, av):
+        res = je.run(xv, av, p, rule_j, record=True)
+        return res.completion_times, res.trace.alloc
+
+    want_t, want_a = jax.jit(jax.vmap(one))(jnp.asarray(xt), jnp.asarray(at))
+    np.testing.assert_allclose(got.completion_times.numpy(), np.asarray(want_t),
+                               rtol=RTOL, atol=0)
+    if n_chips is None:
+        np.testing.assert_allclose(got.trace.alloc.numpy(), np.asarray(want_a),
+                                   rtol=RTOL, atol=0)
+    else:
+        np.testing.assert_array_equal(got.trace.alloc.numpy(), np.asarray(want_a))
 
 
 @pytest.mark.parametrize("p", PS)

@@ -82,7 +82,7 @@ def test_from_spec_dict_round_trips_and_refuses_unported_regimes():
     spec_t = tsw.Sweep.from_spec_dict(d)
     for field in tsw.Sweep._fields:
         assert getattr(spec_t, field) == getattr(spec_j, field), field
-    for regime in ({"superstep": True, "n_chips": None}, {"telemetry": ["efficiency"]}):
+    for regime in ({"snap_slices": True}, {"telemetry": ["efficiency"]}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tsw.Sweep.from_spec_dict({**d, **regime})
     with pytest.raises(NotImplementedError):
