@@ -14,7 +14,10 @@ raises, and the exit code is not 0):
    (theta bitwise, chips equal) over sizes with zeros and exact ties, f64
    and f32, M from 1 to ``MAX_JOBS`` (4096), rows of sizes in {1, 2, 3},
    rows with no active job, and 1, 6 and 300 cells, plus the reference
-   behaviours ROADMAP.md's Queue C records;
+   behaviours ROADMAP.md's Queue C records; then with one p a cell read from
+   device memory (the drifting p), every mode of the power (c = 1, 2, 3 and
+   two of pow) mixed in one launch, f64 and f32, in 1, 6 and 192 cells,
+   also against each cell's scalar-p launch;
 3. the three canonical sweep lanes at full size (24 rates x 8 seeds x 1000
    jobs, 256 chips, p = 0.5); the launch count is zeroed just before and
    read just after, and the fused lane must launch the kernel once per
@@ -145,7 +148,24 @@ raises, and the exit code is not 0):
     relative; the pre-arrived [192, 1000] batch by ``batch_result_closed_form``
     equal bit for bit to ``flowtime.hesrpt_completion_times`` and within
     1e-9 relative of ``simulator.simulate``, job by job; both paths' wall
-    times.
+    times;
+23. the drift lanes at full size (the lanes' grid under ``drift_poisson``:
+    p 0.8 -> 0.3 at half of each rate's nominal span, 256 chips): the alloc
+    count is zeroed just before and read just after, and the fused lane
+    must launch the kernel 2M + D = 2001 times, each cell reading its own p;
+    its flows equal the unfused lane's bit for bit; continuous heSRPT on
+    the generic loop and ``Sweep(superstep=True)`` for heSRPT, EQUI and SRPT
+    within 1e-9 relative of the generic loop per cell; the ``drift_bursty``
+    fused lane (2001 launches) bit for bit with its unfused lane; the smoke
+    drift lanes on the same tapes on the CPU and the card: flows within
+    1e-12 relative, chips equal at every event; every lane's wall;
+24. slice snapping on the lanes' tapes through ``engine.run``
+    (``quantized_rule(snap_slices=True)``), fused against unfused: chips
+    equal at every event, every count a slice size, at most 256 chips a
+    cell; seed chunking of the fused drift lane (chunks of 1 and 3 seeds)
+    bit for bit with the unchunked run; and the kernel with one p a cell at
+    [192, 1000] f64 timed beside the scalar path, its plain version and its
+    bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -164,6 +184,10 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+
+# Exponents p of every mode of the allocate's power c = 1/(1-p): products for
+# c = 1, 2, 3 (p = 0, 1/2, 2/3), device pow for c = 5 and 1/0.7.
+PER_CELL_P = (0.0, 0.5, 2.0 / 3.0, 0.8, 0.3)
 
 # H100 SXM, from NVIDIA's data sheet:
 # HBM rate, and the float32 rate outside the tensor cores (the table has no
@@ -305,6 +329,41 @@ def phase_kernel_vs_plain(alloc, engine, device) -> float:
     return worst
 
 
+def phase_per_cell_p(alloc, device) -> int:
+    """Phase 2, second part: one p a cell read from device memory, every
+    power mode in one launch; returns the number of cases checked."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(22)
+    mixed = torch.tensor(PER_CELL_P, dtype=torch.float64, device=device)
+    checked = 0
+    for dtype in (torch.float64, torch.float32):
+        for cells in (1, 6, 192):
+            p_col = mixed.repeat(-(-cells // len(PER_CELL_P)))[:cells, None]
+            for M, kind in ((1000, "pareto"), (37, "ties"), (alloc.MAX_JOBS, "pareto")):
+                x = _sizes(gen, (cells, M), device, dtype, kind)
+                for n_chips, min_chips in ((0, 1), (256, 1), (16, 2)):
+                    kw = dict(min_chips=min_chips)
+                    theta, chips = alloc.hesrpt_alloc_fused(x, p_col, n_chips, **kw)
+                    theta0, chips0 = alloc.hesrpt_alloc_fused_ref(x, p_col, n_chips, **kw)
+                    same = torch.equal(theta, theta0) and torch.equal(chips, chips0)
+                    for p in PER_CELL_P:  # each cell as its scalar-p launch
+                        rows = (p_col[:, 0] == p).nonzero()[:, 0]
+                        theta_s, chips_s = alloc.hesrpt_alloc_fused(x, p, n_chips, **kw)
+                        same = same and torch.equal(theta[rows], theta_s[rows]) and \
+                            torch.equal(chips[rows], chips_s[rows])
+                    if not same:
+                        raise AssertionError(
+                            f"per-cell p: kernel != plain: {dtype} [{cells}, {M}] {kind} "
+                            f"n_chips={n_chips} min_chips={min_chips} "
+                            f"max|dtheta|={(theta - theta0).abs().max().item()}")
+                    checked += 1
+    print(f"phase 2: one p a cell from device memory (c = 1, 2, 3, 5, 1/0.7 in one launch): "
+          f"kernel == plain version and == each cell's scalar-p launch bit for bit on "
+          f"{checked} cases (f64, f32; 1, 6, 192 cells)", flush=True)
+    return checked
+
+
 def phase_lanes(alloc, lanes, device):
     """Phase 3: the three lanes at full size; returns (results, launches)."""
     import numpy as np
@@ -338,14 +397,14 @@ def phase_cpu_vs_cuda(lanes, sweeps, engine, policies, device):
 
     worst = 0.0
     for label, spec in lanes.lane_specs(smoke=True):
-        x0, arr = sweeps.draw_tapes(spec, device="cpu")
+        x0, arr, _ = sweeps.draw_scenario(spec, device="cpu")
         cpu = sweeps.simulate_cells(spec, x0, arr, device="cpu")["hesrpt"]["mean_flowtime"]
         gpu = sweeps.simulate_cells(spec, x0, arr, device=device)["hesrpt"]["mean_flowtime"]
         rel = float(np.max(np.abs(gpu - cpu) / np.abs(cpu)))
         assert rel <= 1e-12, f"{label}: CPU vs CUDA mean flow differ by {rel} relative"
         worst = max(worst, rel)
     spec = dict(lanes.lane_specs(smoke=True))["quantized-fused"]
-    x0, arr = sweeps.draw_tapes(spec, device="cpu")
+    x0, arr, _ = sweeps.draw_scenario(spec, device="cpu")
     x0, arr = x0.reshape(-1, spec.n_jobs), arr.reshape(-1, spec.n_jobs)
     rule = engine.quantized_rule(policies.hesrpt, spec.n_chips)
     cpu = engine.run(x0, arr, spec.p, rule, record=True, fused=True)
@@ -1316,7 +1375,7 @@ def phase_superstep(lanes, sweeps, superstep, flowtime, simulator, policies, car
     names = ("hesrpt", "equi", "srpt")
     ranked = dict(lanes.lane_specs())["continuous"]._replace(policies=names)
     fast = ranked._replace(superstep=True)
-    x0, arr = sweeps.draw_tapes(ranked, device=device)
+    x0, arr, _ = sweeps.draw_scenario(ranked, device=device)
     walls, stats = {}, {}
     for label, spec in (("ranked", ranked), ("superstep", fast), ("superstep_2", fast),
                         ("ranked_2", ranked)):
@@ -1364,6 +1423,187 @@ def phase_superstep(lanes, sweeps, superstep, flowtime, simulator, policies, car
             "batch_closed_form_s": closed_s, "batch_simulate_s": sim_s}
 
 
+def _mean_flows(res, name="hesrpt"):
+    return res.stats[name]["mean_flowtime"]
+
+
+def phase_drift(alloc, lanes, sweeps, engine, policies, card, device) -> dict:
+    """Phase 23: the drift lanes at full size, their superstep, the bursty
+    drift lanes and the smoke drift lanes CPU vs card."""
+    import numpy as np
+    import torch
+
+    specs = dict(lanes.drift_lane_specs())
+    M = specs["drift-quantized"].n_jobs
+    walls, launches, results = {}, {}, {}
+    for label, spec in specs.items():
+        torch.cuda.synchronize()
+        alloc.LAUNCHES = 0
+        results[label] = sweeps.run_sweep(spec, device=device)
+        torch.cuda.synchronize()
+        launches[label] = alloc.LAUNCHES
+        walls[label] = results[label].wall_s
+    D = 1
+    assert launches["drift-quantized-fused"] == 2 * M + D, launches
+    assert launches["drift-quantized"] == launches["drift-continuous"] == 0, launches
+    lane_pairs = list(results.items())
+    assert lanes.fused_equals_unfused(lane_pairs, "drift-"), "drift fused lane != unfused lane"
+    for label, res in results.items():
+        a = _mean_flows(res)
+        assert a.shape == (len(res.spec.rates), res.spec.n_seeds) and np.all(np.isfinite(a))
+
+    names = ("hesrpt", "equi", "srpt")
+    generic = specs["drift-continuous"]._replace(policies=names)
+    fast = generic._replace(superstep=True)
+    ss_res = {}
+    for label, spec in (("generic", generic), ("superstep", fast)):
+        ss_res[label] = sweeps.run_sweep(spec, device=device)
+        walls[f"drift-{label}-3-policies"] = ss_res[label].wall_s
+    ss_gap = 0.0
+    for name in names:
+        want, got = _mean_flows(ss_res["generic"], name), _mean_flows(ss_res["superstep"], name)
+        assert np.all(np.isfinite(got))
+        ss_gap = max(ss_gap, float(np.max(np.abs(got - want) / want)))
+    assert ss_gap <= 1e-9, f"drift superstep vs generic loop {ss_gap}"
+    assert np.array_equal(_mean_flows(ss_res["generic"]), _mean_flows(results["drift-continuous"]))
+
+    bursty = dict(lanes.drift_lane_specs(scenario="drift_bursty"))
+    bursty_res = {}
+    for label in ("drift-quantized", "drift-quantized-fused"):
+        torch.cuda.synchronize()
+        alloc.LAUNCHES = 0
+        bursty_res[label] = sweeps.run_sweep(bursty[label], device=device)
+        torch.cuda.synchronize()
+        launches[f"bursty-{label}"] = alloc.LAUNCHES
+        walls[f"bursty-{label}"] = bursty_res[label].wall_s
+    assert launches["bursty-drift-quantized-fused"] == 2 * M + D, launches
+    assert lanes.fused_equals_unfused(list(bursty_res.items()), "drift-"), \
+        "drift_bursty fused lane != unfused lane"
+
+    cpu_gap = 0.0
+    for label, spec in lanes.drift_lane_specs(smoke=True):
+        scn = sweeps.draw_scenario(spec, device="cpu")
+        cpu = sweeps.simulate_cells(spec, scn.x0, scn.arrival_times, p_drift=scn.p_drift,
+                                    device="cpu")["hesrpt"]["mean_flowtime"]
+        gpu = sweeps.simulate_cells(spec, scn.x0, scn.arrival_times, p_drift=scn.p_drift,
+                                    device=device)["hesrpt"]["mean_flowtime"]
+        rel = float(np.max(np.abs(gpu - cpu) / np.abs(cpu)))
+        assert rel <= 1e-12, f"{label}: CPU vs CUDA mean flow differ by {rel} relative"
+        cpu_gap = max(cpu_gap, rel)
+    spec = dict(lanes.drift_lane_specs(smoke=True))["drift-quantized-fused"]
+    scn = sweeps.draw_scenario(spec, device="cpu")
+    x0, arr = scn.x0.reshape(-1, spec.n_jobs), scn.arrival_times.reshape(-1, spec.n_jobs)
+    drift = engine.PDrift(scn.p_drift.times.reshape(-1, 1), scn.p_drift.values)
+    gdrift = engine.PDrift(drift.times.to(device), drift.values.to(device))
+    rule = engine.quantized_rule(policies.hesrpt, spec.n_chips)
+    cpu = engine.run(x0, arr, spec.p, rule, record=True, fused=True, p_drift=drift)
+    gpu = engine.run(x0.to(device), arr.to(device), spec.p, rule, record=True, fused=True,
+                     p_drift=gdrift)
+    assert torch.equal(cpu.trace.alloc, gpu.trace.alloc.cpu()), "drift chips differ CPU vs CUDA"
+    cells = len(specs["drift-quantized"].rates) * specs["drift-quantized"].n_seeds
+    print(f"phase 23: drift lanes (drift_poisson, p 0.8 -> 0.3 at half the nominal span) "
+          f"{cells} cells x {M} jobs on {card}: fused lane {launches['drift-quantized-fused']} "
+          f"launches (2M + D = {2 * M + D}), fused == unfused bit for bit; superstep vs generic "
+          f"loop (heSRPT, EQUI, SRPT) {ss_gap:.2e}; drift_bursty fused "
+          f"{launches['bursty-drift-quantized-fused']} launches, == unfused; smoke CPU vs "
+          f"card {cpu_gap:.2e}, chips equal at every event", flush=True)
+    print("phase 23: walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()),
+          flush=True)
+    means = [round(v["hesrpt"], 6) for v in results["drift-quantized-fused"].cell_means().values()]
+    print(f"phase 23: fused drift lane per-rate mean flow {means}", flush=True)
+    return {"launches": launches, "walls_s": walls, "superstep_vs_generic_max_rel": ss_gap,
+            "cpu_vs_cuda_max_rel": cpu_gap, "cells": cells, "n_jobs": M,
+            "lanes": lanes.lane_records(lane_pairs),
+            "fused_result": results["drift-quantized-fused"]}
+
+
+def phase_snap_chunk_timing(alloc, lanes, sweeps, engine, policies, fused_drift, card,
+                            device) -> dict:
+    """Phase 24: slice snapping fused vs unfused on the lanes' tapes, seed
+    chunking of the fused drift lane, and the per-cell-p kernel's time."""
+    import numpy as np
+    import torch
+
+    spec = dict(lanes.lane_specs())["quantized-fused"]
+    x0, arr, _ = sweeps.draw_scenario(spec, device=device)
+    x0, arr = x0.reshape(-1, spec.n_jobs), arr.reshape(-1, spec.n_jobs)
+    rule = engine.quantized_rule(policies.hesrpt, spec.n_chips, snap_slices=True)
+    runs, walls = {}, {}
+    for label, fused in (("unfused", False), ("fused", True)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[label] = engine.run(x0, arr, spec.p, rule, record=True, fused=fused)
+        torch.cuda.synchronize()
+        walls[f"snap-{label}"] = time.perf_counter() - t0
+    chips = runs["fused"].trace.alloc
+    assert torch.equal(chips, runs["unfused"].trace.alloc), "snapped chips fused != unfused"
+    assert torch.equal(runs["fused"].completion_times, runs["unfused"].completion_times)
+    slices = torch.tensor((0, *engine.DEFAULT_SLICES), dtype=chips.dtype, device=device)
+    assert bool(torch.isin(chips, slices).all()), "a snapped count is not a slice size"
+    most = int(chips.sum(-1).max())
+    assert most <= spec.n_chips, f"{most} chips in a cell"
+    assert bool(torch.isfinite(runs["fused"].completion_times).all())
+    del runs, chips
+    torch.cuda.empty_cache()
+    # What the snap costs a lane: the fused run with and without it, no record.
+    plain_rule = engine.quantized_rule(policies.hesrpt, spec.n_chips)
+    for label, r in (("fused-no-snap", plain_rule), ("fused-snap", rule),
+                     ("fused-snap-2", rule), ("fused-no-snap-2", plain_rule)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run(x0, arr, spec.p, r, fused=True)
+        torch.cuda.synchronize()
+        walls[label] = time.perf_counter() - t0
+
+    fspec = fused_drift.spec
+    chunk_walls = {}
+    for chunk in (1, 3):
+        res = sweeps.run_sweep(fspec, chunk_seeds=chunk, device=device)
+        chunk_walls[chunk] = res.wall_s
+        assert res.chunk_seeds == (chunk if chunk < fspec.n_seeds else None)
+        for m in fspec.metrics:
+            assert np.array_equal(res.stats["hesrpt"][m], fused_drift.stats["hesrpt"][m]), \
+                f"chunk {chunk}: {m} differs from the unchunked run"
+
+    cells, M, n_chips = 192, 1000, 256
+    gen = torch.Generator(device=device).manual_seed(24)
+    x = _sizes(gen, (cells, M), device, torch.float64)
+    p_col = torch.tensor((0.8, 0.3), dtype=torch.float64, device=device).repeat(cells // 2)[:, None]
+    before = alloc.LAUNCHES
+    timing = {
+        "per_cell_p": _time_ms(lambda: alloc.hesrpt_alloc_fused(x, p_col, n_chips), 200),
+        "scalar_p_0.8": _time_ms(lambda: alloc.hesrpt_alloc_fused(x, 0.8, n_chips), 200),
+        "scalar_p_0.5": _time_ms(lambda: alloc.hesrpt_alloc_fused(x, 0.5, n_chips), 200),
+        "exponent_rows": _time_ms(lambda: alloc.exponent_rows(p_col, cells, x.device), 200),
+        "plain_per_cell_p": _time_ms(
+            lambda: alloc.hesrpt_alloc_fused_ref(x, p_col, n_chips), 50),
+    }
+    alloc.LAUNCHES = before  # timing launches are not the main path's
+    # Least time: x read once, theta and chips written once, and now one
+    # float64 p (and c) a cell; the operations stay far below.
+    n_bytes = cells * M * (2 * x.element_size() + 4) + cells * 8
+    n_ops = cells * (2 * M * math.ceil(math.log2(M)) + 40 * M)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / PEAK_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    print(f"phase 24: slice snapping on the lanes' tapes ([{x0.shape[0]}, {spec.n_jobs}], "
+          f"{spec.n_chips} chips): fused == unfused at every event, every count a slice size, "
+          f"at most {most} chips a cell; wall unfused {walls['snap-unfused']:.3f} s, fused "
+          f"{walls['snap-fused']:.3f} s (record=True); fused without the trace: snapped "
+          f"{walls['fused-snap']:.3f} / {walls['fused-snap-2']:.3f} s, not snapped "
+          f"{walls['fused-no-snap']:.3f} / {walls['fused-no-snap-2']:.3f} s", flush=True)
+    print(f"phase 24: fused drift lane in chunks of 1 and 3 seeds == unchunked bit for bit; "
+          f"walls {chunk_walls[1]:.3f} / {chunk_walls[3]:.3f} s (unchunked "
+          f"{fused_drift.wall_s:.3f} s)", flush=True)
+    print(f"phase 24: alloc at [{cells}, {M}] f64 on {card}: one p a cell "
+          f"{timing['per_cell_p']:.4f} ms/call (of it building c {timing['exponent_rows']:.4f}), "
+          f"scalar p 0.8 {timing['scalar_p_0.8']:.4f}, scalar p 0.5 {timing['scalar_p_0.5']:.4f}; "
+          f"plain version (one p a cell) {timing['plain_per_cell_p']:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({n_bytes} bytes)", flush=True)
+    return {"snap_walls_s": walls, "snap_most_chips": most, "chunk_walls_s": chunk_walls,
+            "timing_ms": timing, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "shape": [cells, M]}
+
+
 def main() -> int:
     try:
         import torch
@@ -1403,6 +1643,7 @@ def main() -> int:
           f"(nvcc {' '.join(alloc.NVCC_FLAGS)})", flush=True)
 
     max_err = phase_kernel_vs_plain(alloc, engine, device)
+    per_cell_cases = phase_per_cell_p(alloc, device)
     results, launches = phase_lanes(alloc, lanes, device)
     cpu_gap = phase_cpu_vs_cuda(lanes, sweeps, engine, policies, device)
     thm8_gap = phase_theorem8(simulator, flowtime, policies, device)
@@ -1434,6 +1675,9 @@ def main() -> int:
     wide_serve = phase_serve_wide(flash_attention, card, device)
     fig = phase_figures(alloc, figures, simulator, flowtime, superstep, policies, card, device)
     ss = phase_superstep(lanes, sweeps, superstep, flowtime, simulator, policies, card, device)
+    drift = phase_drift(alloc, lanes, sweeps, engine, policies, card, device)
+    snap = phase_snap_chunk_timing(alloc, lanes, sweeps, engine, policies,
+                                   drift.pop("fused_result"), card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -1442,6 +1686,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/alloc.py:160",
         "launches": launches,
         "launches_fig4": fig["alloc_launches"],
+        "launches_drift": drift["launches"]["drift-quantized-fused"],
+        "launches_drift_bursty": drift["launches"]["bursty-drift-quantized-fused"],
+        "ms_per_cell_p": snap["timing_ms"]["per_cell_p"],
+        "plain_ms_per_cell_p": snap["timing_ms"]["plain_per_cell_p"],
+        "bound_ms_per_cell_p": snap["bound_ms"],
+        "per_cell_p_cases": per_cell_cases,
         "ms_fig4": fig["alloc_ms"],
         "plain_ms_fig4": fig["alloc_plain_ms"],
         "bound_ms_fig4": fig["alloc_bound_ms"],
@@ -1536,6 +1786,8 @@ def main() -> int:
         "wide_serve": wide_serve,
         "figures": fig,
         "superstep": ss,
+        "drift": drift,
+        "snap_chunk_timing": snap,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -1,17 +1,21 @@
 """Online (arrival-stream) simulation — thin wrappers over ``core/engine.py``.
 
 Port of the noise-free part of ``repro.core.arrivals`` (the generic, the
-carried-rank, the superstep and the whole-chips paths): each wrapper takes
-``[..., M]`` tapes (array-likes or tensors, moved to ``device``), runs the
-engine over every cell at once and reduces completion times to per-job
-flow times and slowdowns (:class:`OnlineSimResult`, per-cell scalars over
-the leading dims).
+carried-rank, the superstep and the whole-chips paths, each under a
+drifting ``p`` where the engine takes one): each wrapper takes ``[..., M]``
+tapes (array-likes or tensors, moved to ``device``), runs the engine over
+every cell at once and reduces completion times to per-job flow times and
+slowdowns (:class:`OnlineSimResult`, per-cell scalars over the leading
+dims).  :func:`load_sweep` / :func:`load_sweep_raw` are thin specs over
+``core/sweeps.py``.
 """
 
 from __future__ import annotations
 
+from collections.abc import Sequence
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import engine
@@ -56,14 +60,15 @@ def _tapes(x0, arrival_times, device):
 
 def simulate_online(
     x0, arrival_times, p, n_servers, policy: Policy, *, rel_tol: float = 1e-9,
-    horizon: int | None = None, fused: bool = False, device="cuda",
+    horizon: int | None = None, fused: bool = False, p_drift=None, device="cuda",
 ) -> OnlineSimResult:
     """Run ``policy`` online over arrival streams to completion (the
-    continuous regime, re-evaluated at every arrival and departure)."""
+    continuous regime, re-evaluated at every arrival and departure, and at
+    every boundary of ``p_drift``)."""
     x0, arr = _tapes(x0, arrival_times, device)
     res = engine.run(
         x0, arr, p, engine.continuous_rule(policy, n_servers, dtype=x0.dtype),
-        horizon=horizon, rel_tol=rel_tol, fused=fused,
+        horizon=horizon, rel_tol=rel_tol, fused=fused, p_drift=p_drift,
     )
     return _finalize(x0, arr, res.completion_times, p, n_servers)
 
@@ -84,7 +89,8 @@ def simulate_online_superstep(
     pre_arrived: bool = False, horizon: int | None = None, p_drift=None, device="cuda",
 ) -> OnlineSimResult:
     """Closed-form superstep path of :func:`simulate_online`: one step per
-    arrival and none for ``pre_arrived`` batches (``core/superstep.py``).
+    arrival (and drift boundary) and none for ``pre_arrived`` batches
+    without drift (``core/superstep.py``).
     ``policy`` names one of ``superstep.SUPERSTEP_POLICIES``;
     ``weighted_hesrpt`` reads per-job ``weights`` (input order)."""
     x0, arr = _tapes(x0, arrival_times, device)
@@ -98,7 +104,7 @@ def simulate_online_superstep(
 def simulate_online_quantized(
     x0, arrival_times, p, n_chips: int, policy: Policy, *, min_chips: int = 1,
     rel_tol: float = 1e-9, horizon: int | None = None, record: bool = False,
-    fused: bool = False, device="cuda",
+    fused: bool = False, p_drift=None, device="cuda",
 ):
     """Online simulation with whole-chip allocations.
 
@@ -109,7 +115,7 @@ def simulate_online_quantized(
     res = engine.run(
         x0, arr, p,
         engine.quantized_rule(policy, n_chips, min_chips=min_chips, dtype=x0.dtype),
-        horizon=horizon, rel_tol=rel_tol, record=record, fused=fused,
+        horizon=horizon, rel_tol=rel_tol, record=record, fused=fused, p_drift=p_drift,
     )
     out = _finalize(x0, arr, res.completion_times, p, n_chips)
     return (out, res) if record else out
@@ -121,20 +127,70 @@ def simulate_scenario(
     fused: bool = False, device="cuda",
 ) -> OnlineSimResult:
     """Run drawn scenarios through the engine: whole chips when ``n_chips``
-    is set, else the continuous system with ``n_servers``."""
+    is set, else the continuous system with ``n_servers``.  A drift
+    scenario's ``p_drift`` supersedes ``p`` in the physics and in what the
+    policy sees (the oracle arm); ``p`` still normalizes the slowdowns."""
     if n_chips is not None:
         return simulate_online_quantized(
             scn.x0, scn.arrival_times, p, n_chips, policy, min_chips=min_chips,
-            rel_tol=rel_tol, horizon=horizon, fused=fused, device=device,
+            rel_tol=rel_tol, horizon=horizon, fused=fused, p_drift=scn.p_drift,
+            device=device,
         )
     return simulate_online(
         scn.x0, scn.arrival_times, p, n_servers, policy, rel_tol=rel_tol,
-        horizon=horizon, fused=fused, device=device,
+        horizon=horizon, fused=fused, p_drift=scn.p_drift, device=device,
     )
+
+
+# --------------------------------------------------------------- load sweeps
+def load_sweep(
+    policies: Sequence[str], rates: Sequence[float], *, n_jobs: int = 1000,
+    n_seeds: int = 100, p: float = 0.5, n_servers: float = 256.0, size_alpha: float = 1.5,
+    seed: int = 0, metric: str = "mean_flowtime", scenario: str = "poisson",
+    scenario_kw: dict | None = None, n_chips: int | None = None, min_chips: int = 1,
+    chunk_seeds: int | None = None, max_jobs_in_flight: int | None = None, device="cuda",
+) -> dict:
+    """Sweep arrival rates x seeds x policies, one batch run a policy (per
+    seed chunk).  Seeds are shared across rates and policies (paired
+    comparison).  Returns ``{rate: {policy: mean-over-seeds of metric}}``."""
+    per_seed = load_sweep_raw(
+        policies, rates, n_jobs=n_jobs, n_seeds=n_seeds, p=p, n_servers=n_servers,
+        size_alpha=size_alpha, seed=seed, metric=metric, scenario=scenario,
+        scenario_kw=scenario_kw, n_chips=n_chips, min_chips=min_chips,
+        chunk_seeds=chunk_seeds, max_jobs_in_flight=max_jobs_in_flight, device=device,
+    )
+    return {
+        float(rate): {name: float(np.mean(per_seed[name][ri])) for name in policies}
+        for ri, rate in enumerate(rates)
+    }
+
+
+def load_sweep_raw(
+    policies: Sequence[str], rates: Sequence[float], *, n_jobs: int = 1000,
+    n_seeds: int = 100, p: float = 0.5, n_servers: float = 256.0, size_alpha: float = 1.5,
+    seed: int = 0, metric: str = "mean_flowtime", scenario: str = "poisson",
+    scenario_kw: dict | None = None, n_chips: int | None = None, min_chips: int = 1,
+    chunk_seeds: int | None = None, max_jobs_in_flight: int | None = None, device="cuda",
+) -> dict:
+    """Like :func:`load_sweep` but the full ``[n_rates, n_seeds]`` array of
+    per-seed metrics for each policy: a ``Sweep`` spec through
+    ``sweeps.run_sweep``, where the seed-chunking knobs live."""
+    from repro_torch.core.sweeps import Sweep, run_sweep
+
+    spec = Sweep.create(
+        policies, rates, scenario=scenario, scenario_kw=scenario_kw, n_jobs=n_jobs,
+        n_seeds=n_seeds, seed=seed, p=p, n_servers=n_servers, size_alpha=size_alpha,
+        n_chips=n_chips, min_chips=min_chips, metrics=(metric,),
+    )
+    res = run_sweep(spec, chunk_seeds=chunk_seeds, max_jobs_in_flight=max_jobs_in_flight,
+                    device=device)
+    return {name: res.stats[name][metric] for name in spec.policies}
 
 
 __all__ = [
     "OnlineSimResult",
+    "load_sweep",
+    "load_sweep_raw",
     "simulate_online",
     "simulate_online_quantized",
     "simulate_online_ranked",

@@ -23,13 +23,21 @@ tensor value — so the loop is bound by launches, not by syncs.
 - ``run(superstep=True)`` — the closed-form arrival-superstep path
   (``core/superstep.py``) for :func:`continuous_rule` over heSRPT, EQUI and
   SRPT: ``M + 1`` steps online, none for a batch.
+- ``run(p_drift=)`` — a true exponent that changes in time
+  (:class:`PDrift`): each row's regime boundaries are events of their own,
+  and the rule sees each row's current ``p`` as a ``[C, 1]`` column, which
+  the fused allocate hands to the kernel (one exponent a cell).
+- :func:`snap_to_slices` — whole chips snapped to power-of-two slices
+  (``quantized_rule(snap_slices=True)``, ``knee_rule`` likewise).
 
-Not ported yet (ROADMAP.md Queue A): ``p_drift``, ``telemetry``, slice
-snapping, estimation noise and the bounded-slot streaming loop.
+Not ported yet (ROADMAP.md Queue A): ``telemetry``, per-job drift rows and
+estimation noise (with the multi-class runs), and the bounded-slot
+streaming loop.
 """
 
 from __future__ import annotations
 
+import math
 from collections.abc import Callable
 from typing import Any, NamedTuple
 
@@ -49,9 +57,30 @@ from repro_torch.kernels.alloc import (
 # chips for quantized ones.
 AllocRule = Callable[[torch.Tensor, Any], tuple[torch.Tensor, torch.Tensor]]
 
-#: Power-of-two slice sizes (``sched.quantize`` keeps its own copy in the
-#: JAX package; slice snapping itself is a later slice of the port).
+#: Power-of-two slice sizes (:func:`snap_to_slices`; the JAX package's
+#: ``engine`` and ``sched.quantize`` share their own copy).
 DEFAULT_SLICES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+
+
+class PDrift(NamedTuple):
+    """Piecewise-constant true speedup exponent: regime changes mid-run.
+
+    ``times`` are the ``D`` regime-change epochs (ascending) and ``values``
+    the ``D + 1`` scalar regimes, each ``[D]`` / ``[D + 1]`` for every cell
+    or ``[..., D]`` / ``[..., D + 1]`` broadcasting over the cells' lead
+    dims (a sweep's drift time differs by rate).  Between ``times[r-1]`` and
+    ``times[r]`` the physics, and the ``p`` the rule is shown, use
+    ``values[r]``.  Per-job regime rows (``values`` ``[D + 1, M]``, more
+    dims than ``times``) are the JAX package's multi-class form and are not
+    ported yet.
+    """
+
+    times: torch.Tensor  # [D] or [..., D] regime-change epochs, ascending
+    values: torch.Tensor  # [D + 1] or [..., D + 1] exponent per regime
+
+
+def _per_job_rows(p_drift: PDrift) -> bool:
+    return torch.as_tensor(p_drift.values).ndim > torch.as_tensor(p_drift.times).ndim
 
 
 class Observation(NamedTuple):
@@ -100,14 +129,19 @@ class EngineResult(NamedTuple):
 
 
 # ----------------------------------------------------------- allocation rules
-def finish_alloc(theta, p, *, n_alloc, n_chips: int | None, min_chips: int = 1, dtype):
+def finish_alloc(
+    theta, p, *, n_alloc, n_chips: int | None, min_chips: int = 1,
+    snap_slices: bool = False, slices: tuple[int, ...] = DEFAULT_SLICES, dtype,
+):
     """The one ``theta -> (alloc, rate)`` tail the rules share: continuous
     (``n_chips`` None, rate ``s(theta n_alloc)``) or whole chips (rate
-    ``s(chips)``)."""
+    ``s(chips)``), optionally snapped to ``slices`` (:func:`snap_to_slices`)."""
     theta = theta.to(dtype)
     if n_chips is None:
         return theta, speedup(theta * n_alloc, p)
     chips = quantize_allocation(theta, n_chips, min_chips=min_chips)
+    if snap_slices:
+        chips = snap_to_slices(chips, n_chips, slices=slices)
     return chips, speedup(chips.to(dtype), p)
 
 
@@ -139,25 +173,29 @@ def continuous_rule(policy: Policy, n_servers, *, dtype=torch.float64) -> AllocR
 
 
 def quantized_rule(
-    policy: Policy, n_chips: int, *, min_chips: int = 1, dtype=torch.float64
+    policy: Policy, n_chips: int, *, min_chips: int = 1, dtype=torch.float64,
+    snap_slices: bool = False, slices: tuple[int, ...] = DEFAULT_SLICES,
 ) -> AllocRule:
-    """Whole chips: largest-remainder rounding of ``theta * n_chips``.
+    """Whole chips: largest-remainder rounding of ``theta * n_chips``,
+    snapped to power-of-two ``slices`` under ``snap_slices=True``.
 
     Over heSRPT the rule carries a ``fused_variant``: the
     ``kernels/alloc.py`` rank -> theta -> chips pass, chip-exact vs this
-    rule, one kernel launch per event on the card.
+    rule, one kernel launch per event on the card (then the snap).
     """
 
     def rule(x_act, p):
         return finish_alloc(
             policy(x_act, p), p, n_alloc=n_chips, n_chips=n_chips,
-            min_chips=min_chips, dtype=dtype,
+            min_chips=min_chips, snap_slices=snap_slices, slices=slices, dtype=dtype,
         )
 
     if policy is hesrpt:
 
         def fused(x_act, p):
             _theta, chips = hesrpt_alloc_fused(x_act, p, n_chips, min_chips=min_chips)
+            if snap_slices:
+                chips = snap_to_slices(chips, n_chips, slices=slices)
             return chips, speedup(chips.to(dtype), p)
 
         rule.fused_variant = fused
@@ -165,7 +203,8 @@ def quantized_rule(
 
 
 def knee_rule(
-    n_servers, *, n_chips: int | None = None, min_chips: int = 1, dtype=torch.float64
+    n_servers, *, n_chips: int | None = None, min_chips: int = 1,
+    snap_slices: bool = False, dtype=torch.float64,
 ) -> StatefulRule:
     """KNEE with its per-epoch ``alpha`` refit, as an engine rule.
 
@@ -173,7 +212,8 @@ def knee_rule(
     masked median being ``np.median``'s over the active subset (the mean of
     the two middle order statistics), so the state stays empty.
     Continuous when ``n_chips`` is None, else whole chips with a min-chips
-    floor, as :func:`continuous_rule` / :func:`quantized_rule`.
+    floor (optionally slice-snapped), as :func:`continuous_rule` /
+    :func:`quantized_rule`.
     """
     n_alloc = float(n_chips) if n_chips is not None else float(n_servers)
 
@@ -184,7 +224,8 @@ def knee_rule(
         med = 0.5 * (v.gather(-1, (m - 1) // 2) + v.gather(-1, m // 2))
         theta = knee(x_act, p, n_alloc, med * p / n_alloc)
         return finish_alloc(
-            theta, p, n_alloc=n_alloc, n_chips=n_chips, min_chips=min_chips, dtype=dtype
+            theta, p, n_alloc=n_alloc, n_chips=n_chips, min_chips=min_chips,
+            snap_slices=snap_slices, dtype=dtype,
         )
 
     return as_stateful(rule)
@@ -203,7 +244,7 @@ def _resolve_fused(rule, fused: bool):
     return fused_rule
 
 
-def _resolve_superstep(rule, *, fused: bool, record: bool, p):
+def _resolve_superstep(rule, *, fused: bool, record: bool, p, p_drift):
     """The rule's ``(policy_name, n_servers)`` superstep spec, or
     ``ValueError`` for what the closed form cannot represent (that takes the
     generic per-event loop: drop ``superstep=True``)."""
@@ -227,6 +268,8 @@ def _resolve_superstep(rule, *, fused: bool, record: bool, p):
             "superstep=True needs a scalar p (per-job exponents break the "
             "rank-order departure invariant)" + fallback
         )
+    if p_drift is not None and _per_job_rows(p_drift):
+        raise ValueError("superstep=True supports scalar drift regimes only" + fallback)
     return spec
 
 
@@ -242,10 +285,25 @@ def _cells(x0, arrival_times):
     return x0, arr, lead, dtype
 
 
-def _not_ported(name: str):
-    raise NotImplementedError(
-        f"engine.run({name}=...) is not ported yet (see ROADMAP.md Queue A)"
-    )
+def _drift_rows(p_drift: PDrift, lead, dtype, device):
+    """``(times, values)`` of every cell row: ``[C, D + 1]`` boundaries
+    with a ``+inf`` past the last (so the next boundary is a gather even
+    for ``D = 0``) and ``[C, D + 1]`` regimes."""
+    if _per_job_rows(p_drift):
+        raise NotImplementedError(
+            "per-job drift rows (PDrift.values [D + 1, M]) need the per-job p "
+            "of multi-class runs, not ported yet (ROADMAP.md Queue A, item 6)"
+        )
+    times = torch.as_tensor(p_drift.times, device=device).to(dtype)
+    values = torch.as_tensor(p_drift.values, device=device).to(dtype)
+    D = times.shape[-1]
+    if values.shape[-1] != D + 1:
+        raise ValueError(f"PDrift needs D + 1 regimes for D boundaries, got "
+                         f"{values.shape[-1]} for {D}")
+    C = math.prod(lead)
+    times = times.expand(*lead, D).reshape(C, D)
+    inf = torch.full((C, 1), torch.inf, dtype=dtype, device=device)
+    return torch.cat([times, inf], -1), values.expand(*lead, D + 1).reshape(C, D + 1)
 
 
 # ------------------------------------------------------------ the event loop
@@ -269,10 +327,19 @@ def run(
 
     ``x0``/``arrival_times`` are ``[..., M]`` tapes (any leading cell dims,
     the arrival times may broadcast); the loop runs all cells together for
-    ``E = 2M`` steps (``M`` with ``pre_arrived=True``, or ``horizon``).
-    Each step advances every cell to its next event (the ``min`` of next
-    departure and next arrival) and re-queries ``rule`` on the active set;
-    steps after a cell's last event are no-ops.  ``p`` is a scalar.
+    ``E = 2M + D`` steps (``M + D`` with ``pre_arrived=True``, ``D`` the
+    drift boundaries, or ``horizon``).  Each step advances every cell to its
+    next event (the ``min`` of next departure, next arrival and next drift
+    boundary) and re-queries ``rule`` on the active set; steps after a
+    cell's last event are no-ops.  ``p`` is one exponent for every job
+    and every cell (per-job exponents come with the multi-class runs).
+
+    ``p_drift`` (:class:`PDrift`) supersedes ``p`` with a piecewise-constant
+    exponent: each row looks its regime up at its own clock, ``dt`` stops at
+    the next boundary, the clock lands exactly on an arrival or a boundary,
+    and ties go to the arrival, then the departure, then the boundary, as in
+    the JAX scan.  The rule is shown each row's current ``p`` as a ``[C, 1]``
+    column.
 
     ``record=True`` also returns the per-event trajectory; ``fused=True``
     swaps in the rule's ``fused_variant``.  ``superstep=True`` hands the
@@ -281,23 +348,27 @@ def run(
     ``ValueError`` for the rest.  Jobs that never depart within the horizon
     report ``inf``.
     """
-    if p_drift is not None:
-        _not_ported("p_drift")
     if telemetry is not None:
-        _not_ported("telemetry")
+        raise NotImplementedError(
+            "engine.run(telemetry=...) is not ported yet (see ROADMAP.md Queue A)"
+        )
     if superstep:
-        pol_name, n_srv = _resolve_superstep(rule, fused=fused, record=record, p=p)
+        pol_name, n_srv = _resolve_superstep(
+            rule, fused=fused, record=record, p=p, p_drift=p_drift
+        )
         from repro_torch.core.superstep import run_superstep
 
         return run_superstep(
             x0, arrival_times, p, n_srv, pol_name,
-            pre_arrived=pre_arrived, horizon=horizon, t0=t0,
+            pre_arrived=pre_arrived, horizon=horizon, t0=t0, p_drift=p_drift,
         )
     rule = _resolve_fused(rule, fused)
     x0, arr_in, lead, dtype = _cells(x0, arrival_times)
     C, M = x0.shape
     dev = x0.device
-    E = (M if pre_arrived else 2 * M) if horizon is None else horizon
+    drift = None if p_drift is None else _drift_rows(p_drift, lead, dtype, dev)
+    n_drift = 0 if drift is None else drift[0].shape[-1] - 1
+    E = ((M if pre_arrived else 2 * M) + n_drift) if horizon is None else horizon
     tol = rel_tol * x0.amax(-1, keepdim=True)
 
     # Event logic walks arrivals in time order; un-sort at the end.
@@ -316,20 +387,39 @@ def run(
     for _ in range(E):
         active = (idx < i) & (x > 0)
         x_act = torch.where(active, x, 0.0)
-        alloc, rate = srule.allocate(st, x_act, p)
+        p_now = p
+        if drift is not None:
+            # The regime at each row's clock (right: a row landed on a
+            # boundary already reads the new exponent) and its next boundary.
+            r = torch.searchsorted(drift[0], t, right=True)
+            p_now = drift[1].gather(-1, r)
+            t_next_drift = drift[0].gather(-1, r)
+            dt_drift = torch.clamp(t_next_drift - t, min=0.0)
+        alloc, rate = srule.allocate(st, x_act, p_now)
         tt = torch.where(active & (rate > 0), x / rate, inf)
         dt_dep = tt.amin(-1, keepdim=True)
         first = tt.argmin(-1, keepdim=True)  # first index on ties, as jnp.argmin
         t_next_arr = torch.where(i < M, arr.gather(-1, i.clamp(max=M - 1)), inf)
         dt_arr = torch.clamp(t_next_arr - t, min=0.0)
         dt = torch.minimum(dt_dep, dt_arr)
+        if drift is not None:
+            dt = torch.minimum(dt, dt_drift)
         any_event = torch.isfinite(dt)
         dt = torch.where(any_event, dt, 0.0)
         # Landing on an arrival pins t to the exact arrival time so the
-        # searchsorted admission below cannot miss it to float rounding.
-        admit = any_event & (dt_arr <= dt_dep)
-        take_dep = any_event & (dt_dep <= dt_arr)
-        t_new = torch.where(admit, t_next_arr, t + dt)
+        # searchsorted admission below cannot miss it to float rounding (and
+        # likewise a drift boundary); ties: arrival, departure, boundary.
+        if drift is None:
+            admit = any_event & (dt_arr <= dt_dep)
+            take_dep = any_event & (dt_dep <= dt_arr)
+            t_new = torch.where(admit, t_next_arr, t + dt)
+        else:
+            admit = any_event & (dt_arr <= torch.minimum(dt_dep, dt_drift))
+            take_dep = any_event & (dt_dep <= torch.minimum(dt_arr, dt_drift))
+            take_drift = any_event & ~admit & ~take_dep
+            t_new = torch.where(
+                admit, t_next_arr, torch.where(take_drift, t_next_drift, t + dt)
+            )
         x_new = torch.where(active, x - dt * rate, x)
         # The argmin job departs by construction when the departure is the
         # next event; float residue (~eps*x) must not keep it alive.
@@ -463,9 +553,61 @@ def quantize_allocation(theta: torch.Tensor, n_chips: int, *, min_chips: int = 1
     return round_chips(theta, active0 & (desc < n_chips // min_chips), n_chips, min_chips)
 
 
+def snap_to_slices(
+    chips: torch.Tensor, n_chips: int, *, slices: tuple[int, ...] = DEFAULT_SLICES
+) -> torch.Tensor:
+    """Whole chips snapped to slice sizes, row by row over the last dim.
+
+    Port of ``repro.core.engine.snap_to_slices_jax`` (and of the NumPy
+    oracle ``sched.quantize.snap_to_slices``): each count snaps down to the
+    largest slice ``<= count`` (0 below the smallest), then leftover chips
+    go back one upgrade a round: among jobs whose next slice step fits the
+    row's leftover pool and whose lost allocation (original - snapped) is
+    non-negative, the job with the largest lost allocation moves up one
+    slice, ties to the higher index.  Every row takes its rounds together;
+    a row with nothing left to upgrade goes through rounds that change
+    nothing, and convergence is checked on the host after rounds 1, 2, 4,
+    8, ... (one sync each), bounded by ``n_chips`` rounds since every
+    upgrade shrinks the pool.  Returns int32 chips.
+    """
+    shape = chips.shape
+    M = shape[-1]
+    if chips.numel() == 0:
+        return chips.to(torch.int32)
+    dev = chips.device
+    sl = torch.tensor(sorted(slices), dtype=torch.int64, device=dev)
+    S = sl.shape[0]
+    chips0 = chips.reshape(-1, M).to(torch.int64)
+    idx = torch.arange(M, device=dev)
+    down = torch.searchsorted(sl, chips0, right=True) - 1
+    snapped = torch.where(down >= 0, sl[down.clamp(min=0)], 0)
+    left = n_chips - snapped.sum(-1, keepdim=True)
+    # JAX's ~((snapped == 0) & (chips0 == 0)): a job that held no chip snaps
+    # to 0 and stays there, so the test is chips0 != 0.
+    held = chips0 != 0
+    check = 1
+    for k in range(1, max(int(n_chips), 0) + 1):
+        nxt_i = torch.searchsorted(sl, snapped, right=True)
+        nxt = sl[nxt_i.clamp(max=S - 1)]
+        step = nxt - snapped
+        lost = chips0 - snapped
+        elig = (nxt_i < S) & (step <= left) & (lost >= 0) & held
+        key = torch.where(elig, lost * M + idx, -1)
+        best, j = key.max(-1, keepdim=True)
+        go = (best >= 0) & (left > 0)
+        snapped = torch.where(go & (idx == j), nxt, snapped)
+        left = left - torch.where(go, step.gather(-1, j), 0)
+        if k == check:
+            if not bool(go.any()):
+                break
+            check *= 2
+    return snapped.to(torch.int32).reshape(shape)
+
+
 __all__ = [
     "DEFAULT_SLICES",
     "AllocRule",
+    "PDrift",
     "EngineResult",
     "EngineTrace",
     "Observation",
@@ -478,4 +620,5 @@ __all__ = [
     "quantized_rule",
     "run",
     "run_ranked",
+    "snap_to_slices",
 ]

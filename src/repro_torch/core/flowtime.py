@@ -105,7 +105,8 @@ def rank_bracket_powers(
     device="cuda",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """``(a_r^p, A_r^p)`` for descending-size ranks ``r = 1..M``: ``[M]``
-    for ``"hesrpt"`` and ``"equi"``, ``[..., M]`` for ``"weighted_hesrpt"``
+    for ``"hesrpt"`` and ``"equi"`` (``[K, M]`` for a ``[K, 1]`` tensor
+    ``p``, one exponent a row), ``[..., M]`` for ``"weighted_hesrpt"``
     (``weights_rank`` per rank, cumulated here, on its own device)."""
     c = 1.0 / (1.0 - p)
     if policy == "weighted_hesrpt":
@@ -120,11 +121,12 @@ def rank_bracket_powers(
     dev = resolve_device(device)
     if policy == "equi":
         r = torch.arange(1, M + 1, dtype=dtype, device=dev)
-        return torch.ones(M, dtype=dtype, device=dev), r.pow(p)
+        Ap = r.pow(p)
+        return torch.ones_like(Ap), Ap
     if policy == "hesrpt":
         r = torch.arange(0, M + 1, dtype=dtype, device=dev)
         rc = r.pow(c)
-        return (rc[1:] - rc[:-1]).pow(p), r[1:].pow(c - 1.0)
+        return (rc[..., 1:] - rc[..., :-1]).pow(p), r[1:].pow(c - 1.0)
     raise ValueError(f"no bracket form for policy {policy!r}")
 
 

@@ -36,6 +36,14 @@ def bracket_pow(b: torch.Tensor, c) -> torch.Tensor:
     otherwise both call the device ``pow``.  Spelling the cases out keeps
     the kernel and this plain version on one op sequence without relying on
     how ``torch.pow`` special-cases a scalar exponent.
+
+    ``c`` is a float or a float64 tensor broadcasting per row (``[C, 1]``:
+    a drifting ``p``), whose modes are chosen element by element from the
+    float64 ``c`` before it is cast to ``b``'s type, as the kernel chooses
+    them per cell.  Either exponent reaches ``pow`` as a tensor laid out
+    like ``b`` (a 0-dim one for a float), so on the CPU, whose vectorized
+    ``pow`` differs from its scalar loop in the last ulp, a row's result
+    does not depend on whether the other rows share its exponent.
     """
     if not isinstance(c, torch.Tensor):
         if c == 1.0:
@@ -44,7 +52,11 @@ def bracket_pow(b: torch.Tensor, c) -> torch.Tensor:
             return b * b
         if c == 3.0:
             return b * b * b
-    return b.pow(c)
+        return b.pow(torch.tensor(c, dtype=b.dtype))
+    powered = b.pow(c.to(b.dtype).expand_as(b).contiguous())
+    return torch.where(
+        c == 1.0, b, torch.where(c == 2.0, b * b, torch.where(c == 3.0, b * b * b, powered))
+    )
 
 
 # Rank-space forms (Thm 6 size-invariance): ranks are 1-based descending-size
@@ -53,7 +65,8 @@ def hesrpt_theta_from_ranks(ranks, m, p, *, dtype=torch.float64) -> torch.Tensor
     """Theorem 7 in rank space: theta = (r/m)^(1/(1-p)) - ((r-1)/m)^(1/(1-p))."""
     active = ranks > 0
     rf = ranks.to(dtype)
-    c = 1.0 / (1.0 - p)
+    # A tensor p (one exponent a row) takes its c in float64, as the kernel.
+    c = 1.0 / (1.0 - (p.to(torch.float64) if isinstance(p, torch.Tensor) else p))
     m_safe = _m_safe(m, dtype)
     hi = bracket_pow(rf / m_safe, c)
     lo = bracket_pow((rf - 1.0) / m_safe, c)

@@ -1,34 +1,48 @@
 """Workload tapes: where the engine's jobs and arrival epochs come from.
 
-Port of the noise-free part of ``repro.core.scenarios``.  A sampler is
-``(gen, n_jobs, rates) -> Scenario`` with an explicit ``torch.Generator``:
-it draws each job's size and unit gap once and scales the gaps per rate, so
-one draw serves a whole rate axis (the JAX sweep's pairing, one key per
-seed shared across rates).  ``rates`` may be a float (tapes ``[M]``) or a
-sequence (tapes ``[R, M]``).  The draws differ from JAX's threefry streams
-and agree with them in distribution only; parity tests hand the JAX
-sampler's tapes to the port through :func:`tape_from_numpy`.
+Port of the single-class, noise-free part of ``repro.core.scenarios``.  A
+sampler is ``(gen, n_jobs, rates) -> Scenario`` with an explicit
+``torch.Generator``: it draws each job's size and unit gap once and scales
+the gaps per rate, so one draw serves a whole rate axis (the JAX sweep's
+pairing, one key per seed shared across rates).  ``rates`` may be a float
+(tapes ``[M]``) or a sequence (tapes ``[R, M]``).  The draws differ from
+JAX's threefry streams and agree with them in distribution only; parity
+tests hand the JAX sampler's tapes to the port through
+:func:`tape_from_numpy`.
 
-Not ported yet (ROADMAP.md): ``bursty``, the drift and multi-class
-samplers, estimation noise (``sigma_size``/``sigma_p``), ``stream_tape``.
+- ``batch``, ``poisson``, ``deterministic``;
+- ``bursty`` — a 2-state Markov-modulated on-off stream whose long-run
+  intensity is the nominal rate;
+- ``drift_poisson`` / ``drift_bursty`` — the true exponent drifts ``p0 ->
+  p1`` at ``drift_frac`` of the stream's nominal span ``n_jobs / rate``,
+  carried as an ``engine.PDrift`` (drift times ``[R, 1]`` over a rate
+  axis).
+
+Not ported yet (ROADMAP.md Queue A): the multi-class samplers, estimation
+noise (``sigma_size``/``sigma_p``), ``stream_tape``.
 """
 
 from __future__ import annotations
 
+import inspect
 from collections.abc import Callable
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from repro_torch.core.engine import PDrift
 from repro_torch.device import DTYPE, resolve_device
 
 
 class Scenario(NamedTuple):
-    """One drawn workload, in input (unsorted) job order."""
+    """One drawn workload, in input (unsorted) job order.  ``p_drift``
+    makes the true exponent piecewise-constant in time; it then supersedes
+    the scalar ``p`` the simulation wrappers are called with."""
 
     x0: torch.Tensor  # [..., M] true job sizes
     arrival_times: torch.Tensor  # [..., M] arrival epochs (zeros for batch)
+    p_drift: PDrift | None = None  # times [..., D], values [D + 1]
 
 
 ScenarioSampler = Callable[[torch.Generator, int, object], Scenario]
@@ -68,6 +82,25 @@ def deterministic_arrivals(n_jobs: int, rate, *, device="cuda") -> torch.Tensor:
     return k / _rates(rate, dev)
 
 
+def bursty_arrivals(
+    gen: torch.Generator, n_jobs: int, rate_on, rate_off, *, p_stay: float = 0.95
+) -> torch.Tensor:
+    """2-state MAP on-off stream: each gap is Exp(rate of the current state).
+
+    The hidden state persists with probability ``p_stay`` an arrival and
+    flips otherwise (bursts of geometric length ``1/(1-p_stay)``); the state
+    path is the parity of a cumulative flip count.  ``rate_on``/``rate_off``
+    may be ``[R, 1]`` columns: one state path and one draw of unit gaps
+    serve the whole rate axis.
+    """
+    dev = gen.device
+    flips = torch.rand(n_jobs, dtype=DTYPE, device=dev, generator=gen) > p_stay
+    s0 = torch.rand(1, dtype=DTYPE, device=dev, generator=gen) < 0.5
+    state = (s0.to(torch.int64) + torch.cumsum(flips.to(torch.int64), 0)) % 2
+    rate = torch.where(state == 1, rate_on, rate_off)
+    return torch.cumsum(unit_gaps(gen, n_jobs) / rate, -1)
+
+
 def pareto_sizes(gen: torch.Generator, n_jobs: int, alpha: float = 1.5) -> torch.Tensor:
     """Pareto(alpha) job sizes with minimum 1 (``exp(Exp(1) / alpha)``)."""
     return torch.exp(unit_gaps(gen, n_jobs) / alpha)
@@ -97,10 +130,50 @@ def _deterministic(gen, n_jobs, rates, *, size_alpha):
     return _over_rates(x0, arr)
 
 
+def _bursty(gen, n_jobs, rates, *, size_alpha, burst=4.0, p_stay=0.95):
+    # rate_on/off bracket the nominal rate by ``burst``; the two states are
+    # visited 50/50 in steady state, so both are scaled by
+    # 0.5 (burst + 1/burst) to make the long-run intensity the nominal rate.
+    r = _rates(rates, gen.device)
+    norm = 0.5 * (burst + 1.0 / burst)
+    arr = bursty_arrivals(gen, n_jobs, r * burst * norm, r / burst * norm, p_stay=p_stay)
+    x0 = pareto_sizes(gen, n_jobs, size_alpha)
+    return _over_rates(x0, arr)
+
+
+def _with_drift(scn: Scenario, n_jobs, rates, *, p0, p1, drift_frac) -> Scenario:
+    """One regime change ``p0 -> p1`` at ``drift_frac`` of the stream's
+    nominal span ``n_jobs / rate`` (mid-stream at every load of a sweep):
+    drift times ``[R, 1]`` (``[1]`` for one rate), regimes ``[2]``."""
+    dev = scn.x0.device
+    t_d = drift_frac * n_jobs / _rates(rates, dev)
+    drift = PDrift(
+        times=t_d.reshape(-1, 1) if t_d.ndim else t_d.reshape(1),
+        values=torch.tensor([p0, p1], dtype=DTYPE, device=dev),
+    )
+    return scn._replace(p_drift=drift)
+
+
+def _drift_poisson(gen, n_jobs, rates, *, size_alpha, p0=0.8, p1=0.3, drift_frac=0.5):
+    scn = _poisson(gen, n_jobs, rates, size_alpha=size_alpha)
+    return _with_drift(scn, n_jobs, rates, p0=p0, p1=p1, drift_frac=drift_frac)
+
+
+def _drift_bursty(
+    gen, n_jobs, rates, *, size_alpha, p0=0.8, p1=0.3, drift_frac=0.5, burst=4.0,
+    p_stay=0.95,
+):
+    scn = _bursty(gen, n_jobs, rates, size_alpha=size_alpha, burst=burst, p_stay=p_stay)
+    return _with_drift(scn, n_jobs, rates, p0=p0, p1=p1, drift_frac=drift_frac)
+
+
 SCENARIOS: dict[str, Callable[..., Scenario]] = {
     "batch": _batch,
     "poisson": _poisson,
     "deterministic": _deterministic,
+    "bursty": _bursty,
+    "drift_poisson": _drift_poisson,
+    "drift_bursty": _drift_bursty,
 }
 
 
@@ -115,14 +188,16 @@ def make_scenario(
 ) -> ScenarioSampler:
     """A sampler ``(gen, n_jobs, rates) -> Scenario`` from the registry.
 
-    The tapes land on the generator's device.  Estimation noise and the
-    extra ``cfg`` of unported scenarios raise.
+    The tapes land on the generator's device.  Extra ``cfg`` goes to the
+    scenario (``burst``/``p_stay`` for the bursty ones, ``p0``/``p1``/
+    ``drift_frac`` for the drift ones; others raise ``TypeError``).
+    Estimation noise and the multi-class scenarios raise.
     """
     del p  # only the estimation-noise center reads it
-    if sigma_size or sigma_p or cfg:
+    if sigma_size or sigma_p:
         raise NotImplementedError(
-            "estimation noise (sigma_size/sigma_p) and scenario options "
-            f"{sorted(cfg)} are not ported yet (ROADMAP.md Queue A, item 6)"
+            "estimation noise (sigma_size/sigma_p) is not ported yet "
+            "(ROADMAP.md Queue A, item 6)"
         )
     fn = SCENARIOS.get(name.lower())
     if fn is None:
@@ -130,9 +205,10 @@ def make_scenario(
             f"scenario {name!r} is not ported yet (ROADMAP.md Queue A, item 6); "
             f"ported: {sorted(SCENARIOS)}"
         )
+    inspect.signature(fn).bind(None, 0, 1.0, size_alpha=size_alpha, **cfg)  # TypeError
 
     def sample(gen, n_jobs, rates):
-        return fn(gen, n_jobs, rates, size_alpha=size_alpha)
+        return fn(gen, n_jobs, rates, size_alpha=size_alpha, **cfg)
 
     return sample
 
@@ -162,6 +238,7 @@ __all__ = [
     "SCENARIOS",
     "Scenario",
     "ScenarioSampler",
+    "bursty_arrivals",
     "deterministic_arrivals",
     "make_scenario",
     "pareto_sizes",

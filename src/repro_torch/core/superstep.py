@@ -16,10 +16,12 @@ between two arrivals is computed analytically:
   the highest ranks and an arrival inserts one, so a step is elementwise
   work, gathers and two cumulative sums, with no sort and no host sync.
 
-Exact here: continuous allocation, scalar ``p``, heSRPT / EQUI / SRPT and
+Exact here: continuous allocation, scalar ``p`` or scalar drift regimes
+(``engine.PDrift``: each row's next boundary is a superstep event of its
+own, and each regime has its own bracket table), heSRPT / EQUI / SRPT and
 the cumulative-weight ``weighted_hesrpt`` (when weights do not increase
-with size).  Everything else takes the generic loop.  A drifting ``p``
-(``PDrift``) waits for its own port (ROADMAP.md Queue A, item 3).
+with size; not under drift, as in the JAX package).  Everything else takes
+the generic loop.
 
 Ties match ``run_ranked``: tied sizes get adjacent ranks by arrival order,
 so under SRPT per-job times permute within a tied group against the generic
@@ -32,8 +34,9 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.engine import EngineResult, _cells
+from repro_torch.core.engine import EngineResult, _cells, _drift_rows, _per_job_rows
 from repro_torch.core.flowtime import epoch_schedule, rank_bracket_powers, speedup
+from repro_torch.core.ranking import ranks_from_order, size_order_desc
 
 SUPERSTEP_POLICIES = ("hesrpt", "equi", "srpt", "weighted_hesrpt")
 #: The ones an unweighted ``engine.continuous_rule`` (and so a sweep) can name.
@@ -55,15 +58,21 @@ def _validate(policy: str, p, weights, p_drift) -> None:
             "rank-order departure invariant; use the generic engine.run loop"
         )
     if p_drift is not None:
-        raise NotImplementedError(
-            "superstep under p_drift is not ported yet (ROADMAP.md Queue A, "
-            "item 3, with PDrift)"
-        )
+        if policy == "weighted_hesrpt":
+            raise ValueError(
+                "weighted_hesrpt + p_drift is not wired on the superstep "
+                "path; use the generic engine.run loop"
+            )
+        if _per_job_rows(p_drift):
+            raise ValueError(
+                "superstep path needs scalar drift regimes — per-job drift "
+                "rows take the generic engine.run loop"
+            )
 
 
 def _bracket_powers(M, p, policy, dtype, device, weights_rank=None):
-    """``(a_r^p, A_r^p)`` per rank; SRPT's epoch geometry reads neither,
-    so it gets ones."""
+    """``(a_r^p, A_r^p)`` per rank (``[K, M]`` for a ``[K, 1]`` tensor
+    ``p``); SRPT's epoch geometry reads neither, so it gets ones."""
     if policy == "srpt":
         one = torch.ones(M, dtype=dtype, device=device)
         return one, one
@@ -155,10 +164,13 @@ def run_superstep(
 
     Same contract as ``engine.run`` over ``continuous_rule`` for the
     supported family, and the same :class:`~repro_torch.core.engine.EngineResult`
-    (``trace`` None).  ``pre_arrived=True`` takes no step
+    (``trace`` None).  ``pre_arrived=True`` without drift takes no step
     (:func:`batch_result_closed_form`); online tapes take ``M + 1`` by
-    default.  A step admits one arrival, so simultaneous arrivals each take
-    a zero-length step of their own.  ``p`` is a scalar.
+    default, plus one a drift boundary.  A step admits one arrival, so
+    simultaneous arrivals each take a zero-length step of their own.  ``p``
+    is a scalar; ``p_drift`` (scalar regimes, ``engine.PDrift``) supersedes
+    it, and a pre-arrived batch under drift takes the loop (``D + 1``
+    steps) from its rank-space start.
     """
     _validate(policy, p, weights, p_drift)
     x0, arr_in, lead, dtype = _cells(x0, arrival_times)
@@ -169,7 +181,7 @@ def run_superstep(
     if weights is not None:
         w_in = torch.as_tensor(weights, dtype=dtype, device=dev).expand(*lead, M).reshape(C, M)
 
-    if pre_arrived:
+    if pre_arrived and p_drift is None:
         batch = batch_result_closed_form(
             x0, p, policy, n_servers=n_servers, weights=w_in, t0=t0
         )
@@ -184,9 +196,18 @@ def run_superstep(
     idx = torch.arange(M, device=dev)
     srpt = policy == "srpt"
     weighted = policy == "weighted_hesrpt"
-    E = M + 1 if horizon is None else horizon
+    drift = None if p_drift is None else _drift_rows(p_drift, lead, dtype, dev)
+    n_drift = 0 if drift is None else drift[0].shape[-1] - 1
+    E = ((0 if pre_arrived else M) + n_drift + 1) if horizon is None else horizon
     w_arr = w_in.gather(-1, order) if weighted else None
-    if not weighted:
+    if drift is not None and not srpt:
+        # One bracket table a regime of each row: [C, D + 1, M].
+        n_reg = n_drift + 1
+        ap_tab, Ap_tab = (
+            tab.expand(C * n_reg, M).reshape(C, n_reg, M)
+            for tab in _bracket_powers(M, drift[1].reshape(-1, 1), policy, dtype, dev)
+        )
+    elif not weighted:
         ap, Ap = _bracket_powers(M, p, policy, dtype, dev)
     sN = speedup(torch.as_tensor(n_servers, dtype=dtype, device=dev), p)
     inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
@@ -195,24 +216,48 @@ def run_superstep(
     # rank-r job's remaining size.  Departures zero a suffix of the active
     # prefix; an arrival shifts the slots past its rank right by one.  The
     # job-space ranks only serve the per-job read-back of departure offsets.
-    x_rank = torch.zeros((C, M), dtype=dtype, device=dev)
-    w_rank = torch.zeros_like(x_rank) if weighted else None
     t = torch.full((C, 1), float(t0), dtype=dtype, device=dev)
-    i = torch.zeros((C, 1), dtype=torch.int64, device=dev)
-    ranks = torch.zeros((C, M), dtype=torch.int64, device=dev)
-    m = torch.zeros((C, 1), dtype=torch.int64, device=dev)
     times = torch.zeros((C, M), dtype=dtype, device=dev)
+    if pre_arrived:
+        # Every job present: descending sizes put the zero-size (never
+        # active) jobs in the last slots, where their ranks (0) leave them.
+        active0 = xs > 0
+        ranks = ranks_from_order(size_order_desc(xs), active0)
+        m = active0.sum(-1, keepdim=True)
+        i = torch.full((C, 1), M, dtype=torch.int64, device=dev)
+        x_rank = torch.sort(xs, dim=-1, descending=True).values
+    else:
+        ranks = torch.zeros((C, M), dtype=torch.int64, device=dev)
+        m = torch.zeros((C, 1), dtype=torch.int64, device=dev)
+        i = torch.zeros((C, 1), dtype=torch.int64, device=dev)
+        x_rank = torch.zeros((C, M), dtype=dtype, device=dev)
+    w_rank = torch.zeros_like(x_rank) if weighted else None
 
     for _ in range(E):
         active = ranks > 0
         rank_active = idx < m
+        p_now = p
+        if drift is not None:
+            # Each row's regime and its next boundary, as in engine.run.
+            r = torch.searchsorted(drift[0], t, right=True)
+            p_now = drift[1].gather(-1, r)
+            t_next_drift = drift[0].gather(-1, r)
+            sN = speedup(torch.as_tensor(n_servers, dtype=dtype, device=dev), p_now)
+            if not srpt:
+                r_tab = r[:, :, None].expand(C, 1, M)
+                ap = ap_tab.gather(1, r_tab).squeeze(1)
+                Ap = Ap_tab.gather(1, r_tab).squeeze(1)
         if weighted:
             ap, Ap = _bracket_powers(M, p, policy, dtype, dev, weights_rank=w_rank)
-        v, T = epoch_schedule(x_rank, ap, Ap, rank_active, p, n_servers, srpt=srpt)
-        # The gap to the next arrival; with none left, every active job
-        # departs analytically in this final drain step.
+        v, T = epoch_schedule(x_rank, ap, Ap, rank_active, p_now, n_servers, srpt=srpt)
+        # The gap to the next arrival (or drift boundary); with none left,
+        # every active job departs analytically in this final drain step.
         t_next_arr = torch.where(i < M, arr.gather(-1, i.clamp(max=M - 1)), inf)
-        gap = torch.clamp(t_next_arr - t, min=0.0)
+        gap_arr = torch.clamp(t_next_arr - t, min=0.0)
+        gap = gap_arr
+        if drift is not None:
+            gap_drift = torch.clamp(t_next_drift - t, min=0.0)
+            gap = torch.minimum(gap_arr, gap_drift)
         has_event = torch.isfinite(gap)
         dt_gap = torch.where(has_event, gap, inf)
         x_rank_adv, dep_rank = _gap_advance(
@@ -223,16 +268,22 @@ def run_superstep(
         dep_job = active & (T_job <= dt_gap)
         times = torch.where(dep_job, t + T_job, times)
         ranks = torch.where(dep_job, 0, ranks)
-        # Pin the clock to the exact arrival time; on the drain step jump
-        # to the last departure (rank 1's offset).
-        t_new = torch.where(has_event, t_next_arr, t + T[:, :1])
+        # Pin the clock to the exact arrival (or boundary) time; on the
+        # drain step jump to the last departure (rank 1's offset).  A
+        # boundary that ties with an arrival admits it.
+        admit = has_event
+        t_event = t_next_arr
+        if drift is not None:
+            admit = has_event & (gap_arr <= gap_drift)
+            t_event = torch.where(gap_arr <= gap_drift, t_next_arr, t_next_drift)
+        t_new = torch.where(has_event, t_event, t + T[:, :1])
         # Admission, as in run_ranked: job i goes in at its rank among the
         # survivors, losing exact-size ties to them (they arrived earlier).
         # Zero-size arrivals never activate but still take their step.
         i_c = i.clamp(max=M - 1)
         x_a = xs.gather(-1, i_c)
         r_a = 1 + (x_rank_adv >= x_a).sum(-1, keepdim=True)
-        place = has_event & (x_a > 0)
+        place = admit & (x_a > 0)
         bumped = torch.where((ranks > 0) & (ranks >= r_a), ranks + 1, ranks)
         ranks = torch.where(place, bumped.scatter(-1, i_c, r_a), ranks)
         x_rank = torch.where(place, _insert(x_rank_adv, x_a, r_a, idx), x_rank_adv)
@@ -240,7 +291,7 @@ def run_superstep(
             w_adv = torch.where(idx < m2, w_rank, 0.0)
             w_rank = torch.where(place, _insert(w_adv, w_arr.gather(-1, i_c), r_a, idx), w_adv)
         m = m2 + place.to(m.dtype)
-        i = i + has_event.to(i.dtype)
+        i = i + admit.to(i.dtype)
         t = t_new
 
     # Never departed (horizon cut) or never admitted: inf, as the generic

@@ -20,7 +20,9 @@ card (theta bitwise, chips equal): the one floating-point sum, the
 oversubscription renormalizer, is a fixed pairwise tree
 (:func:`pairwise_sum`) on both sides, the kernel's arithmetic uses
 intrinsics nvcc never contracts into a multiply-add, and
-``policies.bracket_pow`` spells out the power on both sides.
+``policies.bracket_pow`` spells out the power on both sides.  ``p`` is one
+float for the launch or, under a drifting ``p``, one exponent a cell that
+the kernel reads from device memory.
 
 The kernel is compiled by ``nvcc`` at first use (and again when its source
 changes) into ``build/repro_torch/`` at the repo root and loaded with
@@ -135,8 +137,11 @@ def hesrpt_alloc_fused_ref(x: torch.Tensor, p, n_chips: int, *, min_chips: int =
 
     Returns ``(theta, chips)``: theta is ``policies.hesrpt(x, p)`` bit for
     bit (the same ops), chips equal ``engine.quantize_allocation(theta,
-    n_chips, min_chips=min_chips)``.
+    n_chips, min_chips=min_chips)``.  ``p`` is a float or one exponent a row
+    (``[cells]`` or ``[cells, 1]``).
     """
+    if isinstance(p, torch.Tensor) and p.ndim == 1:
+        p = p[:, None]
     active = x > 0
     ranks = ranks_from_order(size_order_desc(x), active)
     m = active.sum(-1, keepdim=True)
@@ -146,15 +151,17 @@ def hesrpt_alloc_fused_ref(x: torch.Tensor, p, n_chips: int, *, min_chips: int =
 
 
 # -------------------------------------------------------------- CUDA kernel
+#: C signature of ``hesrpt_alloc_f64`` / ``hesrpt_alloc_f32``: x, theta,
+#: chips, cells, M, P, c, c_rows (null or one float64 c a cell), n_chips,
+#: min_chips, stream (also read by the tools that rebuild the source).
+ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+
 _LIBRARY = KernelLibrary(_SRC, {
-    **{
-        name: [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        for name in ("hesrpt_alloc_f64", "hesrpt_alloc_f32")
-    },
+    **{name: ARGTYPES for name in ("hesrpt_alloc_f64", "hesrpt_alloc_f32")},
     "hesrpt_alloc_occupancy": [
         ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
     ],
@@ -183,8 +190,22 @@ def occupancy(M: int, dtype: torch.dtype) -> tuple[int, int]:
     return registers.value, ctas.value
 
 
+def exponent_rows(p, cells: int, device) -> torch.Tensor:
+    """The float64 ``c = 1/(1-p)`` of each of ``cells`` rows from a tensor
+    ``p`` of shape ``[cells]`` or ``[cells, 1]`` on ``device``, as the
+    kernel reads them (computed on the device: no host sync)."""
+    if p.device != device:
+        raise ValueError(f"p lies on {p.device}, the sizes on {device}")
+    if p.numel() != cells or p.shape not in ((cells,), (cells, 1)):
+        raise ValueError(f"p must be a float, [cells] or [cells, 1]; got {tuple(p.shape)} "
+                         f"for {cells} cells")
+    return (1.0 / (1.0 - p.to(torch.float64))).reshape(cells).contiguous()
+
+
 def _alloc_cuda(x: torch.Tensor, p, n_chips: int, min_chips: int):
-    """Launch the kernel on ``x[..., M]`` (CUDA, f64 or f32, contiguous)."""
+    """Launch the kernel on ``x[..., M]`` (CUDA, f64 or f32, contiguous);
+    ``p`` a float, or one value a cell row (``[cells]`` or ``[cells, 1]``
+    on the card)."""
     global LAUNCHES
     if x.device.type != "cuda":
         raise ValueError(f"the alloc kernel takes CUDA tensors, got {x.device}")
@@ -195,8 +216,8 @@ def _alloc_cuda(x: torch.Tensor, p, n_chips: int, min_chips: int):
     M = x.shape[-1]
     if M > MAX_JOBS:
         raise ValueError(f"the alloc kernel takes at most {MAX_JOBS} jobs per cell, got {M}")
-    if isinstance(p, torch.Tensor):
-        raise TypeError("the alloc kernel takes p as a Python float")
+    cells = x.numel() // M if M else 0
+    c_rows = exponent_rows(p, cells, x.device) if isinstance(p, torch.Tensor) else None
     theta = torch.empty_like(x)
     chips = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     if x.numel() == 0:
@@ -205,8 +226,9 @@ def _alloc_cuda(x: torch.Tensor, p, n_chips: int, min_chips: int):
     fn = lib.hesrpt_alloc_f64 if x.dtype == torch.float64 else lib.hesrpt_alloc_f32
     LAUNCHES += 1
     err = fn(
-        x.data_ptr(), theta.data_ptr(), chips.data_ptr(), x.numel() // M, M, pad_len(M),
-        1.0 / (1.0 - float(p)), int(n_chips), int(min_chips),
+        x.data_ptr(), theta.data_ptr(), chips.data_ptr(), cells, M, pad_len(M),
+        0.0 if c_rows is not None else 1.0 / (1.0 - float(p)),
+        None if c_rows is None else c_rows.data_ptr(), int(n_chips), int(min_chips),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
@@ -218,8 +240,10 @@ def _alloc_cuda(x: torch.Tensor, p, n_chips: int, min_chips: int):
 def hesrpt_alloc_fused(x: torch.Tensor, p, n_chips: int, *, min_chips: int = 1):
     """Fused heSRPT allocate ``(theta, chips)`` over the last dim of ``x``.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and raises on what the kernel does not take).
+    ``p`` is a float, or a tensor of one exponent a cell row (``[cells]`` or
+    ``[cells, 1]``: a drifting ``p``, each row in its own regime).  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel (and
+    raises on what the kernel does not take).
     """
     if x.device.type == "cpu":
         return hesrpt_alloc_fused_ref(x, p, n_chips, min_chips=min_chips)
@@ -228,8 +252,9 @@ def hesrpt_alloc_fused(x: torch.Tensor, p, n_chips: int, *, min_chips: int = 1):
 
 def hesrpt_theta_fused(x: torch.Tensor, p) -> torch.Tensor:
     """Fused continuous-regime theta (no quantization): the kernel with
-    ``n_chips = 0`` on CUDA, ``policies.hesrpt`` on the CPU."""
+    ``n_chips = 0`` on CUDA, ``policies.hesrpt`` on the CPU; ``p`` as in
+    :func:`hesrpt_alloc_fused`."""
     if x.device.type == "cpu":
-        return hesrpt(x, p)
+        return hesrpt(x, p[:, None] if isinstance(p, torch.Tensor) and p.ndim == 1 else p)
     theta, _ = _alloc_cuda(x, p, 0, 1)
     return theta

@@ -48,7 +48,11 @@
 //   of 46.08M entries (H100, CUDA 12.9; tools/alloc_fmad_check.py),
 //   against 0 with the default.
 // - bracket_pow takes the same cases as policies.bracket_pow: products for
-//   c in {1, 2, 3}, device pow otherwise.
+//   c in {1, 2, 3}, device pow otherwise.  c = 1/(1-p) arrives in float64,
+//   as a scalar for the launch or, when c_rows is not null, one a cell read
+//   from device memory (a drifting p: each cell sits in its own regime);
+//   each CTA picks its mode from its float64 c and casts c to T, as the
+//   plain version does.
 // - The one floating-point sum (the oversubscription renormalizer) is the
 //   pairwise tree over P entries that kernels/alloc.py::pairwise_sum
 //   spells out: each thread's ITEMS leaves, then adjacent threads by
@@ -249,8 +253,8 @@ __device__ void store_rows(const T (&theta)[ITEMS], const int (&chips)[ITEMS],
 template <typename T, int ITEMS>
 __global__ void __launch_bounds__(kThreads)
 hesrpt_alloc_kernel(const T* __restrict__ x, T* __restrict__ theta_out,
-                    int* __restrict__ chips_out, int M, double c_in, int n_chips,
-                    int min_chips) {
+                    int* __restrict__ chips_out, int M, double c_scalar,
+                    const double* __restrict__ c_rows, int n_chips, int min_chips) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ int sred[2 * kMaxWarps];
   __shared__ T swarp[kMaxWarps];
@@ -282,6 +286,7 @@ hesrpt_alloc_kernel(const T* __restrict__ x, T* __restrict__ theta_out,
   // Slot e = first + i now holds job idx[i], of rank e + 1 when e < m.
 
   // Thm-7 brackets: the op sequence of policies.hesrpt_theta_from_ranks.
+  const double c_in = c_rows != nullptr ? c_rows[blockIdx.x] : c_scalar;
   const int mode = c_in == 1.0 ? 1 : c_in == 2.0 ? 2 : c_in == 3.0 ? 3 : 0;
   const T c = static_cast<T>(c_in);
   const T m_safe = static_cast<T>(m > 1 ? m : 1);
@@ -403,7 +408,7 @@ hesrpt_alloc_kernel(const T* __restrict__ x, T* __restrict__ theta_out,
 }
 
 template <typename T>
-using KernelFn = void (*)(const T*, T*, int*, int, double, int, int);
+using KernelFn = void (*)(const T*, T*, int*, int, double, const double*, int, int);
 
 // The instance for P padded entries and its thread count; nullptr when P is
 // not a power of two in [32, kThreads * kMaxItems].
@@ -433,7 +438,7 @@ cudaError_t prepare(KernelFn<T> kernel, int P, size_t* smem) {
 
 template <typename T>
 int launch(const void* x, void* theta, void* chips, int cells, int M, int P, double c,
-           int n_chips, int min_chips, void* stream) {
+           const void* c_rows, int n_chips, int min_chips, void* stream) {
   int threads = 0;
   size_t smem = 0;
   const KernelFn<T> kernel = instance<T>(P, &threads);
@@ -442,7 +447,7 @@ int launch(const void* x, void* theta, void* chips, int cells, int M, int P, dou
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<cells, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<T*>(theta), static_cast<int*>(chips), M, c,
-      n_chips, min_chips);
+      static_cast<const double*>(c_rows), n_chips, min_chips);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -467,15 +472,18 @@ int occupancy(int P, int* registers, int* ctas_per_sm) {
 extern "C" {
 
 // Each returns cudaGetLastError() after the launch (0 = launched).  P is the
-// padded row length, kernels/alloc.py::pad_len(M).
+// padded row length, kernels/alloc.py::pad_len(M).  c_rows is null (every
+// cell takes c) or a device array of one float64 c a cell.
 int hesrpt_alloc_f64(const void* x, void* theta, void* chips, int cells, int M, int P,
-                     double c, int n_chips, int min_chips, void* stream) {
-  return launch<double>(x, theta, chips, cells, M, P, c, n_chips, min_chips, stream);
+                     double c, const void* c_rows, int n_chips, int min_chips,
+                     void* stream) {
+  return launch<double>(x, theta, chips, cells, M, P, c, c_rows, n_chips, min_chips, stream);
 }
 
 int hesrpt_alloc_f32(const void* x, void* theta, void* chips, int cells, int M, int P,
-                     double c, int n_chips, int min_chips, void* stream) {
-  return launch<float>(x, theta, chips, cells, M, P, c, n_chips, min_chips, stream);
+                     double c, const void* c_rows, int n_chips, int min_chips,
+                     void* stream) {
+  return launch<float>(x, theta, chips, cells, M, P, c, c_rows, n_chips, min_chips, stream);
 }
 
 // Registers a thread and resident CTAs an SM of the instance for P padded

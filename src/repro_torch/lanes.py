@@ -10,6 +10,12 @@ Port of ``benchmarks/backend_lane.py`` (same lanes, same sizes):
 - ``continuous`` — the paper's divisible regime on the carried-rank loop.
 
 Full size: 24 rates x 8 seeds x 1000 jobs on a 256-chip pool, p = 0.5.
+
+The drift lanes (:func:`drift_lane_specs`) run the same grid under the
+drift settings of ``benchmarks/estimation.py`` (p 0.8 -> 0.3 at half the
+stream's nominal span): quantized, quantized-fused (the kernel takes each
+cell's current p from device memory, ``2M + 1`` launches) and continuous
+heSRPT, which under drift takes the generic loop.
 """
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ RATES_FULL = tuple(float(r) for r in np.geomspace(0.25, 16.0, 24).round(4))
 RATES_SMOKE = (0.5, 1.0, 2.0, 4.0, 8.0)
 N_CHIPS = 256
 LABELS = ("quantized", "quantized-fused", "continuous")
+#: ``benchmarks/estimation.py``'s drift: p0 -> p1 at drift_frac x n_jobs / rate.
+DRIFT_KW = {"p0": 0.8, "p1": 0.3, "drift_frac": 0.5}
+DRIFT_LABELS = tuple(f"drift-{label}" for label in LABELS)
 
 
 def lane_specs(smoke: bool = False) -> list[tuple[str, Sweep]]:
@@ -38,6 +47,20 @@ def lane_specs(smoke: bool = False) -> list[tuple[str, Sweep]]:
         ("quantized-fused",
          Sweep.create(("hesrpt",), rates, n_chips=N_CHIPS, fused=True, **common)),
         ("continuous", Sweep.create(("hesrpt",), rates, **common)),
+    ]
+
+
+def drift_lane_specs(
+    smoke: bool = False, scenario: str = "drift_poisson"
+) -> list[tuple[str, Sweep]]:
+    """The canonical lanes' grid under ``scenario`` (``drift_poisson`` or
+    ``drift_bursty``) with :data:`DRIFT_KW`, as ``(label, Sweep)`` pairs;
+    ``p`` is the pre-drift ``p0`` (it normalizes the slowdowns)."""
+    return [
+        (f"drift-{label}", spec._replace(
+            scenario=scenario, scenario_kw=tuple(sorted(DRIFT_KW.items())), p=DRIFT_KW["p0"]
+        ))
+        for label, spec in lane_specs(smoke=smoke)
     ]
 
 
@@ -77,10 +100,11 @@ def lane_records(lanes: list[tuple[str, SweepResult]]) -> list[dict]:
     return records
 
 
-def fused_equals_unfused(lanes) -> bool:
-    """The fused and unfused quantized lanes agree bit for bit."""
+def fused_equals_unfused(lanes, prefix: str = "") -> bool:
+    """The fused and unfused quantized lanes (labels after ``prefix``, e.g.
+    ``"drift-"``) agree bit for bit."""
     by_label = dict(lanes)
-    q, qf = by_label["quantized"], by_label["quantized-fused"]
+    q, qf = by_label[f"{prefix}quantized"], by_label[f"{prefix}quantized-fused"]
     return all(
         np.array_equal(q.stats["hesrpt"][m], qf.stats["hesrpt"][m]) for m in q.spec.metrics
     )

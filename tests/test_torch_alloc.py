@@ -180,3 +180,62 @@ def test_queue_c_tied_sizes_unequal_shares():
     theta_j, chips_j = ja.hesrpt_alloc_fused(jnp.asarray([1.0, 1.0]), 0.5, 4, impl="ref")
     assert np.asarray(theta_j).tolist() == [0.25, 0.75]
     assert np.asarray(chips_j).tolist() == [1, 3]
+
+
+# Exponents c = 1/(1-p) of every bracket_pow mode: 1, 2, 3 by products, and
+# device pow (c = 5 and 1/0.7).
+MIXED_P = (0.0, 0.5, 2.0 / 3.0, 0.8, 0.3, 0.5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("combo", COMBOS)
+def test_fused_ref_per_row_p_equals_scalar_p_calls(combo, dtype):
+    """A [C, 1] (or [C]) p mixing every mode equals, row by row, the call
+    with that row's scalar p, bit for bit (theta bitwise, chips equal);
+    hesrpt and hesrpt_theta_fused take the same p."""
+    m, n_chips, min_chips = combo
+    rng = np.random.default_rng(11 + m)
+    x = torch.tensor(np.stack([_sizes(rng, m) for _ in MIXED_P]), dtype=dtype)
+    p_col = torch.tensor(MIXED_P, dtype=torch.float64)[:, None]
+    theta, chips = ta.hesrpt_alloc_fused_ref(x, p_col, n_chips, min_chips=min_chips)
+    theta_1d, chips_1d = ta.hesrpt_alloc_fused(x, p_col[:, 0], n_chips, min_chips=min_chips)
+    assert torch.equal(theta, theta_1d) and torch.equal(chips, chips_1d)
+    assert torch.equal(theta, tp.hesrpt(x, p_col))
+    assert torch.equal(theta, ta.hesrpt_theta_fused(x, p_col[:, 0]))
+    assert theta.dtype == dtype
+    for r, p in enumerate(MIXED_P):
+        theta_r, chips_r = ta.hesrpt_alloc_fused_ref(x, p, n_chips, min_chips=min_chips)
+        assert torch.equal(theta[r], theta_r[r]), p
+        assert torch.equal(chips[r], chips_r[r]), p
+
+
+def test_bracket_pow_tensor_modes():
+    """Per element: c = 1 passes b through, 2 and 3 multiply, the rest call
+    pow; the mode is read from the float64 c before the cast to b's type."""
+    b = torch.tensor([[0.3, 0.7, 1.0]] * 5, dtype=torch.float64)
+    c = torch.tensor([1.0, 2.0, 3.0, 5.0, 1.0 / 0.7], dtype=torch.float64)[:, None]
+    got = tp.bracket_pow(b, c)
+    assert torch.equal(got[0], b[0])
+    assert torch.equal(got[1], b[1] * b[1])
+    assert torch.equal(got[2], b[2] * b[2] * b[2])
+    for r in (3, 4):
+        assert torch.equal(got[r], tp.bracket_pow(b, float(c[r]))[r])
+        np.testing.assert_allclose(got[r].numpy(), b[r].numpy() ** float(c[r]), rtol=1e-15)
+    # float32 b: the exponent is cast, the modes are not.
+    b32 = b.to(torch.float32)
+    got32 = tp.bracket_pow(b32, c)
+    assert got32.dtype == torch.float32
+    assert torch.equal(got32[1], b32[1] * b32[1])
+    # A c just off 2 in float64 that rounds to 2.0 in float32 still takes pow.
+    near = torch.tensor([[2.0 + 1e-12]], dtype=torch.float64)
+    assert torch.equal(tp.bracket_pow(b32[:1], near), b32[:1].pow(near.to(torch.float32)))
+
+
+def test_alloc_rejects_a_bad_p_shape():
+    x = torch.tensor(np.stack([_sizes(np.random.default_rng(3), 8)] * 3))
+    with pytest.raises(ValueError, match="cells"):
+        ta.exponent_rows(torch.full((2, 1), 0.5, dtype=torch.float64), 3, x.device)
+    with pytest.raises(ValueError, match="cells"):
+        ta.exponent_rows(torch.full((3, 2), 0.5, dtype=torch.float64), 3, x.device)
+    c = ta.exponent_rows(torch.tensor([0.5, 0.0, 0.8]), 3, x.device)
+    assert c.dtype == torch.float64 and c.tolist() == [2.0, 1.0, 1.0 / (1.0 - 0.800000011920929)]

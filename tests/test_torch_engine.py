@@ -140,11 +140,14 @@ def test_batch_simulate_matches_theorem_8():
 
 
 def test_unported_engine_options_raise():
-    """telemetry and p_drift are still refused, naming ROADMAP.md;
-    superstep, ported since, is held in tests/test_torch_superstep.py."""
+    """telemetry and per-job drift rows (the multi-class form) are still
+    refused, naming ROADMAP.md; scalar drift regimes and the superstep,
+    ported since, are held in tests/test_torch_drift.py and
+    tests/test_torch_superstep.py."""
     x, a = (torch.tensor(v[0]) for v in _tapes())
     rule = te.quantized_rule(tp.hesrpt, 16)
-    for kw in ({"telemetry": object()}, {"p_drift": object()}):
+    rows = te.PDrift(torch.tensor([1.0]), torch.full((2, M), 0.5, dtype=torch.float64))
+    for kw in ({"telemetry": object()}, {"p_drift": rows}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             te.run(x, a, P, rule, **kw)
     with pytest.raises(ValueError, match="fused_variant"):

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on a card, against their plain versions.
 
-- the fused allocate: bit for bit;
+- the fused allocate: bit for bit, with one p a launch or one a cell read
+  from device memory (a drifting p), and through the engine under drift;
 - flash attention: within the tolerances of ``tests/test_kernels.py``
   (float32 2e-5, bfloat16 5e-2: the kernel sums in another order than the
   plain version's einsum, and bf16 rounds the float32 result once), float32
@@ -98,6 +99,55 @@ def test_kernel_equals_plain_version_on_card(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("cells", [1, 6, 192])
+def test_kernel_with_per_cell_p_equals_plain_version_on_card(cuda_device, dtype, cells):
+    """p from device memory, one a cell, every bracket_pow mode in one
+    launch (c = 1, 2, 3, 5, 1/0.7): bit for bit with the plain version and
+    with each cell's scalar-p launch."""
+    rng = np.random.default_rng(7)
+    mixed = torch.tensor([0.0, 0.5, 2.0 / 3.0, 0.8, 0.3, 0.5], dtype=torch.float64)
+    p_col = mixed.repeat(-(-cells // 6))[:cells, None].to(cuda_device)
+    for m, n_chips, min_chips, sizes in ((1000, 256, 1, "pareto"), (37, 8, 1, "ties"),
+                                         (alloc.MAX_JOBS, 16, 2, "pareto")):
+        x = torch.tensor(_rows(rng, (cells, m), sizes), device=cuda_device).to(dtype)
+        before = alloc.LAUNCHES
+        theta, chips = alloc.hesrpt_alloc_fused(x, p_col, n_chips, min_chips=min_chips)
+        assert alloc.LAUNCHES == before + 1
+        theta0, chips0 = alloc.hesrpt_alloc_fused_ref(x, p_col, n_chips, min_chips=min_chips)
+        assert torch.equal(theta, theta0)
+        assert torch.equal(chips, chips0)
+        assert torch.equal(alloc.hesrpt_theta_fused(x, p_col[:, 0]), theta0)
+        for p in mixed.unique().tolist():
+            rows = (p_col[:, 0] == p).nonzero()[:, 0]
+            theta_s, chips_s = alloc.hesrpt_alloc_fused(x, p, n_chips, min_chips=min_chips)
+            assert torch.equal(theta[rows], theta_s[rows]), p
+            assert torch.equal(chips[rows], chips_s[rows]), p
+
+
+@pytest.mark.cuda
+def test_fused_drift_run_on_card_equals_unfused_and_cpu(cuda_device):
+    """A drifting p through the fused engine on the card: one launch an
+    event step (2M + D), chips equal to the unfused run's and the CPU's at
+    every event."""
+    rng = np.random.default_rng(4)
+    x = torch.tensor(rng.pareto(1.5, (6, 50)) + 0.5)
+    arr = torch.tensor(np.cumsum(rng.exponential(0.25, (6, 50)), -1))
+    drift = engine.PDrift(arr[:, 20:21].clone(), torch.tensor([0.8, 0.3], dtype=torch.float64))
+    rule = engine.quantized_rule(policies.hesrpt, 32)
+    cpu = engine.run(x, arr, 0.5, rule, record=True, fused=True, p_drift=drift)
+    gdrift = engine.PDrift(drift.times.to(cuda_device), drift.values.to(cuda_device))
+    xg, ag = x.to(cuda_device), arr.to(cuda_device)
+    before = alloc.LAUNCHES
+    fused = engine.run(xg, ag, 0.5, rule, record=True, fused=True, p_drift=gdrift)
+    assert alloc.LAUNCHES == before + 2 * 50 + 1
+    unfused = engine.run(xg, ag, 0.5, rule, record=True, p_drift=gdrift)
+    assert torch.equal(fused.trace.alloc, unfused.trace.alloc)
+    assert torch.equal(fused.completion_times, unfused.completion_times)
+    assert torch.equal(fused.trace.alloc.cpu(), cpu.trace.alloc)
+
+
+@pytest.mark.cuda
 def test_fused_run_on_card_equals_cpu_run(cuda_device):
     """The fused engine on the card (kernel) and on the CPU (plain
     version): the same chips at every event; completion times within
@@ -126,6 +176,11 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
     with pytest.raises(TypeError):
         half = torch.ones(4, device=cuda_device, dtype=torch.float16)
         alloc.hesrpt_alloc_fused(half, 0.5, 16)
+    x = torch.ones((3, 8), dtype=torch.float64, device=cuda_device)
+    with pytest.raises(ValueError, match="lies on"):  # a CPU p never reaches the card
+        alloc.hesrpt_alloc_fused(x, torch.full((3, 1), 0.5, dtype=torch.float64), 16)
+    with pytest.raises(ValueError, match="cells"):
+        alloc.hesrpt_alloc_fused(x, torch.full((2, 1), 0.5, device=cuda_device), 16)
 
 
 # ------------------------------------------------------------ flash attention

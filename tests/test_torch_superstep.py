@@ -13,7 +13,7 @@ JAX configuration runs once, ``jit(vmap)`` over all tapes.
   as ``tests/test_superstep.py`` holds the JAX pair;
 - the flowtime closed forms against JAX's;
 - ``Sweep.create(superstep=True)`` against the plain sweep, and what the
-  superstep path refuses (``p_drift`` still raises, naming ROADMAP.md).
+  superstep path refuses (weighted heSRPT and per-job rows under drift).
 """
 
 import functools
@@ -170,7 +170,7 @@ def test_sweep_superstep_equals_plain_sweep():
     plain = tsw.Sweep.create(("hesrpt", "equi", "srpt"), (0.8, 4.0), **kw)
     ss = tsw.Sweep.create(("hesrpt", "equi", "srpt"), (0.8, 4.0), superstep=True, **kw)
     assert ss.superstep and ss._replace(superstep=False) == plain
-    x0, arr = tsw.draw_tapes(plain, device="cpu")
+    x0, arr, _ = tsw.draw_scenario(plain, device="cpu")
     want = tsw.simulate_cells(plain, x0, arr, device="cpu")
     got = tsw.simulate_cells(ss, x0, arr, device="cpu")
     for pol in plain.policies:
@@ -199,12 +199,18 @@ def test_sweep_superstep_envelope_and_round_trip():
 
 
 def test_superstep_refusals():
+    """What the JAX superstep refuses under drift: weighted heSRPT and
+    per-job drift rows (scalar regimes run: tests/test_torch_drift.py)."""
     x, a = (torch.tensor(v[:2]) for v in _tapes())
     rule = te.continuous_rule(tp.hesrpt, N)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.run(x, a, P, rule, superstep=True, p_drift=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tss.run_superstep(x, a, P, N, "hesrpt", p_drift=object())
+    rows = te.PDrift(torch.tensor([1.0]), torch.full((2, M), 0.5, dtype=torch.float64))
+    with pytest.raises(ValueError, match="scalar drift regimes"):
+        te.run(x, a, P, rule, superstep=True, p_drift=rows)
+    with pytest.raises(ValueError, match="scalar drift regimes"):
+        tss.run_superstep(x, a, P, N, "hesrpt", p_drift=rows)
+    scalar = te.PDrift(torch.tensor([1.0]), torch.tensor([0.8, 0.3], dtype=torch.float64))
+    with pytest.raises(ValueError, match="weighted_hesrpt"):
+        tss.run_superstep(x, a, P, N, "weighted_hesrpt", weights=torch.ones(M), p_drift=scalar)
     with pytest.raises(ValueError, match="superstep_spec"):
         te.run(x, a, P, te.quantized_rule(tp.hesrpt, 16), superstep=True)
     with pytest.raises(ValueError, match="superstep_spec"):

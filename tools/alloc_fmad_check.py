@@ -27,12 +27,10 @@ def _build(nvcc: Path, src: Path, flags: tuple[str, ...], name: str) -> ctypes.C
     lib_path = OUT / name
     subprocess.run([str(nvcc), *flags, "-o", str(lib_path), str(src)],
                    check=True, capture_output=True, text=True)
+    from repro_torch.kernels.alloc import ARGTYPES
+
     lib = ctypes.CDLL(str(lib_path))
-    lib.hesrpt_alloc_f64.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-    ]
+    lib.hesrpt_alloc_f64.argtypes = ARGTYPES
     lib.hesrpt_alloc_f64.restype = ctypes.c_int
     return lib
 
@@ -75,7 +73,7 @@ def main() -> int:
                 chips = torch.empty(shape, dtype=torch.int32, device="cuda")
                 err = lib.hesrpt_alloc_f64(
                     x.data_ptr(), theta.data_ptr(), chips.data_ptr(), shape[0], shape[1],
-                    alloc.pad_len(shape[1]), 1.0 / (1.0 - p), 256, 1,
+                    alloc.pad_len(shape[1]), 1.0 / (1.0 - p), None, 256, 1,
                     torch.cuda.current_stream().cuda_stream,
                 )
                 if err != 0:

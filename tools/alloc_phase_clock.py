@@ -100,13 +100,11 @@ def _build(nvcc: Path, flags, source: str, name: str) -> ctypes.CDLL:
     cu.write_text(source)
     subprocess.run([str(nvcc), *flags, "-o", str(so), str(cu)],
                    check=True, capture_output=True, text=True)
+    from repro_torch.kernels.alloc import ARGTYPES
+
     lib = ctypes.CDLL(str(so))
     for fn in ("hesrpt_alloc_f64", "hesrpt_alloc_f32"):
-        getattr(lib, fn).argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_double,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
+        getattr(lib, fn).argtypes = ARGTYPES
         getattr(lib, fn).restype = ctypes.c_int
     return lib
 
@@ -118,7 +116,7 @@ def _launch(lib, alloc, x, p, n_chips):
     chips = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     fn = lib.hesrpt_alloc_f64 if x.dtype == torch.float64 else lib.hesrpt_alloc_f32
     err = fn(x.data_ptr(), theta.data_ptr(), chips.data_ptr(), x.shape[0], x.shape[1],
-             alloc.pad_len(x.shape[1]), 1.0 / (1.0 - p), n_chips, 1,
+             alloc.pad_len(x.shape[1]), 1.0 / (1.0 - p), None, n_chips, 1,
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"alloc kernel launch failed: cudaError {err}")
