@@ -165,7 +165,30 @@ raises, and the exit code is not 0):
     cell; seed chunking of the fused drift lane (chunks of 1 and 3 seeds)
     bit for bit with the unchunked run; and the kernel with one p a cell at
     [192, 1000] f64 timed beside the scalar path, its plain version and its
-    bound.
+    bound;
+25. the bounded-slot streaming loop at ``benchmarks/streaming.py``'s full
+    sizes and the lanes' grid, every tape drawn on the card from a seed:
+    (a) on the fused lane's tapes, ``run_stream(fused=True)`` over 1000 slots
+    (no recycling) gives ``engine.run(fused=True)``'s completion times bit
+    for bit and the same chips at every event step; (b) the three stream
+    lanes (``lanes.stream_lane_specs``: the lanes through 64 slots a cell,
+    every stream metric): the alloc count is zeroed just before and read
+    just after, and the fused lane must launch the kernel once an event
+    step (2M = 2000) at [192, 64], equal the unfused lane bit for bit in
+    every metric, and hold at most 64 jobs a cell; (c) the load ladder
+    (rates 1, 2, 4, 8, 1000 jobs, 10 seeds, 64 slots; heSRPT, SRPT, EQUI on
+    the carried-rank stream): wall and windowed mean flows; (d) horizon
+    scaling: ``run_stream_source(poisson_source)`` at 32 slots (rate 4, 4
+    servers, p 0.5) over ``STREAM_HORIZONS`` events (64,000 is cut for the
+    time limit): us an event and peak device bytes above the baseline,
+    which must not grow with the horizon, beside ``engine.run`` on E/2 jobs;
+    (e) the long horizon: at least 50 x 32 jobs through 32 slots, never
+    more than 32 in flight, deferrals printed; (f) the smoke stream lanes on
+    the same tapes on the CPU and the card: flows within 1e-12 relative,
+    counts equal; (g) the kernel at the pool's widths (M = 1, 12, 24, 64,
+    256; rows half, 90% and all free) bit for bit with its plain version,
+    f64 and f32, and its time at [192, 64] f64 beside the plain version and
+    the bound.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -231,6 +254,16 @@ STATE_TOL = dict(rtol=1e-3, atol=1e-3)
 # steps in the log-depth scan), its state (y[:, -1] in float32, as the TPU
 # kernel's) within 1e-3.  In bf16 both sides take the same bf16 a and g.
 RGLRU_TOL = FLASH_TOL
+# Phase 25's horizon scaling. benchmarks/streaming.py's full tier also runs
+# 64,000 events: cut here for the script's time limit (on an H100 at 700 W
+# that horizon alone took 107 s, 1.67 ms an event step of host launches,
+# with the same peak device bytes as the three below). The finite-tape
+# comparator runs at every horizon kept.
+STREAM_HORIZONS = (1_000, 4_000, 16_000)
+STREAM_HORIZONS_CUT = (64_000,)
+# The widths the alloc kernel takes in the streaming loop: a pool of slots,
+# padded to at least 32 entries.
+POOL_WIDTHS = (1, 12, 24, 64, 256)
 
 
 def _card() -> str:
@@ -1604,6 +1637,238 @@ def phase_snap_chunk_timing(alloc, lanes, sweeps, engine, policies, fused_drift,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations", "shape": [cells, M]}
 
 
+def _recording_rule(base, sink):
+    """``base`` (a quantized rule over heSRPT) whose fused allocate also
+    hands every event step's chips to ``sink``."""
+    def rule(x, p):
+        return base(x, p)
+
+    def fused(x, p):
+        chips, rate = base.fused_variant(x, p)
+        sink(chips)
+        return chips, rate
+
+    rule.fused_variant = fused
+    return rule
+
+
+def _pool_rows(gen, cells, M, device, dtype, free_frac):
+    """Slot-pool rows: Pareto-like sizes with ``free_frac`` of the slots free
+    (exactly 0), as the streaming loop hands them to the allocate."""
+    import torch
+
+    x = _sizes(gen, (cells, M), device, torch.float64)
+    free = torch.rand((cells, M), generator=gen, device=device, dtype=torch.float64) < free_frac
+    return torch.where(free, 0.0, x).to(dtype).contiguous()
+
+
+def phase_stream(alloc, lanes, sweeps, engine, scenarios, policies, card, device) -> dict:
+    """Phase 25: the bounded-slot streaming loop on the card."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    # (a) Reduction: a pool as wide as the tape never recycles.
+    spec = dict(lanes.lane_specs())["quantized-fused"]
+    M = spec.n_jobs
+    x0, arr, _ = sweeps.draw_scenario(spec, device=device)
+    x0, arr = x0.reshape(-1, M), arr.reshape(-1, M)
+    base = engine.quantized_rule(policies.hesrpt, spec.n_chips)
+    chips_run = []
+    ref = engine.run(x0, arr, spec.p, _recording_rule(base, chips_run.append), fused=True)
+    step, mismatch = [0], torch.zeros((), dtype=torch.int64, device=device)
+
+    def compare(chips):
+        mismatch.add_((chips != chips_run[step[0]]).sum())
+        step[0] += 1
+
+    red = engine.run_stream(x0, arr, spec.p, _recording_rule(base, compare), n_slots=M,
+                            record_times=True, fused=True)
+    assert step[0] == len(chips_run) == 2 * M, (step[0], len(chips_run))
+    assert int(mismatch) == 0, f"stream chips differ from run's at {int(mismatch)} entries"
+    assert bool(torch.isfinite(ref.completion_times).all())
+    assert torch.equal(red.completion_times, ref.completion_times), \
+        "run_stream(n_slots = M) != run completion times"
+    assert bool((red.blocked_steps == 0).all()) and bool((red.n_completed == M).all())
+    del chips_run, ref, red
+    torch.cuda.empty_cache()
+
+    # (b) The stream lanes at full size: the main path of this phase.
+    results, launches = {}, {}
+    for label, lspec in lanes.stream_lane_specs():
+        torch.cuda.synchronize()
+        alloc.LAUNCHES = 0
+        results[label] = sweeps.run_sweep(lspec, device=device)
+        torch.cuda.synchronize()
+        launches[label] = alloc.LAUNCHES
+    fused_res = results["stream-quantized-fused"]
+    slots = dict(fused_res.spec.stream)["n_slots"]
+    assert launches["stream-quantized-fused"] == 2 * M, launches
+    assert launches["stream-quantized"] == launches["stream-continuous"] == 0, launches
+    assert lanes.fused_equals_unfused(list(results.items()), "stream-"), \
+        "stream fused lane != unfused lane"
+    for label, res in results.items():
+        st = res.stats["hesrpt"]
+        assert st["stream_flow"].shape == (len(res.spec.rates), res.spec.n_seeds)
+        assert np.all(np.isfinite(st["stream_flow"])) and np.all(st["stream_completed"] > 0)
+        assert st["stream_occupancy"].max() <= slots, f"{label}: occupancy above {slots}"
+    cells = len(fused_res.spec.rates) * fused_res.spec.n_seeds
+
+    # (c) The load ladder (benchmarks/streaming.py::load_ladder, full size).
+    ladder = sweeps.Sweep.create(
+        ("hesrpt", "srpt", "equi"), (1.0, 2.0, 4.0, 8.0), n_jobs=1000, n_seeds=10, p=0.5,
+        stream={"n_slots": 64},
+        metrics=("stream_flow", "stream_slowdown", "stream_blocked", "stream_occupancy"))
+    lad = sweeps.run_sweep(ladder, device=device)
+    lad_means = lad.cell_means("stream_flow")
+    for name in ladder.policies:
+        assert np.all(np.isfinite(lad.stats[name]["stream_flow"]))
+        assert lad.stats[name]["stream_occupancy"].max() <= 64
+    ahead = all(v["hesrpt"] <= min(v["srpt"], v["equi"]) for v in lad_means.values())
+
+    # (d) Horizon scaling: the stream's memory is flat in the horizon.
+    rate, n_servers, n_slots, p = 4.0, 4.0, 32, 0.5
+    rule = engine.continuous_rule(policies.hesrpt, n_servers)
+    horizon = []
+    for hi, E in enumerate(STREAM_HORIZONS):
+        src = engine.poisson_source(torch.Generator(device=device).manual_seed(hi), rate,
+                                    device=device)
+        torch.cuda.synchronize()
+        floor = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = engine.run_stream_source(src, p, rule, n_slots=n_slots, n_events=E,
+                                       n_alone=n_servers)
+        done = int(res.n_completed[0])  # synchronizes
+        row = {"events": E, "stream_us_per_event": (time.perf_counter() - t0) * 1e6 / E,
+               "stream_peak_bytes": torch.cuda.max_memory_allocated() - floor,
+               "stream_completed": done, "stream_occupancy": int(res.occupancy_max[0])}
+        assert done > 0 and row["stream_occupancy"] <= n_slots
+        del res, src
+        # The finite-tape loop on the same workload: E/2 jobs, horizon E.
+        gen = torch.Generator(device=device).manual_seed(100 + hi)
+        t_arr = scenarios.poisson_arrivals(gen, E // 2, rate)
+        t_x = scenarios.pareto_sizes(gen, E // 2, 1.5)
+        torch.cuda.synchronize()
+        floor = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tape = engine.run(t_x, t_arr, p, rule, horizon=E)
+        n_tape = int(torch.isfinite(tape.completion_times).sum())  # synchronizes
+        row.update(tape_us_per_event=(time.perf_counter() - t0) * 1e6 / E,
+                   tape_peak_bytes=torch.cuda.max_memory_allocated() - floor,
+                   tape_completed=n_tape)
+        del tape, t_arr, t_x
+        horizon.append(row)
+    peaks = [r["stream_peak_bytes"] for r in horizon]
+    assert max(peaks) == min(peaks), f"the stream's peak memory grows with the horizon: {peaks}"
+
+    # (e) The long horizon: 50 x 32 jobs through 32 slots.
+    jobs_factor = 50
+    src = engine.poisson_source(torch.Generator(device=device).manual_seed(7), rate,
+                                device=device)
+    t0 = time.perf_counter()
+    res = engine.run_stream_source(src, p, rule, n_slots=n_slots,
+                                   n_events=int(2.4 * jobs_factor * n_slots), n_alone=n_servers)
+    long_h = {"completed": int(res.n_completed[0]), "occupancy_max": int(res.occupancy_max[0]),
+              "deferred": int(res.blocked_steps[0]), "events": int(2.4 * jobs_factor * n_slots),
+              "wall_s": time.perf_counter() - t0}
+    assert long_h["completed"] >= jobs_factor * n_slots, long_h
+    assert long_h["occupancy_max"] <= n_slots, long_h
+
+    # (f) The smoke stream lanes on the same tapes, CPU against card.
+    cpu_gap = 0.0
+    for label, sspec in lanes.stream_lane_specs(smoke=True):
+        sx, sa, _ = sweeps.draw_scenario(sspec, device="cpu")
+        cpu = sweeps.simulate_cells(sspec, sx, sa, device="cpu")["hesrpt"]
+        gpu = sweeps.simulate_cells(sspec, sx, sa, device=device)["hesrpt"]
+        for m in sspec.metrics:
+            if m in ("stream_flow", "stream_slowdown"):
+                rel = float(np.max(np.abs(gpu[m] - cpu[m]) / np.abs(cpu[m])))
+                assert rel <= 1e-12, f"{label}: {m} CPU vs card differ by {rel} relative"
+                cpu_gap = max(cpu_gap, rel)
+            else:
+                assert np.array_equal(gpu[m], cpu[m]), f"{label}: {m} CPU vs card"
+
+    # (g) The kernel at the pool's widths, then its time at the lanes' [192, 64].
+    gen = torch.Generator(device=device).manual_seed(25)
+    checked = 0
+    for dtype in (torch.float64, torch.float32):
+        for width in POOL_WIDTHS:
+            for free_frac in (0.5, 0.9, 1.0):
+                x = _pool_rows(gen, cells, width, device, dtype, free_frac)
+                for n_chips, min_chips in ((0, 1), (256, 1), (16, 2)):
+                    for pp in (0.5, 0.3):
+                        kw = dict(min_chips=min_chips)
+                        theta, chips = alloc.hesrpt_alloc_fused(x, pp, n_chips, **kw)
+                        theta0, chips0 = alloc.hesrpt_alloc_fused_ref(x, pp, n_chips, **kw)
+                        if not (torch.equal(theta, theta0) and torch.equal(chips, chips0)):
+                            raise AssertionError(
+                                f"pool width: kernel != plain: {dtype} [{cells}, {width}] "
+                                f"free {free_frac} n_chips={n_chips} p={pp}")
+                        checked += 1
+    x = _pool_rows(gen, cells, slots, device, torch.float64, 0.5)
+    before = alloc.LAUNCHES
+    ms = _time_ms(lambda: alloc.hesrpt_alloc_fused(x, 0.5, spec.n_chips), 500)
+    plain_ms = _time_ms(lambda: alloc.hesrpt_alloc_fused_ref(x, 0.5, spec.n_chips), 100)
+    alloc.LAUNCHES = before  # timing launches are not the main path's
+    registers, ctas = alloc.occupancy(slots, torch.float64)
+    n_bytes = cells * slots * (2 * x.element_size() + 4)
+    n_ops = cells * (2 * slots * math.ceil(math.log2(slots)) + 40 * slots)
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / PEAK_OPS_PER_S * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    phase_s = time.perf_counter() - t_phase
+
+    walls = {label: res.wall_s for label, res in results.items()}
+    print(f"phase 25: run_stream(fused=True, n_slots={M}) on the fused lane's tapes "
+          f"([{x0.shape[0]}, {M}]) == engine.run(fused=True): completion times bit for bit, "
+          f"chips equal at all {2 * M} event steps", flush=True)
+    print(f"phase 25: stream lanes ({cells} cells x {M} jobs through {slots} slots, "
+          f"{spec.n_chips} chips) on {card}: fused lane "
+          f"{launches['stream-quantized-fused']} launches at [{cells}, {slots}] (2M = {2 * M}), "
+          f"fused == unfused bit for bit in every stream metric, occupancy <= {slots}; walls "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in walls.items()), flush=True)
+    for label, res in results.items():
+        st = res.stats["hesrpt"]
+        flows = [round(v["hesrpt"], 6) for v in res.cell_means("stream_flow").values()]
+        print(f"phase 25: {label} per-rate windowed mean flow {flows}; blocked steps "
+              f"{int(st['stream_blocked'].sum())}, peak occupancy "
+              f"{int(st['stream_occupancy'].max())}", flush=True)
+    print(f"phase 25: load ladder (rates {list(ladder.rates)}, {ladder.n_jobs} jobs, "
+          f"{ladder.n_seeds} seeds, 64 slots, carried-rank stream) wall {lad.wall_s:.3f} s; "
+          "windowed mean flow " + "; ".join(
+              f"rate {r}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items())
+              for r, row in lad_means.items())
+          + f"; heSRPT <= SRPT and EQUI at every rate: {ahead}", flush=True)
+    for row in horizon:
+        print(f"phase 25: horizon {row['events']} events on {card}: stream "
+              f"{row['stream_us_per_event']:.1f} us/event, peak {row['stream_peak_bytes']} B "
+              f"above the baseline, {row['stream_completed']} completed; engine.run on "
+              f"{row['events'] // 2} jobs {row['tape_us_per_event']:.1f} us/event, peak "
+              f"{row['tape_peak_bytes']} B", flush=True)
+    print(f"phase 25: horizons {list(STREAM_HORIZONS_CUT)} of benchmarks/streaming.py's full "
+          "tier cut for the script's time limit", flush=True)
+    print(f"phase 25: long horizon: {long_h['completed']} jobs through {n_slots} slots in "
+          f"{long_h['events']} events ({long_h['wall_s']:.3f} s), peak occupancy "
+          f"{long_h['occupancy_max']}, {long_h['deferred']} deferred admissions; smoke stream "
+          f"lanes CPU vs card {cpu_gap:.2e}, counts equal", flush=True)
+    print(f"phase 25: alloc at the pool's widths {list(POOL_WIDTHS)} == plain version bit for "
+          f"bit on {checked} cases; at [{cells}, {slots}] f64 on {card}: kernel {ms:.4f} ms, "
+          f"plain version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms ({n_bytes} bytes); "
+          f"{registers} registers a thread, {ctas} CTAs an SM; phase 25 took {phase_s:.1f} s",
+          flush=True)
+    return {"launches": launches, "walls_s": walls, "cells": cells, "n_jobs": M,
+            "n_slots": slots, "ladder_wall_s": lad.wall_s, "ladder_flow": lad_means,
+            "hesrpt_ahead": ahead, "horizon": horizon,
+            "horizons_cut": list(STREAM_HORIZONS_CUT), "long_horizon": long_h,
+            "cpu_vs_cuda_max_rel": cpu_gap, "pool_cases": checked,
+            "timing_ms": {"ms": ms, "plain_ms": plain_ms}, "bound_ms": bound_ms,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "registers": registers, "ctas_per_sm": ctas, "shape": [cells, slots],
+            "phase_s": phase_s,
+            "lanes": lanes.lane_records(list(results.items()))}
+
+
 def main() -> int:
     try:
         import torch
@@ -1621,7 +1886,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import figures, lanes
-    from repro_torch.core import engine, flowtime, policies, simulator, superstep, sweeps
+    from repro_torch.core import (
+        engine, flowtime, policies, scenarios, simulator, superstep, sweeps,
+    )
     from repro_torch.kernels import alloc, chunked, flash_attention, ops, ref, rglru_scan, ssd_scan
 
     # Float32 products in full float32 (these are PyTorch's defaults, stated).
@@ -1678,6 +1945,7 @@ def main() -> int:
     drift = phase_drift(alloc, lanes, sweeps, engine, policies, card, device)
     snap = phase_snap_chunk_timing(alloc, lanes, sweeps, engine, policies,
                                    drift.pop("fused_result"), card, device)
+    stream = phase_stream(alloc, lanes, sweeps, engine, scenarios, policies, card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -1692,6 +1960,12 @@ def main() -> int:
         "plain_ms_per_cell_p": snap["timing_ms"]["plain_per_cell_p"],
         "bound_ms_per_cell_p": snap["bound_ms"],
         "per_cell_p_cases": per_cell_cases,
+        "launches_stream": stream["launches"]["stream-quantized-fused"],
+        "ms_stream": stream["timing_ms"]["ms"],
+        "plain_ms_stream": stream["timing_ms"]["plain_ms"],
+        "bound_ms_stream": stream["bound_ms"],
+        "shape_stream": stream["shape"],
+        "pool_width_cases": stream["pool_cases"],
         "ms_fig4": fig["alloc_ms"],
         "plain_ms_fig4": fig["alloc_plain_ms"],
         "bound_ms_fig4": fig["alloc_bound_ms"],
@@ -1788,6 +2062,7 @@ def main() -> int:
         "superstep": ss,
         "drift": drift,
         "snap_chunk_timing": snap,
+        "stream": stream,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

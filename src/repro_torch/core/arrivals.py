@@ -6,8 +6,9 @@ drifting ``p`` where the engine takes one): each wrapper takes ``[..., M]``
 tapes (array-likes or tensors, moved to ``device``), runs the engine over
 every cell at once and reduces completion times to per-job flow times and
 slowdowns (:class:`OnlineSimResult`, per-cell scalars over the leading
-dims).  :func:`load_sweep` / :func:`load_sweep_raw` are thin specs over
-``core/sweeps.py``.
+dims).  :func:`simulate_stream` runs a scenario through the bounded-slot
+loop instead (``engine.run_stream``).  :func:`load_sweep` /
+:func:`load_sweep_raw` are thin specs over ``core/sweeps.py``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core.flowtime import speedup
 from repro_torch.core.policies import Policy
-from repro_torch.core.scenarios import Scenario
+from repro_torch.core.scenarios import Scenario, stream_tape
 from repro_torch.core.superstep import run_superstep
 from repro_torch.device import as_tensor, resolve_device
 
@@ -142,6 +143,30 @@ def simulate_scenario(
     )
 
 
+def simulate_stream(
+    scn: Scenario, p, n_servers, policy: Policy, *, n_slots: int, window=None,
+    n_chips: int | None = None, min_chips: int = 1, rel_tol: float = 1e-9,
+    horizon: int | None = None, record_times: bool = False, fused: bool = False,
+    telemetry=None, device="cuda",
+) -> engine.StreamResult:
+    """Run drawn scenarios through the bounded-slot loop: whole chips when
+    ``n_chips`` is set, else the continuous system on ``n_servers``, over
+    ``n_slots`` recycled slots a cell; the read-out is the stationary-window
+    :class:`~repro_torch.core.engine.StreamResult`.  A drift scenario raises
+    (:func:`~repro_torch.core.scenarios.stream_tape`)."""
+    x0, arr = _tapes(*stream_tape(scn), device)
+    if n_chips is not None:
+        rule = engine.quantized_rule(policy, n_chips, min_chips=min_chips, dtype=x0.dtype)
+        n_alone = n_chips
+    else:
+        rule = engine.continuous_rule(policy, n_servers, dtype=x0.dtype)
+        n_alone = n_servers
+    return engine.run_stream(
+        x0, arr, p, rule, n_slots=n_slots, window=window, n_alone=n_alone, horizon=horizon,
+        rel_tol=rel_tol, record_times=record_times, fused=fused, telemetry=telemetry,
+    )
+
+
 # --------------------------------------------------------------- load sweeps
 def load_sweep(
     policies: Sequence[str], rates: Sequence[float], *, n_jobs: int = 1000,
@@ -196,4 +221,5 @@ __all__ = [
     "simulate_online_ranked",
     "simulate_online_superstep",
     "simulate_scenario",
+    "simulate_stream",
 ]

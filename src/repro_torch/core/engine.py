@@ -29,10 +29,15 @@ tensor value — so the loop is bound by launches, not by syncs.
   the fused allocate hands to the kernel (one exponent a cell).
 - :func:`snap_to_slices` — whole chips snapped to power-of-two slices
   (``quantized_rule(snap_slices=True)``, ``knee_rule`` likewise).
+- :func:`run_stream`, :func:`run_stream_ranked` and
+  :func:`run_stream_source` — the bounded-slot streaming loop: ``[C, S]``
+  recycled job slots instead of ``[C, M]`` job state, arrivals pulled from a
+  :class:`StreamSource` (:func:`tape_source`, :func:`poisson_source`), a
+  full pool deferring an arrival, and stationary-window aggregates
+  (:class:`StreamResult`) as the read-out.
 
 Not ported yet (ROADMAP.md Queue A): ``telemetry``, per-job drift rows and
-estimation noise (with the multi-class runs), and the bounded-slot
-streaming loop.
+estimation noise (with the multi-class runs).
 """
 
 from __future__ import annotations
@@ -531,6 +536,478 @@ def run_ranked(
     return torch.zeros_like(times).scatter_(-1, order, times).reshape(*lead, M)
 
 
+# ----------------------------------------------------- bounded-slot streaming
+class StreamSource(NamedTuple):
+    """Pull-based arrival stream for the bounded-slot loop, one row a cell.
+
+    ``init()`` builds the stream state, a tuple of ``[C, 1]`` tensors;
+    ``peek(state)`` reads each row's next arrival ``(time, size)`` as two
+    ``[C, 1]`` columns without consuming it (``time = inf`` once a row is
+    exhausted); ``advance(state)`` consumes it, in every row (the loop keeps
+    the advanced state only where a row admitted).  The peek/advance split lets a full
+    pool defer an arrival and admit it later at its true arrival time.
+    """
+
+    init: Callable[[], Any]
+    peek: Callable[[Any], tuple[torch.Tensor, torch.Tensor]]
+    advance: Callable[[Any], Any]
+
+
+def tape_source(x0_sorted: torch.Tensor, arrivals_sorted: torch.Tensor) -> StreamSource:
+    """Finite arrival-sorted ``[..., T]`` tapes (flattened to ``[C, T]``
+    rows) as a :class:`StreamSource`.  The state is each row's next tape
+    index, ``([C, 1] int64,)``, so the loop's admission counter is the tape
+    position (which is how ``record_times`` maps slots back to jobs)."""
+    T = x0_sorted.shape[-1]
+    xs = x0_sorted.reshape(-1, T)
+    arr = arrivals_sorted.reshape(-1, T)
+    inf = torch.tensor(torch.inf, dtype=arr.dtype, device=arr.device)
+
+    def init():
+        return (torch.zeros((xs.shape[0], 1), dtype=torch.int64, device=xs.device),)
+
+    def peek(state):
+        j = state[0].clamp(max=T - 1)
+        return torch.where(state[0] < T, arr.gather(-1, j), inf), xs.gather(-1, j)
+
+    def advance(state):
+        return (state[0] + 1,)
+
+    return StreamSource(init=init, peek=peek, advance=advance)
+
+
+def poisson_source(
+    gen: torch.Generator, rate, *, size_alpha: float = 1.5, dtype=torch.float64,
+    device="cuda",
+) -> StreamSource:
+    """An unbounded Poisson/Pareto arrival stream in O(1) state a row.
+
+    ``rate`` is a float (one row) or a ``[C, 1]`` column (one row a rate).
+    The state is each row's peeked arrival ``(t_next, x_next)``; every
+    ``advance`` draws one Exp(``rate``) gap and one Pareto(``size_alpha``,
+    minimum 1) size a row from ``gen`` (``scenarios.pareto_sizes``' law),
+    and the loop keeps them only where the row admitted.  Equal in
+    distribution to the JAX package's ``poisson_source``, never sample for
+    sample (its threefry streams are not drawn here).
+    """
+    from repro_torch.core.scenarios import pareto_sizes, unit_gaps
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if gen.device.type != dev.type:
+        raise ValueError(f"the generator lies on {gen.device}, the stream on {dev}")
+    rate = torch.as_tensor(rate, dtype=dtype, device=dev)
+    C = rate.shape[0] if rate.ndim else 1
+    rate = rate.reshape(C, 1) if rate.ndim else rate
+
+    def draw():
+        gap = unit_gaps(gen, C).reshape(C, 1).to(dtype) / rate
+        return gap, pareto_sizes(gen, C, size_alpha).reshape(C, 1).to(dtype)
+
+    def peek(state):
+        return state
+
+    def advance(state):
+        gap, size = draw()
+        return state[0] + gap, size
+
+    return StreamSource(init=draw, peek=peek, advance=advance)
+
+
+class StreamResult(NamedTuple):
+    """Read-out of a bounded-slot streaming run, one value a cell.
+
+    Flow and slowdown aggregates count the jobs that *arrived* inside the
+    window ``[lo, hi)`` (``window=None``: the whole stream) and completed
+    within the event budget, so long jobs near the window's trailing edge
+    are right-censored as a finite-horizon measurement censors them.
+    Slowdown compares against running alone on ``n_alone`` servers:
+    ``flow / (size / s(n_alone))``.
+    """
+
+    mean_flow: torch.Tensor  # windowed mean flow time
+    mean_slowdown: torch.Tensor  # windowed mean slowdown
+    n_window: torch.Tensor  # completions counted into the window
+    n_arrived_window: torch.Tensor  # admissions whose arrival fell in the window
+    flow_sum: torch.Tensor  # windowed flow-time sum
+    slow_sum: torch.Tensor  # windowed slowdown sum
+    n_admitted: torch.Tensor  # arrivals admitted to a slot
+    n_completed: torch.Tensor  # total departures
+    blocked_steps: torch.Tensor  # events where a full pool deferred an arrival
+    occupancy_max: torch.Tensor  # peak in-flight jobs (epoch-start census)
+    t_final: torch.Tensor  # clock at the end of the loop
+    x_final: torch.Tensor  # [..., n_slots] remaining sizes (0 = free slot)
+    completion_times: torch.Tensor | None  # [..., n_jobs] input order (record_times)
+    telemetry: Any  # None: telemetry is not ported yet
+
+
+def _scalar_p(p, who: str) -> float:
+    if torch.as_tensor(p).ndim != 0:
+        raise ValueError(
+            f"{who} needs a scalar p — per-job exponents do not ride in slots yet; "
+            "multi-class streams take the finite-tape run()"
+        )
+    return float(p)
+
+
+def _no_stream_telemetry(telemetry) -> None:
+    if telemetry is not None:
+        raise NotImplementedError(
+            "streaming telemetry= is not ported yet (ROADMAP.md Queue A, item 5)"
+        )
+
+
+def _window_bounds(window, lead, dtype, device):
+    """``(lo, hi)`` as 0-dim tensors, or as ``[C, 1]`` columns where a bound
+    is a tensor that broadcasts over the cells' lead dims (a sweep's window
+    differs by rate)."""
+    if window is None:
+        window = (-torch.inf, torch.inf)
+
+    def bound(v):
+        v = torch.as_tensor(v, dtype=dtype, device=device)
+        return v if v.ndim == 0 else v.expand(lead).reshape(-1, 1)
+
+    return bound(window[0]), bound(window[1])
+
+
+def _acc_zeros(C: int, dtype, device) -> dict:
+    z = torch.zeros((C, 1), dtype=torch.int64, device=device)
+    zf = torch.zeros((C, 1), dtype=dtype, device=device)
+    return {"n_admitted": z, "n_completed": z, "w_count": z, "w_arrived": z, "blocked": z,
+            "occ_max": z, "w_flow": zf, "w_slow": zf}
+
+
+def _finalize_stream(acc, t_fin, x_fin, comp, lead) -> StreamResult:
+    def cell(v):
+        return v.reshape(lead)
+
+    n_w = acc["w_count"].clamp(min=1).to(acc["w_flow"].dtype)
+    S = x_fin.shape[-1]
+    return StreamResult(
+        mean_flow=cell(acc["w_flow"] / n_w),
+        mean_slowdown=cell(acc["w_slow"] / n_w),
+        n_window=cell(acc["w_count"]),
+        n_arrived_window=cell(acc["w_arrived"]),
+        flow_sum=cell(acc["w_flow"]),
+        slow_sum=cell(acc["w_slow"]),
+        n_admitted=cell(acc["n_admitted"]),
+        n_completed=cell(acc["n_completed"]),
+        blocked_steps=cell(acc["blocked"]),
+        occupancy_max=cell(acc["occ_max"]),
+        t_final=cell(t_fin),
+        x_final=x_fin.reshape(*lead, S),
+        completion_times=comp,
+        telemetry=None,
+    )
+
+
+def _claim(free, idx, ptr, S: int):
+    """The free slot at the smallest cyclic offset after each row's ring
+    pointer (``[C, 1]``; the first index on ties, as ``jnp.argmin``)."""
+    offs = torch.remainder(idx - ptr, S)  # Python-style modulo
+    return torch.where(free, offs, S).argmin(-1, keepdim=True)
+
+
+def _stream_scan(
+    source: StreamSource, p, srule: StatefulRule, *, n_slots: int, n_events: int,
+    window, lead, n_alone, tol, t0: float, dtype, n_times: int,
+):
+    """The bounded-slot event loop shared by the tape and source runners.
+
+    Carries ``[C, S]`` slots (remaining size, original size, arrival time,
+    job id) and ``[C, 1]`` scalars, so memory and per-event cost are flat
+    in the number of jobs streamed.  A slot is free iff its remaining size
+    is 0; an admitted arrival claims the free slot at the smallest cyclic
+    offset after a rotating ring pointer (the epoch-start free mask: a slot
+    freed by this step's departure is claimable from the next event), and a
+    completion zeroes its slot.  With ``S >= n_jobs`` the pointer never
+    wraps, slot ``i`` holds the ``i``-th arrival, and every step equals
+    :func:`run`'s.  A full pool drops the arrival out of the event race; it
+    is admitted on a later event, once a departure frees a slot, at the
+    later clock, and its recorded arrival time stays the true one.
+
+    ``record_times`` (``n_times > 0``) scatters completion times by job id
+    into ``[C, n_times + 1]``, whose last column takes every slot that did
+    not finish and is dropped.  ``lead`` is the cells' lead shape (None:
+    one dim, the source's rows).  Returns ``(x, t, acc, times)``.
+    """
+    S = int(n_slots)
+    src = source.init()
+    t_peek, _ = source.peek(src)
+    C, dev = t_peek.shape[0], t_peek.device
+    w_lo, w_hi = _window_bounds(window, (C,) if lead is None else lead, dtype, dev)
+    alone_rate = speedup(torch.tensor(n_alone, dtype=dtype, device=dev), p)
+    idx = torch.arange(S, device=dev)
+    inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
+    x = torch.zeros((C, S), dtype=dtype, device=dev)  # free slots hold 0
+    sx0 = torch.ones((C, S), dtype=dtype, device=dev)  # 1.0: no 0/0 in idle slots
+    sarr = torch.zeros((C, S), dtype=dtype, device=dev)
+    sid = torch.full((C, S), n_times, dtype=torch.int64, device=dev)
+    t = torch.full((C, 1), float(t0), dtype=dtype, device=dev)
+    ptr = torch.zeros((C, 1), dtype=torch.int64, device=dev)
+    acc = _acc_zeros(C, dtype, dev)
+    times = torch.full((C, n_times + 1), torch.inf, dtype=dtype, device=dev) if n_times else None
+    st = srule.init()
+
+    for _ in range(n_events):
+        active = x > 0
+        x_act = torch.where(active, x, 0.0)
+        alloc, rate = srule.allocate(st, x_act, p)
+        tt = torch.where(active & (rate > 0), x / rate, inf)
+        dt_dep = tt.amin(-1, keepdim=True)
+        first = tt.argmin(-1, keepdim=True)
+        t_next, x_next = source.peek(src)
+        dt_arr = torch.clamp(t_next - t, min=0.0)
+        free = ~active
+        has_free = free.any(-1, keepdim=True)
+        eff_dt_arr = torch.where(has_free, dt_arr, inf)
+        dt = torch.minimum(dt_dep, eff_dt_arr)
+        any_event = torch.isfinite(dt)
+        dt = torch.where(any_event, dt, 0.0)
+        admit = any_event & has_free & (dt_arr <= dt_dep)
+        take_dep = any_event & (dt_dep <= eff_dt_arr)
+        blocked_now = torch.isfinite(dt_dep) & ~has_free & (dt_arr < dt_dep)
+        # On time, t lands on the arrival exactly (as in run); a deferred
+        # arrival is admitted at the later clock.
+        t_new = torch.where(admit, torch.maximum(t_next, t), t + dt)
+        x_new = torch.where(active, x - dt * rate, x)
+        departing = (idx == first) & active & take_dep
+        x_new = torch.where(departing | (active & (x_new <= tol)), 0.0, x_new)
+        newly_done = active & (x_new == 0.0)
+        # The tol clamp can finish several slots in one step.
+        flow = t_new - sarr
+        slow = flow * alone_rate / sx0
+        done_w = newly_done & (sarr >= w_lo) & (sarr < w_hi)
+        if times is not None:
+            tix = torch.where(newly_done, sid, n_times)
+            times.scatter_(-1, tix, t_new.to(dtype).expand(C, S))
+        cand = _claim(free, idx, ptr, S)
+        claimed = admit & (idx == cand)
+        arr_id = acc["n_admitted"]
+        acc = {
+            "n_admitted": arr_id + admit,
+            "n_completed": acc["n_completed"] + newly_done.sum(-1, keepdim=True),
+            "w_count": acc["w_count"] + done_w.sum(-1, keepdim=True),
+            "w_arrived": acc["w_arrived"] + (admit & (t_next >= w_lo) & (t_next < w_hi)),
+            "blocked": acc["blocked"] + blocked_now,
+            "occ_max": torch.maximum(acc["occ_max"], active.sum(-1, keepdim=True)),
+            "w_flow": acc["w_flow"] + torch.where(done_w, flow, 0.0).sum(-1, keepdim=True),
+            "w_slow": acc["w_slow"] + torch.where(done_w, slow, 0.0).sum(-1, keepdim=True),
+        }
+        x = torch.where(claimed, x_next, x_new)
+        sx0 = torch.where(claimed, x_next, sx0)
+        sarr = torch.where(claimed, t_next, sarr)
+        sid = torch.where(claimed, arr_id, sid)
+        ptr = torch.where(admit, torch.remainder(cand + 1, S), ptr)
+        src = tuple(torch.where(admit, a, b) for a, b in zip(source.advance(src), src))
+        st = srule.observe(st, Observation(alloc=alloc, rate=rate, dt=dt, active=active))
+        t = t_new
+
+    return x, t, acc, None if times is None else times[:, :n_times]
+
+
+def run_stream(
+    x0: torch.Tensor,
+    arrival_times: torch.Tensor,
+    p,
+    rule: AllocRule | StatefulRule,
+    *,
+    n_slots: int,
+    window=None,
+    n_alone=1.0,
+    horizon: int | None = None,
+    rel_tol: float = 1e-9,
+    t0=0.0,
+    record_times: bool = False,
+    fused: bool = False,
+    telemetry=None,
+) -> StreamResult:
+    """:func:`run` over a fixed pool of ``n_slots`` recycled job slots.
+
+    ``x0``/``arrival_times`` are ``[..., T]`` tapes; the loop runs every
+    cell together for ``2T`` steps (or ``horizon``) over ``[C, n_slots]``
+    slots (see :func:`_stream_scan` for the slot lifecycle and the
+    deferred admission).  Each field of the :class:`StreamResult` has the
+    tapes' lead shape.  With ``n_slots >= T`` the trajectory is
+    :func:`run`'s on the same tape, bit for bit, up to two measure-zero
+    cases (exactly tied arrival times are admitted one an event here; a
+    departure whose rounding overshoots the next arrival admits it one
+    epoch later).
+
+    ``window=(lo, hi)`` is the stationary window, each bound a float or a
+    tensor broadcasting over the lead dims; ``record_times=True`` also
+    scatters completion times (input order) through a ``[C, T + 1]`` carry,
+    a parity tool, not the O(n_slots) path.  ``fused=True`` swaps in the
+    rule's ``fused_variant`` (the alloc kernel at ``[C, n_slots]`` on the
+    card).  ``p`` must be a scalar.
+    """
+    _no_stream_telemetry(telemetry)
+    p = _scalar_p(p, "run_stream")
+    rule = _resolve_fused(rule, fused)
+    x0, arr, lead, dtype = _cells(x0, arrival_times)
+    T = x0.shape[-1]
+    order = torch.argsort(arr, dim=-1, stable=True)
+    x_fin, t_fin, acc, times = _stream_scan(
+        tape_source(x0.gather(-1, order), arr.gather(-1, order)), p, as_stateful(rule),
+        n_slots=n_slots, n_events=2 * T if horizon is None else horizon, window=window,
+        lead=lead, n_alone=n_alone, tol=rel_tol * x0.amax(-1, keepdim=True), t0=t0,
+        dtype=dtype, n_times=T if record_times else 0,
+    )
+    comp = None
+    if record_times:
+        comp = torch.zeros_like(times).scatter_(-1, order, times).reshape(*lead, T)
+    return _finalize_stream(acc, t_fin, x_fin, comp, lead)
+
+
+def run_stream_source(
+    source: StreamSource,
+    p,
+    rule: AllocRule | StatefulRule,
+    *,
+    n_slots: int,
+    n_events: int,
+    window=None,
+    n_alone=1.0,
+    x_scale=1.0,
+    rel_tol: float = 1e-9,
+    t0=0.0,
+    dtype=torch.float64,
+    fused: bool = False,
+    telemetry=None,
+) -> StreamResult:
+    """:func:`run_stream` for an unbounded :class:`StreamSource`: exactly
+    ``n_events`` steps, nothing sized by a job count.  The completion
+    tolerance is absolute, ``rel_tol * x_scale`` (there is no tape to take
+    a max over), and no per-job times are recorded.  The result has one
+    value a row of the source (``[C]``)."""
+    _no_stream_telemetry(telemetry)
+    p = _scalar_p(p, "run_stream_source")
+    rule = _resolve_fused(rule, fused)
+    x_fin, t_fin, acc, _ = _stream_scan(
+        source, p, as_stateful(rule), n_slots=n_slots, n_events=n_events, window=window,
+        lead=None, n_alone=n_alone, tol=rel_tol * x_scale, t0=t0, dtype=dtype, n_times=0,
+    )
+    return _finalize_stream(acc, t_fin, x_fin, None, x_fin.shape[:1])
+
+
+def run_stream_ranked(
+    x0: torch.Tensor,
+    arrival_times: torch.Tensor,
+    p,
+    n_servers,
+    rank_policy,
+    *,
+    n_slots: int,
+    window=None,
+    n_alone=1.0,
+    horizon: int | None = None,
+    t0=0.0,
+    record_times: bool = False,
+) -> StreamResult:
+    """:func:`run_ranked` over a fixed pool of recycled job slots.
+
+    Ranks live on slots (0 = free); a departure drops rank ``m``, an arrival
+    inserts one rank and claims a slot from the ring pointer, with no sort
+    at all.  Admission, deferral and the window follow :func:`run_stream`.
+    Every active job arrived earlier, so the arriving job loses every exact
+    size tie (``x >= x_a``, the JAX package's predicate here, unlike
+    :func:`run_ranked`'s index tie-break).  ``p`` must be a scalar.
+    """
+    p = _scalar_p(p, "run_stream_ranked")
+    x0, arr_in, lead, dtype = _cells(x0, arrival_times)
+    C, T = x0.shape
+    S = int(n_slots)
+    dev = x0.device
+    order = torch.argsort(arr_in, dim=-1, stable=True)
+    arr = arr_in.gather(-1, order)
+    xs = x0.gather(-1, order)
+    idx = torch.arange(S, device=dev)
+    inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
+    w_lo, w_hi = _window_bounds(window, lead, dtype, dev)
+    alone_rate = speedup(torch.tensor(n_alone, dtype=dtype, device=dev), p)
+    n_times = T if record_times else 0
+    x = torch.zeros((C, S), dtype=dtype, device=dev)
+    sx0 = torch.ones((C, S), dtype=dtype, device=dev)
+    sarr = torch.zeros((C, S), dtype=dtype, device=dev)
+    sid = torch.full((C, S), n_times, dtype=torch.int64, device=dev)
+    ranks = torch.zeros((C, S), dtype=torch.int64, device=dev)
+    m = torch.zeros((C, 1), dtype=torch.int64, device=dev)
+    i = torch.zeros((C, 1), dtype=torch.int64, device=dev)
+    ptr = torch.zeros((C, 1), dtype=torch.int64, device=dev)
+    t = torch.full((C, 1), float(t0), dtype=dtype, device=dev)
+    acc = _acc_zeros(C, dtype, dev)
+    times = torch.full((C, n_times + 1), torch.inf, dtype=dtype, device=dev) if n_times else None
+
+    for _ in range(2 * T if horizon is None else horizon):
+        theta = rank_policy(ranks, m, p, dtype=dtype)
+        rate = speedup(theta * n_servers, p)
+        small = ranks.argmax(-1, keepdim=True)  # rank m, the smallest active job
+        has_active = m > 0
+        x_s = x.gather(-1, small)
+        r_s = rate.gather(-1, small)
+        dt_dep = torch.where(has_active & (r_s > 0), x_s / r_s, inf)
+        i_c = i.clamp(max=T - 1)
+        t_next = torch.where(i < T, arr.gather(-1, i_c), inf)
+        dt_arr = torch.clamp(t_next - t, min=0.0)
+        has_free = m < S
+        eff_dt_arr = torch.where(has_free, dt_arr, inf)
+        dt = torch.minimum(dt_dep, eff_dt_arr)
+        any_event = torch.isfinite(dt)
+        dt = torch.where(any_event, dt, 0.0)
+        admit = any_event & has_free & (dt_arr <= dt_dep)
+        take_dep = any_event & (dt_dep <= eff_dt_arr)
+        blocked_now = torch.isfinite(dt_dep) & ~has_free & (dt_arr < dt_dep)
+        t_new = torch.where(admit, torch.maximum(t_next, t), t + dt)
+        active = ranks > 0
+        x_new = torch.where(active, torch.clamp(x - dt * rate, min=0.0), x)
+        departing = (idx == small) & active & take_dep
+        dep_real = take_dep & has_active
+        x_new = torch.where(departing, 0.0, x_new)
+        # Windowed accounting on the single departer (rank m).
+        arr_s = sarr.gather(-1, small)
+        flow = t_new - arr_s
+        slow = flow * alone_rate / sx0.gather(-1, small)
+        cw = dep_real & (arr_s >= w_lo) & (arr_s < w_hi)
+        if times is not None:
+            tj = torch.where(dep_real, sid.gather(-1, small), n_times)
+            times.scatter_(-1, tj, t_new.to(dtype))
+        ranks = torch.where(departing, 0, ranks)
+        # Arrival: claim a slot (epoch-start free mask) and insert its rank
+        # among the post-departure active set; it loses exact ties.
+        cand = _claim(~active, idx, ptr, S)
+        x_a = xs.gather(-1, i_c)
+        still = ranks > 0
+        r_a = 1 + (still & (x_new >= x_a)).sum(-1, keepdim=True)
+        bumped = torch.where(still & (ranks >= r_a), ranks + 1, ranks)
+        ranks = torch.where(admit, bumped.scatter(-1, cand, r_a), ranks)
+        claimed = admit & (idx == cand)
+        x = torch.where(claimed, x_a, x_new)
+        sx0 = torch.where(claimed, x_a, sx0)
+        sarr = torch.where(claimed, t_next, sarr)
+        sid = torch.where(claimed, i, sid)
+        acc = {
+            "n_admitted": acc["n_admitted"] + admit,
+            "n_completed": acc["n_completed"] + dep_real,
+            "w_count": acc["w_count"] + cw,
+            "w_arrived": acc["w_arrived"] + (admit & (t_next >= w_lo) & (t_next < w_hi)),
+            "blocked": acc["blocked"] + blocked_now,
+            "occ_max": torch.maximum(acc["occ_max"], m),
+            "w_flow": acc["w_flow"] + torch.where(cw, flow, 0.0),
+            "w_slow": acc["w_slow"] + torch.where(cw, slow, 0.0),
+        }
+        m = m - dep_real.to(m.dtype) + admit.to(m.dtype)
+        i = i + admit.to(i.dtype)
+        ptr = torch.where(admit, torch.remainder(cand + 1, S), ptr)
+        t = t_new
+
+    comp = None
+    if record_times:
+        times = times[:, :n_times]
+        comp = torch.zeros_like(times).scatter_(-1, order, times).reshape(*lead, T)
+    return _finalize_stream(acc, t, x, comp, lead)
+
+
 # -------------------------------------------------------------- quantization
 def quantize_allocation(theta: torch.Tensor, n_chips: int, *, min_chips: int = 1):
     """Largest-remainder rounding of ``theta * n_chips`` with a min-chips floor.
@@ -612,13 +1089,20 @@ __all__ = [
     "EngineTrace",
     "Observation",
     "StatefulRule",
+    "StreamResult",
+    "StreamSource",
     "as_stateful",
     "continuous_rule",
     "finish_alloc",
     "knee_rule",
+    "poisson_source",
     "quantize_allocation",
     "quantized_rule",
     "run",
     "run_ranked",
+    "run_stream",
+    "run_stream_ranked",
+    "run_stream_source",
     "snap_to_slices",
+    "tape_source",
 ]

@@ -18,8 +18,11 @@ tests hand the JAX sampler's tapes to the port through
   carried as an ``engine.PDrift`` (drift times ``[R, 1]`` over a rate
   axis).
 
+:func:`stream_tape` reduces a scenario to the plain tape the bounded-slot
+loop (``engine.run_stream``) takes.
+
 Not ported yet (ROADMAP.md Queue A): the multi-class samplers, estimation
-noise (``sigma_size``/``sigma_p``), ``stream_tape``.
+noise (``sigma_size``/``sigma_p``).
 """
 
 from __future__ import annotations
@@ -213,6 +216,19 @@ def make_scenario(
     return sample
 
 
+def stream_tape(scn: Scenario) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain ``(sizes, arrivals)`` tape of a :class:`Scenario` for the
+    bounded-slot loop.  Its slots carry no per-job state beyond the size, so
+    a drift schedule raises rather than being dropped (it stays on the
+    finite-tape ``engine.run`` path); the JAX package's wording."""
+    if scn.p_drift is not None:
+        raise ValueError(
+            "scenario with p_drift cannot stream: the drift clock belongs to the "
+            "finite-tape engine (use the finite-tape engine.run path)"
+        )
+    return scn.x0, scn.arrival_times
+
+
 def seed_generator(seed: int, index: int, *, device="cuda") -> torch.Generator:
     """The ``index``-th independent generator of a sweep seeded by ``seed``
     (numpy's ``SeedSequence`` spawn tree), on ``device``."""
@@ -244,6 +260,7 @@ __all__ = [
     "pareto_sizes",
     "poisson_arrivals",
     "seed_generator",
+    "stream_tape",
     "tape_from_numpy",
     "trace_scenario",
 ]

@@ -16,6 +16,13 @@ with ``continuous_rule`` or ``quantized_rule`` (and the scenario's
 allocate (one CUDA launch per event on the card).  HELL, KNEE and
 water-filling close over ``n_chips`` (or ``n_servers``).
 
+``Sweep.create(stream={"n_slots": S, ...})`` runs every cell through the
+bounded-slot loop instead, over ``S`` recycled slots, and reports
+stationary-window read-outs (:data:`STREAM_METRICS`): the window is
+``(warmup_frac, end_frac) x n_jobs / rate`` of each rate; continuous rank
+policies take ``engine.run_stream_ranked``, the rest (and ``fused=True``)
+``arrivals.simulate_stream``.
+
 ``run_sweep(chunk_seeds=)`` (or ``max_jobs_in_flight=``) runs the seeds in
 sequential chunks on the same per-seed generators, with the same results
 bit for bit.  Every run appends its compact record to :data:`RUN_LOG`,
@@ -24,7 +31,7 @@ which :func:`write_bench_json` flushes (never to the JAX package's
 
 Not ported yet (ROADMAP.md Queue A): multi-class ``classes`` (and with them
 ``snap_slices``, which the JAX package wires only for classes), estimation
-``arm``, ``telemetry``, ``stream``, and sharding.
+``arm``, ``telemetry``, and sharding.
 """
 
 from __future__ import annotations
@@ -41,7 +48,12 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.analysis import seed_axis_stats
-from repro_torch.core.arrivals import OnlineSimResult, _finalize, simulate_online_superstep
+from repro_torch.core.arrivals import (
+    OnlineSimResult,
+    _finalize,
+    simulate_online_superstep,
+    simulate_stream,
+)
 from repro_torch.core.policies import make_policy, make_rank_policy
 from repro_torch.core.engine import PDrift
 from repro_torch.core.scenarios import Scenario, make_scenario, seed_generator
@@ -55,10 +67,25 @@ SCHEMA_VERSION = 2
 #: Per-cell scalar metrics a sweep can report.
 SCALAR_METRICS = ("total_flowtime", "mean_flowtime", "mean_slowdown", "makespan")
 
+#: Streaming metrics (``Sweep.create(stream=...)``): per-cell read-outs of
+#: ``engine.StreamResult``, stationary-window aggregates of the bounded-slot
+#: loop (the JAX package's names).
+STREAM_METRICS = {
+    "stream_flow": "mean_flow",
+    "stream_slowdown": "mean_slowdown",
+    "stream_completed": "n_window",
+    "stream_arrived": "n_arrived_window",
+    "stream_blocked": "blocked_steps",
+    "stream_occupancy": "occupancy_max",
+}
+
+#: ``Sweep.create(stream=...)`` keys: the slot pool, and the window as
+#: fractions of each rate's nominal span ``n_jobs / rate``.
+STREAM_KEYS = ("n_slots", "warmup_frac", "end_frac")
+
 #: Regimes of the JAX ``Sweep`` not ported yet, with their "off" values.
 UNPORTED = {
-    "classes": None, "arm": None, "arm_kw": (), "telemetry": (), "stream": (),
-    "snap_slices": False,
+    "classes": None, "arm": None, "arm_kw": (), "telemetry": (), "snap_slices": False,
 }
 
 #: Default file of :func:`write_bench_json`: the port's own run log, beside
@@ -112,6 +139,7 @@ class Sweep(NamedTuple):
     metrics: tuple[str, ...] = ("mean_flowtime",)
     fused: bool = False  # kernels/alloc.py fused allocate (quantized heSRPT)
     superstep: bool = False  # core/superstep.py closed-form path (continuous)
+    stream: tuple = ()  # bounded-slot regime: (("n_slots", S), ...) kv pairs
 
     @classmethod
     def create(
@@ -119,8 +147,11 @@ class Sweep(NamedTuple):
         n_jobs: int = 1000, n_seeds: int = 100, seed: int = 0, p: float = 0.5,
         n_servers: float = 256.0, size_alpha: float = 1.5, n_chips: int | None = None,
         min_chips: int = 1, metrics=None, fused: bool = False, superstep: bool = False,
-        **regimes,
+        stream=None, **regimes,
     ) -> Sweep:
+        stream = tuple(sorted(dict(stream or {}).items()))
+        if stream:
+            _check_stream(dict(stream), scenario)
         for key, value in regimes.items():
             if key not in UNPORTED:
                 raise TypeError(f"Sweep.create() got an unexpected keyword {key!r}")
@@ -134,9 +165,18 @@ class Sweep(NamedTuple):
                 )
         scenario_kw = dict(scenario_kw or {})
         make_scenario(scenario, size_alpha=size_alpha, p=p, **scenario_kw)  # validates
-        metrics = tuple(metrics or ("mean_flowtime",))
+        metrics = tuple(metrics or (
+            ("stream_flow", "stream_slowdown") if stream else ("mean_flowtime",)))
         for m in metrics:
-            if m not in SCALAR_METRICS:
+            if stream:
+                if m not in STREAM_METRICS:
+                    raise ValueError(
+                        f"metric {m!r} is not a streaming metric; streaming sweeps read "
+                        f"{tuple(STREAM_METRICS)}"
+                    )
+            elif m in STREAM_METRICS:
+                raise ValueError(f"metric {m!r} needs a streaming sweep (stream=)")
+            elif m not in SCALAR_METRICS:
                 raise ValueError(f"unknown metric {m!r}; known: {SCALAR_METRICS}")
         for name in policies:
             make_policy(name)  # raises for unknown / unported policies
@@ -157,6 +197,11 @@ class Sweep(NamedTuple):
                     "superstep=True is the continuous closed-form path "
                     "(quantized chips need the per-event loop)"
                 )
+            if stream:
+                raise ValueError(
+                    "superstep sweeps take no fused/telemetry/stream options (all "
+                    "three ride the per-event loop)"
+                )
             bad = tuple(q for q in policies if q not in SUPERSTEP_RULE_POLICIES)
             if bad:
                 raise ValueError(f"superstep sweeps support heSRPT/EQUI/SRPT, got {bad}")
@@ -176,6 +221,7 @@ class Sweep(NamedTuple):
             metrics=metrics,
             fused=bool(fused),
             superstep=bool(superstep),
+            stream=stream,
         )
 
     @classmethod
@@ -189,6 +235,7 @@ class Sweep(NamedTuple):
             n_servers=d["n_servers"], size_alpha=d["size_alpha"],
             n_chips=d["n_chips"], min_chips=d["min_chips"], metrics=d["metrics"],
             fused=d.get("fused", False), superstep=d.get("superstep", False),
+            stream={k: v for k, v in d.get("stream", [])},
             **{k: d[k] for k in UNPORTED if k in d},
         )
 
@@ -198,6 +245,29 @@ class Sweep(NamedTuple):
     def total_jobs(self) -> int:
         """Simulated jobs in the whole grid, per policy."""
         return self.n_seeds * self.jobs_per_seed()
+
+
+def _check_stream(skw: dict, scenario: str) -> None:
+    """``Sweep.create(stream=...)``'s validation (the JAX package's)."""
+    unknown = tuple(k for k in skw if k not in STREAM_KEYS)
+    if unknown:
+        raise ValueError(f"unknown stream key(s) {unknown}; known: {STREAM_KEYS}")
+    if "n_slots" not in skw or int(skw["n_slots"]) < 1:
+        raise ValueError("stream needs n_slots >= 1 (the slot pool)")
+    warm, end = _stream_window(skw)
+    if not 0.0 <= warm < end:
+        raise ValueError(
+            f"stream window needs 0 <= warmup_frac < end_frac (got {warm} / {end})"
+        )
+    if scenario.startswith(("drift_", "multiclass_")):
+        raise ValueError(
+            "streaming sweeps need a plain tape scenario (no drift, classes or "
+            "estimation noise — see scenarios.stream_tape)"
+        )
+
+
+def _stream_window(skw: dict) -> tuple[float, float]:
+    return float(skw.get("warmup_frac", 0.1)), float(skw.get("end_frac", 0.9))
 
 
 class SweepResult(NamedTuple):
@@ -233,6 +303,7 @@ class SweepResult(NamedTuple):
         spec = {**{k: (list(v) if isinstance(v, tuple) else v) for k, v in UNPORTED.items()},
                 **self.spec._asdict()}
         spec["scenario_kw"] = [list(kv) for kv in self.spec.scenario_kw]
+        spec["stream"] = [list(kv) for kv in self.spec.stream]
         for key in ("policies", "rates", "metrics"):
             spec[key] = list(spec[key])
         return {
@@ -281,6 +352,29 @@ def _policy_cells(spec: Sweep, name: str, x0, arr, p_drift) -> OnlineSimResult:
     return _finalize(x0, arr, res.completion_times, spec.p, n_alone)
 
 
+def _stream_cells(spec: Sweep, name: str, x0, arr) -> engine.StreamResult:
+    """Every cell of one policy column through the bounded-slot loop, each
+    rate's window ``(warmup_frac, end_frac) x n_jobs / rate``."""
+    skw = dict(spec.stream)
+    n_slots = int(skw["n_slots"])
+    warm, end = _stream_window(skw)
+    span = spec.n_jobs / torch.tensor(spec.rates, dtype=x0.dtype, device=x0.device)[:, None]
+    window = (warm * span, end * span)  # [R, 1]: over the cells' [R, S]
+    rank_pol = make_rank_policy(name) if spec.n_chips is None and not spec.fused else None
+    if rank_pol is not None:
+        return engine.run_stream_ranked(
+            x0, arr, spec.p, spec.n_servers, rank_pol, n_slots=n_slots, window=window,
+            n_alone=spec.n_servers,
+        )
+    pol = make_policy(
+        name, n_servers=spec.n_chips if spec.n_chips is not None else spec.n_servers
+    )
+    return simulate_stream(
+        Scenario(x0, arr), spec.p, spec.n_servers, pol, n_slots=n_slots, window=window,
+        n_chips=spec.n_chips, min_chips=spec.min_chips, fused=spec.fused, device=x0.device,
+    )
+
+
 def draw_scenario(spec: Sweep, *, seeds=None, device="cuda") -> Scenario:
     """The sweep's tapes ``[R, S, M]`` for ``seeds`` (default all; a seed
     chunk draws the same tapes): one generator per seed, its draw shared
@@ -307,7 +401,8 @@ def simulate_cells(spec: Sweep, x0, arr, *, p_drift=None, device="cuda") -> dict
     """Run every policy of ``spec`` on given tapes ``x0``/``arr`` ``[R, S, M]``
     (and the drift scenario's ``engine.PDrift``, times ``[R, S, D]``).
 
-    Returns ``{policy: {metric: ndarray [R, S]}}`` — the executor
+    Returns ``{policy: {metric: ndarray [R, S]}}`` (float64, counts of a
+    stream sweep included, as in the JAX sweep) — the executor
     :func:`run_sweep` uses, open to tapes drawn elsewhere (e.g. by the JAX
     sampler, for parity).
     """
@@ -318,8 +413,14 @@ def simulate_cells(spec: Sweep, x0, arr, *, p_drift=None, device="cuda") -> dict
         p_drift = PDrift(as_tensor(p_drift.times, dev), as_tensor(p_drift.values, dev))
     stats = {}
     for name in spec.policies:
-        res = _policy_cells(spec, name, x0, arr, p_drift)
-        stats[name] = {m: getattr(res, m).cpu().numpy() for m in spec.metrics}
+        if spec.stream:
+            res = _stream_cells(spec, name, x0, arr)
+            fields = {m: STREAM_METRICS[m] for m in spec.metrics}
+        else:
+            res = _policy_cells(spec, name, x0, arr, p_drift)
+            fields = {m: m for m in spec.metrics}
+        stats[name] = {m: getattr(res, f).to(torch.float64).cpu().numpy()
+                       for m, f in fields.items()}
     return stats
 
 
@@ -405,6 +506,8 @@ __all__ = [
     "RUN_LOG",
     "RUN_LOG_MAX",
     "SCALAR_METRICS",
+    "STREAM_KEYS",
+    "STREAM_METRICS",
     "Sweep",
     "SweepResult",
     "bench_records",

@@ -16,13 +16,19 @@ drift settings of ``benchmarks/estimation.py`` (p 0.8 -> 0.3 at half the
 stream's nominal span): quantized, quantized-fused (the kernel takes each
 cell's current p from device memory, ``2M + 1`` launches) and continuous
 heSRPT, which under drift takes the generic loop.
+
+The stream lanes (:func:`stream_lane_specs`) run the same three lanes
+through the bounded-slot loop (``Sweep(stream=)``) over a pool of 64 slots
+a cell, reading every stream metric: the fused lane launches the kernel
+once an event step at ``[192, 64]``; the continuous lane takes the
+carried-rank stream.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.core.sweeps import Sweep, SweepResult, run_sweep
+from repro_torch.core.sweeps import STREAM_METRICS, Sweep, SweepResult, run_sweep
 
 RATES_FULL = tuple(float(r) for r in np.geomspace(0.25, 16.0, 24).round(4))
 RATES_SMOKE = (0.5, 1.0, 2.0, 4.0, 8.0)
@@ -31,6 +37,10 @@ LABELS = ("quantized", "quantized-fused", "continuous")
 #: ``benchmarks/estimation.py``'s drift: p0 -> p1 at drift_frac x n_jobs / rate.
 DRIFT_KW = {"p0": 0.8, "p1": 0.3, "drift_frac": 0.5}
 DRIFT_LABELS = tuple(f"drift-{label}" for label in LABELS)
+#: The stream lanes' slot pool (``benchmarks/streaming.py``'s load ladder),
+#: and the smoke size's (that file's ``--smoke``: 120 jobs, 16 slots).
+STREAM_SLOTS, STREAM_SLOTS_SMOKE, STREAM_JOBS_SMOKE = 64, 16, 120
+STREAM_LABELS = tuple(f"stream-{label}" for label in LABELS)
 
 
 def lane_specs(smoke: bool = False) -> list[tuple[str, Sweep]]:
@@ -62,6 +72,20 @@ def drift_lane_specs(
         ))
         for label, spec in lane_specs(smoke=smoke)
     ]
+
+
+def stream_lane_specs(smoke: bool = False) -> list[tuple[str, Sweep]]:
+    """The canonical lanes through the bounded-slot loop, every stream
+    metric, as ``(label, Sweep)`` pairs: :data:`STREAM_SLOTS` slots at full
+    size; at smoke size 120 jobs through 16 slots."""
+    n_slots = STREAM_SLOTS_SMOKE if smoke else STREAM_SLOTS
+    out = []
+    for label, spec in lane_specs(smoke=smoke):
+        if smoke:
+            spec = spec._replace(n_jobs=STREAM_JOBS_SMOKE)
+        out.append((f"stream-{label}", spec._replace(
+            stream=(("n_slots", n_slots),), metrics=tuple(STREAM_METRICS))))
+    return out
 
 
 def run_lanes(smoke: bool = False, *, device="cuda"):
@@ -102,7 +126,7 @@ def lane_records(lanes: list[tuple[str, SweepResult]]) -> list[dict]:
 
 def fused_equals_unfused(lanes, prefix: str = "") -> bool:
     """The fused and unfused quantized lanes (labels after ``prefix``, e.g.
-    ``"drift-"``) agree bit for bit."""
+    ``"drift-"`` or ``"stream-"``) agree bit for bit in every metric."""
     by_label = dict(lanes)
     q, qf = by_label[f"{prefix}quantized"], by_label[f"{prefix}quantized-fused"]
     return all(

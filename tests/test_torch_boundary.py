@@ -57,7 +57,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
 
 def _entry_points():
     from repro_torch import figures, lanes
-    from repro_torch.core import arrivals, flowtime, scenarios, simulator, sweeps
+    from repro_torch.core import arrivals, engine, flowtime, scenarios, simulator, sweeps
     from repro_torch.configs import smoke_config
     from repro_torch.core.policies import hesrpt
     from repro_torch.launch import serve
@@ -65,9 +65,16 @@ def _entry_points():
     from repro_torch.models.model import build_model
 
     spec = sweeps.Sweep.create(("hesrpt",), (1.0,), n_jobs=4, n_seeds=1)
+    stream_spec = sweeps.Sweep.create(("hesrpt",), (1.0,), n_jobs=4, n_seeds=1,
+                                      stream={"n_slots": 2})
     x, a = [2.0, 1.0], [0.0, 0.5]
     return {
         "run_sweep": lambda: sweeps.run_sweep(spec),
+        "run_sweep_stream": lambda: sweeps.run_sweep(stream_spec),
+        "simulate_stream": lambda: arrivals.simulate_stream(
+            scenarios.Scenario(torch.tensor(x), torch.tensor(a)), 0.5, 4.0, hesrpt, n_slots=2
+        ),
+        "poisson_source": lambda: engine.poisson_source(torch.Generator(), 1.0),
         "simulate_cells": lambda: sweeps.simulate_cells(spec, [[x]], [[a]]),
         "run_lanes": lambda: lanes.run_lanes(smoke=True),
         "simulate_online": lambda: arrivals.simulate_online(x, a, 0.5, 4.0, hesrpt),

@@ -183,6 +183,48 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
         alloc.hesrpt_alloc_fused(x, torch.full((2, 1), 0.5, device=cuda_device), 16)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("m", [1, 12, 24, 64, 256])
+def test_kernel_at_slot_pool_widths_equals_plain_version(cuda_device, dtype, m):
+    """The streaming loop's rows: a pool of 1-256 slots, padded to at least
+    32, with half to nearly all slots free (exactly 0) and rows with every
+    slot free, bit for bit."""
+    rng = np.random.default_rng(25)
+    for zero_frac in (0.5, 0.9, 1.0):
+        x = torch.tensor(_sizes(rng, (48, m), zero_frac), device=cuda_device).to(dtype)
+        for n_chips, min_chips in ((0, 1), (256, 1), (16, 2)):
+            for p in PS:
+                theta, chips = alloc.hesrpt_alloc_fused(x, p, n_chips, min_chips=min_chips)
+                theta0, chips0 = alloc.hesrpt_alloc_fused_ref(x, p, n_chips, min_chips=min_chips)
+                assert torch.equal(theta, theta0), (zero_frac, n_chips, p)
+                assert torch.equal(chips, chips0), (zero_frac, n_chips, p)
+
+
+@pytest.mark.cuda
+def test_fused_stream_on_card_equals_unfused_and_refuses_wide_pools(cuda_device):
+    """run_stream(fused=True) over 4 recycled slots: one launch an event
+    step, every StreamResult field equal to the unfused loop's; a pool wider
+    than MAX_JOBS is refused under fused=True, as on the finite-tape path."""
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.pareto(1.5, (6, 50)) + 0.5, device=cuda_device)
+    arr = torch.tensor(np.cumsum(rng.exponential(0.25, (6, 50)), -1), device=cuda_device)
+    rule = engine.quantized_rule(policies.hesrpt, 32)
+    window = (arr[:, 5], arr[:, 45])
+    before = alloc.LAUNCHES
+    fused = engine.run_stream(x, arr, 0.5, rule, n_slots=4, window=window, record_times=True,
+                              fused=True)
+    assert alloc.LAUNCHES == before + 2 * 50
+    unfused = engine.run_stream(x, arr, 0.5, rule, n_slots=4, window=window,
+                                record_times=True)
+    for field, value in zip(fused._fields, fused):
+        if value is not None:
+            assert torch.equal(value, getattr(unfused, field)), field
+    assert int(fused.blocked_steps.sum()) > 0
+    with pytest.raises(ValueError, match="at most"):
+        engine.run_stream(x, arr, 0.5, rule, n_slots=alloc.MAX_JOBS + 1, fused=True)
+
+
 # ------------------------------------------------------------ flash attention
 FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
              torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
