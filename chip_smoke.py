@@ -188,7 +188,31 @@ raises, and the exit code is not 0):
     counts equal; (g) the kernel at the pool's widths (M = 1, 12, 24, 64,
     256; rows half, 90% and all free) bit for bit with its plain version,
     f64 and f32, and its time at [192, 64] f64 beside the plain version and
-    the bound.
+    the bound;
+26. in-loop telemetry and single-class online estimation: (a) the fused
+    lane's tapes through ``run_sweep`` with and without a stream probe of
+    ``telemetry.DEFAULT_METRICS`` (``alloc_unit`` 256): the alloc count is
+    zeroed just before the probed run and read just after, 2M = 2000
+    launches, mean flows equal, and through ``engine.run`` the chips of all
+    2000 event steps and the completion times bit for bit, and the probe's
+    aggregates (histograms included) bit for bit the unfused lane's; the fused stream
+    lane under each rate's windowed probe, 2000 launches at [192, 64],
+    every stream metric bit for bit; both walls of each; (b) one
+    full-width row: the stream aggregates within 1e-9 of
+    ``analysis.time_weighted_stats`` of the series (``benchmarks/
+    telemetry.py``'s bar), histogram mass == span; (c) that file's online
+    half at its full size (heSRPT and EQUI, rates 0.5, 2, 8, 500 jobs x 20
+    seeds, ``telemetry=True``): its table and wall; (d) ``benchmarks/
+    estimation.py``'s sweep at its full size (oracle, stale, estimator x
+    the same grid, ``drift_poisson`` and ``drift_bursty``): estimator <=
+    stale x 1.02 at every load and scenario, the forgetting rows, and the
+    estimator arm of ``benchmarks/telemetry.py`` with ``p_hat_err``
+    (``estimation.cross_check`` needs ``sched/``, not ported); (e) smoke
+    telemetry and estimator sweeps on the same tapes, CPU against card,
+    every column within 1e-12 relative, the smoke fused lane's histograms
+    within 1e-12; (f) ``trace_export.export_sample(n_chips=16)`` on the
+    card (heSRPT through the fused allocate) passes
+    ``validate_trace_events`` (24 alloc launches).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -430,14 +454,16 @@ def phase_cpu_vs_cuda(lanes, sweeps, engine, policies, device):
 
     worst = 0.0
     for label, spec in lanes.lane_specs(smoke=True):
-        x0, arr, _ = sweeps.draw_scenario(spec, device="cpu")
+        scn = sweeps.draw_scenario(spec, device="cpu")
+        x0, arr = scn.x0, scn.arrival_times
         cpu = sweeps.simulate_cells(spec, x0, arr, device="cpu")["hesrpt"]["mean_flowtime"]
         gpu = sweeps.simulate_cells(spec, x0, arr, device=device)["hesrpt"]["mean_flowtime"]
         rel = float(np.max(np.abs(gpu - cpu) / np.abs(cpu)))
         assert rel <= 1e-12, f"{label}: CPU vs CUDA mean flow differ by {rel} relative"
         worst = max(worst, rel)
     spec = dict(lanes.lane_specs(smoke=True))["quantized-fused"]
-    x0, arr, _ = sweeps.draw_scenario(spec, device="cpu")
+    scn = sweeps.draw_scenario(spec, device="cpu")
+    x0, arr = scn.x0, scn.arrival_times
     x0, arr = x0.reshape(-1, spec.n_jobs), arr.reshape(-1, spec.n_jobs)
     rule = engine.quantized_rule(policies.hesrpt, spec.n_chips)
     cpu = engine.run(x0, arr, spec.p, rule, record=True, fused=True)
@@ -1408,7 +1434,8 @@ def phase_superstep(lanes, sweeps, superstep, flowtime, simulator, policies, car
     names = ("hesrpt", "equi", "srpt")
     ranked = dict(lanes.lane_specs())["continuous"]._replace(policies=names)
     fast = ranked._replace(superstep=True)
-    x0, arr, _ = sweeps.draw_scenario(ranked, device=device)
+    scn = sweeps.draw_scenario(ranked, device=device)
+    x0, arr = scn.x0, scn.arrival_times
     walls, stats = {}, {}
     for label, spec in (("ranked", ranked), ("superstep", fast), ("superstep_2", fast),
                         ("ranked_2", ranked)):
@@ -1558,7 +1585,8 @@ def phase_snap_chunk_timing(alloc, lanes, sweeps, engine, policies, fused_drift,
     import torch
 
     spec = dict(lanes.lane_specs())["quantized-fused"]
-    x0, arr, _ = sweeps.draw_scenario(spec, device=device)
+    scn = sweeps.draw_scenario(spec, device=device)
+    x0, arr = scn.x0, scn.arrival_times
     x0, arr = x0.reshape(-1, spec.n_jobs), arr.reshape(-1, spec.n_jobs)
     rule = engine.quantized_rule(policies.hesrpt, spec.n_chips, snap_slices=True)
     runs, walls = {}, {}
@@ -1671,7 +1699,8 @@ def phase_stream(alloc, lanes, sweeps, engine, scenarios, policies, card, device
     # (a) Reduction: a pool as wide as the tape never recycles.
     spec = dict(lanes.lane_specs())["quantized-fused"]
     M = spec.n_jobs
-    x0, arr, _ = sweeps.draw_scenario(spec, device=device)
+    scn = sweeps.draw_scenario(spec, device=device)
+    x0, arr = scn.x0, scn.arrival_times
     x0, arr = x0.reshape(-1, M), arr.reshape(-1, M)
     base = engine.quantized_rule(policies.hesrpt, spec.n_chips)
     chips_run = []
@@ -1779,7 +1808,8 @@ def phase_stream(alloc, lanes, sweeps, engine, scenarios, policies, card, device
     # (f) The smoke stream lanes on the same tapes, CPU against card.
     cpu_gap = 0.0
     for label, sspec in lanes.stream_lane_specs(smoke=True):
-        sx, sa, _ = sweeps.draw_scenario(sspec, device="cpu")
+        scn = sweeps.draw_scenario(sspec, device="cpu")
+        sx, sa = scn.x0, scn.arrival_times
         cpu = sweeps.simulate_cells(sspec, sx, sa, device="cpu")["hesrpt"]
         gpu = sweeps.simulate_cells(sspec, sx, sa, device=device)["hesrpt"]
         for m in sspec.metrics:
@@ -1869,6 +1899,237 @@ def phase_stream(alloc, lanes, sweeps, engine, scenarios, policies, card, device
             "lanes": lanes.lane_records(list(results.items()))}
 
 
+# Phase 26's sizes: benchmarks/telemetry.py's and benchmarks/estimation.py's
+# full tier (their main(): 500 jobs x 20 seeds at rates 0.5, 2 and 8; the
+# forgetting rows at half of each), not cut.
+TEL_RATES, TEL_JOBS, TEL_SEEDS = (0.5, 2.0, 8.0), 500, 20
+EST_ARMS, EST_SCENARIOS = ("oracle", "stale", "estimator"), ("drift_poisson", "drift_bursty")
+
+
+def _sweep_gap(cpu: dict, gpu: dict) -> float:
+    """Largest relative CPU-vs-card gap over every column of two
+    ``simulate_cells`` results (a 0 against a 0 is no gap)."""
+    import numpy as np
+
+    worst = 0.0
+    for name, cols in cpu.items():
+        for col, want in cols.items():
+            got = gpu[name][col]
+            den = np.where(want == 0, 1.0, np.abs(want))
+            worst = max(worst, float(np.max(np.abs(got - want) / den)))
+    return worst
+
+
+def phase_telemetry(alloc, lanes, sweeps, engine, policies, telemetry, analysis, trace_export,
+                    card, device) -> dict:
+    """Phase 26: in-loop telemetry and single-class online estimation."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    # (a) Neutrality on the fused lane, through the sweep (the main path)
+    # and event by event through engine.run.
+    spec = dict(lanes.lane_specs())["quantized-fused"]
+    M, n_chips = spec.n_jobs, spec.n_chips
+    probed_spec = spec._replace(telemetry=telemetry.DEFAULT_METRICS)
+    plain_res = sweeps.run_sweep(spec, device=device)
+    torch.cuda.synchronize()
+    alloc.LAUNCHES = 0
+    probed_res = sweeps.run_sweep(probed_spec, device=device)
+    torch.cuda.synchronize()
+    launches = {"fused_probe": alloc.LAUNCHES}
+    assert launches["fused_probe"] == 2 * M, launches
+    assert np.array_equal(plain_res.stats["hesrpt"]["mean_flowtime"],
+                          probed_res.stats["hesrpt"]["mean_flowtime"]), "a probe moved the lane"
+    for col in telemetry.scalar_columns(telemetry.DEFAULT_METRICS):
+        assert np.all(np.isfinite(probed_res.stats["hesrpt"][col])), col
+    scn = sweeps.draw_scenario(spec, device=device)
+    x0, arr = scn.x0.reshape(-1, M), scn.arrival_times.reshape(-1, M)
+    base = engine.quantized_rule(policies.hesrpt, n_chips)
+    chips_run = []
+    ref = engine.run(x0, arr, spec.p, _recording_rule(base, chips_run.append), fused=True)
+    step, mismatch = [0], torch.zeros((), dtype=torch.int64, device=device)
+
+    def compare(chips):
+        mismatch.add_((chips != chips_run[step[0]]).sum())
+        step[0] += 1
+
+    probe = telemetry.make_probe(telemetry.DEFAULT_METRICS, alloc_unit=n_chips, n_jobs=M)
+    got = engine.run(x0, arr, spec.p, _recording_rule(base, compare), fused=True,
+                     telemetry=probe)
+    assert step[0] == len(chips_run) == 2 * M, (step[0], len(chips_run))
+    assert int(mismatch) == 0, f"a probe changed the chips at {int(mismatch)} entries"
+    assert torch.equal(got.completion_times, ref.completion_times), "a probe moved the flows"
+    # Within the card the probe is deterministic (one bin a row an event):
+    # the unfused lane's read-out equals the fused lane's bit for bit.
+    unfused = engine.run(x0, arr, spec.p, base, telemetry=probe).telemetry
+    for k, v in got.telemetry.aggregates.items():
+        assert torch.equal(v, unfused.aggregates[k]), f"probe {k}: fused != unfused"
+    del chips_run, ref, got, unfused
+    torch.cuda.empty_cache()
+    # The fused stream lane under its windowed probe (each rate's window).
+    sspec = dict(lanes.stream_lane_specs())["stream-quantized-fused"]
+    slots = dict(sspec.stream)["n_slots"]
+    stream_plain = sweeps.run_sweep(sspec, device=device)
+    torch.cuda.synchronize()
+    alloc.LAUNCHES = 0
+    stream_probed = sweeps.run_sweep(sspec._replace(telemetry=telemetry.DEFAULT_METRICS),
+                                     device=device)
+    torch.cuda.synchronize()
+    launches["stream_fused_probe"] = alloc.LAUNCHES
+    assert launches["stream_fused_probe"] == 2 * sspec.n_jobs, launches
+    for m in sspec.metrics:
+        assert np.array_equal(stream_plain.stats["hesrpt"][m], stream_probed.stats["hesrpt"][m]), \
+            f"a probe moved the stream lane's {m}"
+    walls = {"fused": plain_res.wall_s, "fused_probe": probed_res.wall_s,
+             "stream_fused": stream_plain.wall_s, "stream_fused_probe": stream_probed.wall_s}
+
+    # (b) One full-width row: the stream aggregates against the series.
+    row = (x0[:1], arr[:1])
+    tel = {mode: engine.run(*row, spec.p, base, fused=True, telemetry=telemetry.make_probe(
+        telemetry.DEFAULT_METRICS, mode=mode, alloc_unit=n_chips, n_jobs=M)).telemetry
+        for mode in ("series", "stream")}
+    series = {k: v[0].cpu().numpy() for k, v in tel["series"].series.items()}
+    agg = {k: v[0].cpu().numpy() for k, v in tel["stream"].aggregates.items()}
+    series_gap = 0.0
+    for m in telemetry.DEFAULT_METRICS:
+        want = analysis.time_weighted_stats(series[m], series["dt"])
+        series_gap = max(series_gap, abs(float(agg[f"{m}_mean"]) - want["mean"]),
+                         abs(float(agg[f"{m}_max"]) - want["max"]))
+        mass = float(agg[f"{m}_hist"].sum())
+        assert abs(mass - float(agg["time"])) <= 1e-12 * float(agg["time"]), (m, mass)
+    assert series_gap <= 1e-9, f"stream vs series {series_gap}"
+
+    # (c) The online half of benchmarks/telemetry.py at its full size.
+    online = sweeps.run_sweep(sweeps.Sweep.create(
+        ("hesrpt", "equi"), TEL_RATES, scenario="poisson", n_jobs=TEL_JOBS, n_seeds=TEL_SEEDS,
+        p=0.5, telemetry=True), device=device)
+    cols = ("tel_efficiency_mean", "tel_utilization_mean", "tel_queue_mean", "tel_queue_max",
+            "tel_entropy_mean")
+    table = {name: {rate: {c: float(np.mean(online.stats[name][c][r])) for c in cols}
+                    for r, rate in enumerate(TEL_RATES)} for name in ("hesrpt", "equi")}
+
+    # (d) benchmarks/estimation.py's sweep, its forgetting rows and the
+    # estimator arm of benchmarks/telemetry.py, full size.
+    def arm_sweep(arm, scenario, rates, n_jobs, n_seeds, discount=0.9):
+        return sweeps.run_sweep(sweeps.Sweep.create(
+            ("hesrpt",), rates, scenario=scenario,
+            scenario_kw={"p0": 0.8, "p1": 0.3, "drift_frac": 0.5}, n_jobs=n_jobs,
+            n_seeds=n_seeds, seed=0, p=0.8, n_servers=256.0, arm=arm,
+            arm_kw={"discount": discount, "prior_weight": 1.0}), device=device)
+
+    t_est = time.perf_counter()
+    est_tables, ok_order = {}, True
+    for scenario in EST_SCENARIOS:
+        est_tables[scenario] = {
+            arm: arm_sweep(arm, scenario, TEL_RATES, TEL_JOBS, TEL_SEEDS).cell_means()
+            for arm in EST_ARMS}
+        for rate in TEL_RATES:
+            ok_order &= (est_tables[scenario]["estimator"][rate]["hesrpt"]
+                         <= est_tables[scenario]["stale"][rate]["hesrpt"] * 1.02)
+    est_s = time.perf_counter() - t_est
+    assert ok_order, f"estimator arm lost to stale-p: {est_tables}"
+    forgetting = {f"discount={d}": arm_sweep("estimator", "drift_poisson", TEL_RATES,
+                                             TEL_JOBS // 2, TEL_SEEDS // 2, d).cell_means()
+                  for d in (1.0, 0.9)}
+    tel_est = sweeps.run_sweep(sweeps.Sweep.create(
+        ("hesrpt",), (2.0,), scenario="drift_poisson", scenario_kw={"p0": 0.7, "p1": 0.3},
+        n_jobs=TEL_JOBS, n_seeds=TEL_SEEDS, seed=0, arm="estimator",
+        telemetry=("efficiency", "utilization", "queue", "p_hat_err")), device=device)
+    err = tel_est.stats["hesrpt"]
+    p_hat_err = {"mean": float(np.mean(err["tel_p_hat_err_mean"])),
+                 "max": float(np.max(err["tel_p_hat_err_max"]))}
+    assert 0.0 < p_hat_err["mean"] < 1.0 and p_hat_err["max"] <= 1.0, p_hat_err
+
+    # (e) The smoke telemetry and estimator sweeps on the same tapes, CPU
+    # against card, and the smoke fused lane's histograms.
+    smoke = [
+        sweeps.Sweep.create(("hesrpt", "equi"), TEL_RATES, n_jobs=60, n_seeds=6, telemetry=True),
+        sweeps.Sweep.create(("hesrpt",), TEL_RATES, n_jobs=60, n_seeds=6, n_chips=64,
+                            fused=True, telemetry=True),
+        sweeps.Sweep.create(("hesrpt",), (2.0,), scenario="drift_poisson",
+                            scenario_kw={"p0": 0.7, "p1": 0.3}, n_jobs=60, n_seeds=6,
+                            arm="estimator",
+                            telemetry=("efficiency", "utilization", "queue", "p_hat_err")),
+    ] + [sweeps.Sweep.create(("hesrpt",), TEL_RATES, scenario="drift_bursty",
+                             scenario_kw={"p0": 0.8, "p1": 0.3}, n_jobs=60, n_seeds=4, p=0.8,
+                             arm=arm, arm_kw={"discount": 0.9}) for arm in EST_ARMS]
+    cpu_gap = 0.0
+    for sm in smoke:
+        s_scn = sweeps.draw_scenario(sm, device="cpu")
+        kw = dict(p_drift=s_scn.p_drift)
+        cpu_gap = max(cpu_gap, _sweep_gap(
+            sweeps.simulate_cells(sm, s_scn.x0, s_scn.arrival_times, device="cpu", **kw),
+            sweeps.simulate_cells(sm, s_scn.x0, s_scn.arrival_times, device=device, **kw)))
+    assert cpu_gap <= 1e-12, f"telemetry / estimator sweeps CPU vs card {cpu_gap}"
+    lspec = dict(lanes.lane_specs(smoke=True))["quantized-fused"]
+    l_scn = sweeps.draw_scenario(lspec, device="cpu")
+    lx, la = l_scn.x0.reshape(-1, lspec.n_jobs), l_scn.arrival_times.reshape(-1, lspec.n_jobs)
+    lprobe = telemetry.make_probe(telemetry.DEFAULT_METRICS, alloc_unit=lspec.n_chips,
+                                  n_jobs=lspec.n_jobs)
+    lrule = engine.quantized_rule(policies.hesrpt, lspec.n_chips)
+    h_cpu = engine.run(lx, la, lspec.p, lrule, fused=True, telemetry=lprobe).telemetry
+    h_gpu = engine.run(lx.to(device), la.to(device), lspec.p, lrule, fused=True,
+                       telemetry=lprobe).telemetry
+    hist_gap = max(float((h_gpu.aggregates[f"{m}_hist"].cpu() - h_cpu.aggregates[f"{m}_hist"])
+                         .abs().max()) for m in telemetry.DEFAULT_METRICS)
+    assert hist_gap <= 1e-12, f"histograms CPU vs card {hist_gap}"
+
+    # (f) The Perfetto export on the card, through the fused allocate.
+    alloc.LAUNCHES = 0
+    events = trace_export.export_sample(device=device, n_chips=16)
+    launches["export_sample"] = alloc.LAUNCHES
+    trace_export.validate_trace_events(events)
+    assert launches["export_sample"] == 2 * 12, launches
+    assert {"X", "i", "C", "M"} <= {e["ph"] for e in events}
+    phase_s = time.perf_counter() - t_phase
+
+    print(f"phase 26: fused lane ({x0.shape[0]} cells x {M} jobs, {n_chips} chips) on {card} "
+          f"with a {len(telemetry.DEFAULT_METRICS)}-metric stream probe: "
+          f"{launches['fused_probe']} launches (2M = {2 * M}), mean flows and the chips at all "
+          f"{2 * M} event steps bit for bit the probe-free run's, every aggregate (histograms "
+          f"included) bit for bit the unfused lane's; walls: no probe "
+          f"{walls['fused']:.3f} s, probe {walls['fused_probe']:.3f} s", flush=True)
+    print(f"phase 26: fused stream lane ({slots} slots) under each rate's windowed probe: "
+          f"{launches['stream_fused_probe']} launches at [{x0.shape[0]}, {slots}], every stream "
+          f"metric bit for bit; walls: no probe {walls['stream_fused']:.3f} s, probe "
+          f"{walls['stream_fused_probe']:.3f} s", flush=True)
+    print(f"phase 26: one full-width row ({M} jobs): stream aggregates vs time_weighted_stats "
+          f"of the series {series_gap:.2e} (<= 1e-9), histogram mass == span", flush=True)
+    print(f"phase 26: benchmarks/telemetry.py online half ({TEL_JOBS} jobs x {TEL_SEEDS} seeds x "
+          f"{len(TEL_RATES)} loads) wall {online.wall_s:.3f} s", flush=True)
+    print(f"phase 26: {'policy':>8s} {'rate':>6s} " + " ".join(f"{c[4:]:>16s}" for c in cols),
+          flush=True)
+    for name, by_rate in table.items():
+        for rate, vals in by_rate.items():
+            print(f"phase 26: {name:>8s} {rate:6.1f} "
+                  + " ".join(f"{vals[c]:16.4f}" for c in cols), flush=True)
+    for scenario, res in est_tables.items():
+        print(f"phase 26: benchmarks/estimation.py {scenario} (mean flow time; {TEL_JOBS} jobs x "
+              f"{TEL_SEEDS} seeds) " + "; ".join(
+                  f"rate {r}: " + ", ".join(f"{a} {res[a][r]['hesrpt']:.4f}" for a in EST_ARMS)
+                  for r in TEL_RATES), flush=True)
+    print(f"phase 26: estimator <= stale x 1.02 at every load and scenario: {ok_order}; the "
+          f"six arm sweeps {est_s:.3f} s", flush=True)
+    for label, res in forgetting.items():
+        print(f"phase 26: forgetting {label:>14s} "
+              + " ".join(f"{v['hesrpt']:10.4f}" for v in res.values()), flush=True)
+    print(f"phase 26: estimator arm (drift 0.7 -> 0.3) time-weighted |p_hat - p| mean "
+          f"{p_hat_err['mean']:.4f}, max {p_hat_err['max']:.4f}, wall {tel_est.wall_s:.3f} s",
+          flush=True)
+    print(f"phase 26: smoke telemetry and estimator sweeps CPU vs card {cpu_gap:.2e} relative, "
+          f"histograms {hist_gap:.2e}; export_sample(n_chips=16) {len(events)} valid "
+          f"events, {launches['export_sample']} launches; phase 26 took {phase_s:.1f} s",
+          flush=True)
+    return {"launches": launches, "walls_s": walls, "series_vs_stream_max_abs": series_gap,
+            "online_wall_s": online.wall_s, "online_table": table,
+            "estimation": est_tables, "estimation_wall_s": est_s,
+            "estimator_not_worse_than_stale": ok_order, "forgetting": forgetting,
+            "p_hat_err": p_hat_err, "estimator_telemetry_wall_s": tel_est.wall_s,
+            "cpu_vs_cuda_max_rel": cpu_gap, "hist_cpu_vs_cuda_max_abs": hist_gap,
+            "export_events": len(events), "phase_s": phase_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -1887,8 +2148,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import figures, lanes
     from repro_torch.core import (
-        engine, flowtime, policies, scenarios, simulator, superstep, sweeps,
+        analysis, engine, flowtime, policies, scenarios, simulator, superstep, sweeps, telemetry,
     )
+    from repro_torch.launch import trace_export
     from repro_torch.kernels import alloc, chunked, flash_attention, ops, ref, rglru_scan, ssd_scan
 
     # Float32 products in full float32 (these are PyTorch's defaults, stated).
@@ -1946,6 +2208,8 @@ def main() -> int:
     snap = phase_snap_chunk_timing(alloc, lanes, sweeps, engine, policies,
                                    drift.pop("fused_result"), card, device)
     stream = phase_stream(alloc, lanes, sweeps, engine, scenarios, policies, card, device)
+    tel = phase_telemetry(alloc, lanes, sweeps, engine, policies, telemetry, analysis,
+                          trace_export, card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -1966,6 +2230,8 @@ def main() -> int:
         "bound_ms_stream": stream["bound_ms"],
         "shape_stream": stream["shape"],
         "pool_width_cases": stream["pool_cases"],
+        "launches_probe": tel["launches"]["fused_probe"],
+        "launches_stream_probe": tel["launches"]["stream_fused_probe"],
         "ms_fig4": fig["alloc_ms"],
         "plain_ms_fig4": fig["alloc_plain_ms"],
         "bound_ms_fig4": fig["alloc_bound_ms"],
@@ -2063,6 +2329,7 @@ def main() -> int:
         "drift": drift,
         "snap_chunk_timing": snap,
         "stream": stream,
+        "telemetry": tel,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -1,14 +1,25 @@
-"""heSRPT scheduling and the dense decoder in PyTorch, with CUDA kernels.
+"""heSRPT scheduling and the model stack in PyTorch, with CUDA kernels.
 
-The PyTorch/CUDA port of the JAX package ``repro``, two paths so far:
+The PyTorch/CUDA port of the JAX package ``repro``.  Its paths so far:
 
 - the heSRPT sweep path (scenario tape -> Thm-3 event loop -> Thm-7 shares
   -> whole chips -> mean flow time) over a leading ``[cells, M]`` batch,
   in float64: ``core/``, ``lanes.py``, the fused allocate ``kernels/alloc.py``;
-- serving the dense decoder family (batched prefill, greedy decode over KV
-  caches): ``configs/``, ``models/``, ``train/serve_step.py``,
-  ``launch/serve.py``, with attention prefill as the flash kernel
-  ``kernels/flash_attention.py``.
+- the paper's figures, Fig 3's trace and Fig 4's policy comparison
+  (``figures.py``, ``core/policies.py``);
+- the closed-form arrival superstep (``core/superstep.py``);
+- a drifting speedup exponent and slice snapping (``engine.run(p_drift=)``,
+  ``engine.snap_to_slices``);
+- the bounded-slot streaming loop (``engine.run_stream``,
+  ``run_stream_source``, ``Sweep(stream=)``);
+- in-loop telemetry and single-class online estimation: probes and the
+  ``tel_*`` sweep columns (``core/telemetry.py``), the Perfetto export
+  (``launch/trace_export.py``), the estimating rule, estimation noise and
+  the estimation arms (``core/estimation.py``, ``Sweep(arm=)``);
+- serving the dense, ssm and hybrid families (batched prefill, greedy
+  decode over KV, conv and state caches): ``configs/``, ``models/``,
+  ``train/serve_step.py``, ``launch/serve.py``, with the flash, SSD and
+  RG-LRU kernels (``kernels/``).
 
 Layout mirrors ``src/repro/``.  Every entry point takes ``device=`` and
 defaults to ``"cuda"``; without a card it raises instead of falling back

@@ -2,8 +2,9 @@
 
 Port of ``repro.core.analysis``'s single-class part: ``system_efficiency``,
 ``scale_free_constants`` (Thm 4's omega per epoch), ``summarize``,
-``time_weighted_stats`` and ``seed_axis_stats``.  The per-class
-aggregates wait for the multi-class runs (ROADMAP.md Queue A, item 6).
+``time_weighted_stats`` (the host-side reduction the telemetry probes'
+stream aggregates are held to) and ``seed_axis_stats``.  The per-class
+aggregates wait for the multi-class runs (ROADMAP.md Queue A, item 6b).
 """
 
 from __future__ import annotations

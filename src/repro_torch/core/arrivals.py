@@ -1,8 +1,9 @@
 """Online (arrival-stream) simulation — thin wrappers over ``core/engine.py``.
 
-Port of the noise-free part of ``repro.core.arrivals`` (the generic, the
+Port of the single-class part of ``repro.core.arrivals`` (the generic, the
 carried-rank, the superstep and the whole-chips paths, each under a
-drifting ``p`` where the engine takes one): each wrapper takes ``[..., M]``
+drifting ``p`` where the engine takes one; :func:`simulate_scenario` with
+estimation noise and a telemetry probe): each wrapper takes ``[..., M]``
 tapes (array-likes or tensors, moved to ``device``), runs the engine over
 every cell at once and reduces completion times to per-job flow times and
 slowdowns (:class:`OnlineSimResult`, per-cell scalars over the leading
@@ -122,25 +123,52 @@ def simulate_online_quantized(
     return (out, res) if record else out
 
 
+def _noise_rows(scn: Scenario, x0, arr):
+    """The scenario's estimation noise in the loop's form: size factors
+    ``[C, M]`` in each row's arrival-sorted order (the order ``engine.run``
+    walks), ``p_hat`` a float or a ``[C, 1]`` column."""
+    M = x0.shape[-1]
+    factors = scn.size_factors
+    if factors is not None:
+        order = torch.argsort(arr.reshape(-1, M), dim=-1, stable=True)
+        factors = as_tensor(factors, x0.device).expand_as(x0).reshape(-1, M).gather(-1, order)
+    p_hat = scn.p_hat
+    if isinstance(p_hat, torch.Tensor):
+        p_hat = (float(p_hat) if p_hat.ndim == 0
+                 else as_tensor(p_hat, x0.device).expand(*x0.shape[:-1], 1).reshape(-1, 1))
+    return factors, p_hat
+
+
 def simulate_scenario(
     scn: Scenario, p, n_servers, policy: Policy, *, n_chips: int | None = None,
     min_chips: int = 1, rel_tol: float = 1e-9, horizon: int | None = None,
-    fused: bool = False, device="cuda",
-) -> OnlineSimResult:
+    fused: bool = False, telemetry=None, device="cuda",
+):
     """Run drawn scenarios through the engine: whole chips when ``n_chips``
-    is set, else the continuous system with ``n_servers``.  A drift
-    scenario's ``p_drift`` supersedes ``p`` in the physics and in what the
-    policy sees (the oracle arm); ``p`` still normalizes the slowdowns."""
+    is set, else the continuous system with ``n_servers``.
+
+    Estimation noise (``scn.size_factors`` / ``scn.p_hat``) reaches only
+    the allocation rule; the physics use the true sizes and exponent.  A
+    drift scenario's ``p_drift`` supersedes ``p`` in the physics and, unless
+    ``scn.p_hat`` pins a belief (the stale arm), in what the policy sees
+    (the oracle arm); ``p`` still normalizes the slowdowns.  ``telemetry``
+    takes a probe (``core/telemetry.py``); the return is then
+    ``(OnlineSimResult, TelemetryResult)``.
+    """
+    x0, arr = _tapes(scn.x0, scn.arrival_times, device)
+    factors, p_hat = _noise_rows(scn, x0, arr)
     if n_chips is not None:
-        return simulate_online_quantized(
-            scn.x0, scn.arrival_times, p, n_chips, policy, min_chips=min_chips,
-            rel_tol=rel_tol, horizon=horizon, fused=fused, p_drift=scn.p_drift,
-            device=device,
-        )
-    return simulate_online(
-        scn.x0, scn.arrival_times, p, n_servers, policy, rel_tol=rel_tol,
-        horizon=horizon, fused=fused, p_drift=scn.p_drift, device=device,
-    )
+        rule = engine.quantized_rule(policy, n_chips, min_chips=min_chips, dtype=x0.dtype,
+                                     size_factors=factors, p_hat=p_hat)
+        n_alone = n_chips
+    else:
+        rule = engine.continuous_rule(policy, n_servers, dtype=x0.dtype,
+                                      size_factors=factors, p_hat=p_hat)
+        n_alone = n_servers
+    res = engine.run(x0, arr, p, rule, horizon=horizon, rel_tol=rel_tol, fused=fused,
+                     p_drift=scn.p_drift, telemetry=telemetry)
+    out = _finalize(x0, arr, res.completion_times, p, n_alone)
+    return (out, res.telemetry) if telemetry is not None else out
 
 
 def simulate_stream(
@@ -152,8 +180,9 @@ def simulate_stream(
     """Run drawn scenarios through the bounded-slot loop: whole chips when
     ``n_chips`` is set, else the continuous system on ``n_servers``, over
     ``n_slots`` recycled slots a cell; the read-out is the stationary-window
-    :class:`~repro_torch.core.engine.StreamResult`.  A drift scenario raises
-    (:func:`~repro_torch.core.scenarios.stream_tape`)."""
+    :class:`~repro_torch.core.engine.StreamResult`, which carries a probe's
+    read-out on ``telemetry`` (the JAX package's form).  A drift or noisy
+    scenario raises (:func:`~repro_torch.core.scenarios.stream_tape`)."""
     x0, arr = _tapes(*stream_tape(scn), device)
     if n_chips is not None:
         rule = engine.quantized_rule(policy, n_chips, min_chips=min_chips, dtype=x0.dtype)

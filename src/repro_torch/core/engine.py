@@ -35,9 +35,15 @@ tensor value — so the loop is bound by launches, not by syncs.
   :class:`StreamSource` (:func:`tape_source`, :func:`poisson_source`), a
   full pool deferring an arrival, and stationary-window aggregates
   (:class:`StreamResult`) as the read-out.
+- ``telemetry=`` on :func:`run` and the stream loops — a probe
+  (``core/telemetry.py``) that sees every epoch's :class:`ProbeEvent` and
+  leaves the trajectory as it is; :func:`continuous_rule` and
+  :func:`quantized_rule` take estimation noise (``size_factors``,
+  ``p_hat``), and ``core/estimation.py`` builds the estimating
+  :class:`StatefulRule`.
 
-Not ported yet (ROADMAP.md Queue A): ``telemetry``, per-job drift rows and
-estimation noise (with the multi-class runs).
+Not ported yet (ROADMAP.md Queue A, item 6b): per-job drift rows and the
+multi-class runs.
 """
 
 from __future__ import annotations
@@ -97,6 +103,22 @@ class Observation(NamedTuple):
     active: torch.Tensor  # [C, M] bool, arrived & unfinished this epoch
 
 
+class ProbeEvent(NamedTuple):
+    """What a telemetry probe (``core/telemetry.py``) sees at each event, per
+    cell row: :class:`Observation` plus the epoch-start clock, the remaining
+    sizes, the true exponent in effect and the rule's epoch-start state
+    (how the p-hat error probe reaches an estimating rule's state)."""
+
+    t: torch.Tensor  # [C, 1] epoch-start time
+    dt: torch.Tensor  # [C, 1] epoch length (0 on no-op steps)
+    alloc: torch.Tensor  # [C, M] allocation held during the epoch
+    rate: torch.Tensor  # [C, M] realized service rate
+    active: torch.Tensor  # [C, M] bool, arrived & unfinished this epoch
+    x: torch.Tensor  # [C, M] remaining sizes at epoch start
+    p: Any  # float, or [C, 1] under drift: the true exponent this epoch
+    rule_state: Any  # the rule's state at epoch start
+
+
 class StatefulRule(NamedTuple):
     """An allocation rule with loop-carried state: ``(init, observe,
     allocate)``; see ``repro.core.engine.StatefulRule``."""
@@ -131,6 +153,7 @@ class EngineResult(NamedTuple):
     x_final: torch.Tensor  # [..., M] remaining sizes at horizon, arrival-sorted
     order: torch.Tensor  # [..., M] arrival-sorted permutation used internally
     trace: EngineTrace | None = None  # populated when ``record=True``
+    telemetry: Any = None  # the probe's read-out under ``run(telemetry=)``
 
 
 # ----------------------------------------------------------- allocation rules
@@ -150,27 +173,45 @@ def finish_alloc(
     return chips, speedup(chips.to(dtype), p)
 
 
-def continuous_rule(policy: Policy, n_servers, *, dtype=torch.float64) -> AllocRule:
+def _seen(x_act, p, size_factors, p_hat):
+    """What the policy sees: the sizes times ``size_factors`` and ``p_hat``
+    in place of ``p`` (each only where given)."""
+    return (x_act if size_factors is None else x_act * size_factors,
+            p if p_hat is None else p_hat)
+
+
+def continuous_rule(
+    policy: Policy, n_servers, *, dtype=torch.float64, size_factors=None, p_hat=None,
+) -> AllocRule:
     """The paper's continuously-divisible allocation: ``rate = s(theta N)``.
 
+    ``size_factors`` (``[C, M]`` or ``[M]``, in the loop's arrival-sorted
+    job order) and ``p_hat`` (a float or a ``[C, 1]`` column) are
+    estimation noise: the policy sees ``x * size_factors`` and ``p_hat``
+    while the physics keep ``x`` and ``p``.
+
     Over :func:`~repro_torch.core.policies.hesrpt` the rule carries a
-    ``fused_variant`` (``kernels/alloc.py::hesrpt_theta_fused``); over
-    heSRPT, EQUI and SRPT a ``superstep_spec`` ``(name, n_servers)``, which
-    :func:`run` reads under ``superstep=True``.
+    ``fused_variant`` (``kernels/alloc.py::hesrpt_theta_fused``, on what the
+    policy sees); over heSRPT, EQUI and SRPT without noise a
+    ``superstep_spec`` ``(name, n_servers)``, which :func:`run` reads under
+    ``superstep=True``.
     """
 
     def rule(x_act, p):
-        return finish_alloc(policy(x_act, p), p, n_alloc=n_servers, n_chips=None, dtype=dtype)
+        x_seen, p_seen = _seen(x_act, p, size_factors, p_hat)
+        return finish_alloc(policy(x_seen, p_seen), p, n_alloc=n_servers, n_chips=None,
+                            dtype=dtype)
 
     from repro_torch.core.superstep import SUPERSTEP_RULE_POLICIES
 
     name = getattr(policy, "__name__", None)
-    if name in SUPERSTEP_RULE_POLICIES and policy is getattr(policies, name):
+    noisy = size_factors is not None or p_hat is not None
+    if not noisy and name in SUPERSTEP_RULE_POLICIES and policy is getattr(policies, name):
         rule.superstep_spec = (name, n_servers)
     if policy is hesrpt:
 
         def fused(x_act, p):
-            theta = hesrpt_theta_fused(x_act, p).to(dtype)
+            theta = hesrpt_theta_fused(*_seen(x_act, p, size_factors, p_hat)).to(dtype)
             return theta, speedup(theta * n_servers, p)
 
         rule.fused_variant = fused
@@ -179,10 +220,12 @@ def continuous_rule(policy: Policy, n_servers, *, dtype=torch.float64) -> AllocR
 
 def quantized_rule(
     policy: Policy, n_chips: int, *, min_chips: int = 1, dtype=torch.float64,
-    snap_slices: bool = False, slices: tuple[int, ...] = DEFAULT_SLICES,
+    size_factors=None, p_hat=None, snap_slices: bool = False,
+    slices: tuple[int, ...] = DEFAULT_SLICES,
 ) -> AllocRule:
     """Whole chips: largest-remainder rounding of ``theta * n_chips``,
-    snapped to power-of-two ``slices`` under ``snap_slices=True``.
+    snapped to power-of-two ``slices`` under ``snap_slices=True``;
+    ``size_factors`` / ``p_hat`` as in :func:`continuous_rule`.
 
     Over heSRPT the rule carries a ``fused_variant``: the
     ``kernels/alloc.py`` rank -> theta -> chips pass, chip-exact vs this
@@ -190,15 +233,17 @@ def quantized_rule(
     """
 
     def rule(x_act, p):
+        x_seen, p_seen = _seen(x_act, p, size_factors, p_hat)
         return finish_alloc(
-            policy(x_act, p), p, n_alloc=n_chips, n_chips=n_chips,
+            policy(x_seen, p_seen), p, n_alloc=n_chips, n_chips=n_chips,
             min_chips=min_chips, snap_slices=snap_slices, slices=slices, dtype=dtype,
         )
 
     if policy is hesrpt:
 
         def fused(x_act, p):
-            _theta, chips = hesrpt_alloc_fused(x_act, p, n_chips, min_chips=min_chips)
+            x_seen, p_seen = _seen(x_act, p, size_factors, p_hat)
+            _theta, chips = hesrpt_alloc_fused(x_seen, p_seen, n_chips, min_chips=min_chips)
             if snap_slices:
                 chips = snap_to_slices(chips, n_chips, slices=slices)
             return chips, speedup(chips.to(dtype), p)
@@ -249,7 +294,7 @@ def _resolve_fused(rule, fused: bool):
     return fused_rule
 
 
-def _resolve_superstep(rule, *, fused: bool, record: bool, p, p_drift):
+def _resolve_superstep(rule, *, fused: bool, record: bool, telemetry, p, p_drift):
     """The rule's ``(policy_name, n_servers)`` superstep spec, or
     ``ValueError`` for what the closed form cannot represent (that takes the
     generic per-event loop: drop ``superstep=True``)."""
@@ -268,6 +313,8 @@ def _resolve_superstep(rule, *, fused: bool, record: bool, p, p_drift):
         )
     if record:
         raise ValueError("record=True needs the per-event trajectory" + fallback)
+    if telemetry is not None:
+        raise ValueError("telemetry probes ride the per-event scan" + fallback)
     if isinstance(p, torch.Tensor) and p.ndim >= 1:
         raise ValueError(
             "superstep=True needs a scalar p (per-job exponents break the "
@@ -297,7 +344,7 @@ def _drift_rows(p_drift: PDrift, lead, dtype, device):
     if _per_job_rows(p_drift):
         raise NotImplementedError(
             "per-job drift rows (PDrift.values [D + 1, M]) need the per-job p "
-            "of multi-class runs, not ported yet (ROADMAP.md Queue A, item 6)"
+            "of multi-class runs, not ported yet (ROADMAP.md Queue A, item 6b)"
         )
     times = torch.as_tensor(p_drift.times, device=device).to(dtype)
     values = torch.as_tensor(p_drift.values, device=device).to(dtype)
@@ -350,16 +397,17 @@ def run(
     swaps in the rule's ``fused_variant``.  ``superstep=True`` hands the
     run to ``core/superstep.py::run_superstep`` for the rules that carry a
     ``superstep_spec`` (``rel_tol`` is not read there) and raises
-    ``ValueError`` for the rest.  Jobs that never depart within the horizon
-    report ``inf``.
+    ``ValueError`` for the rest, a probe included.  Jobs that never depart
+    within the horizon report ``inf``.
+
+    ``telemetry`` takes a probe (``core/telemetry.py::make_probe``): each
+    step hands it the epoch's :class:`ProbeEvent` after the step's own ops,
+    and its read-out comes back on ``EngineResult.telemetry``.  With
+    ``telemetry=None`` the loop body is the probe-free one, op for op.
     """
-    if telemetry is not None:
-        raise NotImplementedError(
-            "engine.run(telemetry=...) is not ported yet (see ROADMAP.md Queue A)"
-        )
     if superstep:
         pol_name, n_srv = _resolve_superstep(
-            rule, fused=fused, record=record, p=p, p_drift=p_drift
+            rule, fused=fused, record=record, telemetry=telemetry, p=p, p_drift=p_drift
         )
         from repro_torch.core.superstep import run_superstep
 
@@ -388,6 +436,8 @@ def run(
     srule = as_stateful(rule)
     st = srule.init()
     trace = ([], [], []) if record else None
+    tel = None if telemetry is None else telemetry.init(tuple(lead), dev)
+    tel_outs = []
 
     for _ in range(E):
         active = (idx < i) & (x > 0)
@@ -432,7 +482,13 @@ def run(
         x_new = torch.where(departing | (active & (x_new <= tol)), 0.0, x_new)
         times = torch.where(active & (x_new == 0.0), t_new, times)
         i_new = torch.searchsorted(arr, t_new, right=True)
+        st_start = st
         st = srule.observe(st, Observation(alloc=alloc, rate=rate, dt=dt, active=active))
+        if tel is not None:
+            tel, out = telemetry.step(tel, ProbeEvent(
+                t=t, dt=dt, alloc=alloc, rate=rate, active=active, x=x, p=p_now,
+                rule_state=st_start))
+            tel_outs.append(out)
         if record:
             trace[0].append(alloc)
             trace[1].append(t)
@@ -454,6 +510,7 @@ def run(
         x_final=x.reshape(*lead, M),
         order=order.reshape(*lead, M),
         trace=out_trace,
+        telemetry=None if tel is None else telemetry.finalize(tel, tel_outs, tuple(lead)),
     )
 
 
@@ -638,7 +695,7 @@ class StreamResult(NamedTuple):
     t_final: torch.Tensor  # clock at the end of the loop
     x_final: torch.Tensor  # [..., n_slots] remaining sizes (0 = free slot)
     completion_times: torch.Tensor | None  # [..., n_jobs] input order (record_times)
-    telemetry: Any  # None: telemetry is not ported yet
+    telemetry: Any  # the probe's TelemetryResult when one was attached
 
 
 def _scalar_p(p, who: str) -> float:
@@ -648,13 +705,6 @@ def _scalar_p(p, who: str) -> float:
             "multi-class streams take the finite-tape run()"
         )
     return float(p)
-
-
-def _no_stream_telemetry(telemetry) -> None:
-    if telemetry is not None:
-        raise NotImplementedError(
-            "streaming telemetry= is not ported yet (ROADMAP.md Queue A, item 5)"
-        )
 
 
 def _window_bounds(window, lead, dtype, device):
@@ -678,7 +728,7 @@ def _acc_zeros(C: int, dtype, device) -> dict:
             "occ_max": z, "w_flow": zf, "w_slow": zf}
 
 
-def _finalize_stream(acc, t_fin, x_fin, comp, lead) -> StreamResult:
+def _finalize_stream(acc, t_fin, x_fin, comp, lead, tel=None) -> StreamResult:
     def cell(v):
         return v.reshape(lead)
 
@@ -698,7 +748,7 @@ def _finalize_stream(acc, t_fin, x_fin, comp, lead) -> StreamResult:
         t_final=cell(t_fin),
         x_final=x_fin.reshape(*lead, S),
         completion_times=comp,
-        telemetry=None,
+        telemetry=tel,
     )
 
 
@@ -711,7 +761,7 @@ def _claim(free, idx, ptr, S: int):
 
 def _stream_scan(
     source: StreamSource, p, srule: StatefulRule, *, n_slots: int, n_events: int,
-    window, lead, n_alone, tol, t0: float, dtype, n_times: int,
+    window, lead, n_alone, tol, t0: float, dtype, n_times: int, telemetry=None,
 ):
     """The bounded-slot event loop shared by the tape and source runners.
 
@@ -730,13 +780,15 @@ def _stream_scan(
     ``record_times`` (``n_times > 0``) scatters completion times by job id
     into ``[C, n_times + 1]``, whose last column takes every slot that did
     not finish and is dropped.  ``lead`` is the cells' lead shape (None:
-    one dim, the source's rows).  Returns ``(x, t, acc, times)``.
+    one dim, the source's rows).  ``telemetry`` is a probe, stepped after
+    the step's own ops.  Returns ``(x, t, acc, times, telemetry result)``.
     """
     S = int(n_slots)
     src = source.init()
     t_peek, _ = source.peek(src)
     C, dev = t_peek.shape[0], t_peek.device
-    w_lo, w_hi = _window_bounds(window, (C,) if lead is None else lead, dtype, dev)
+    lead = (C,) if lead is None else tuple(lead)
+    w_lo, w_hi = _window_bounds(window, lead, dtype, dev)
     alone_rate = speedup(torch.tensor(n_alone, dtype=dtype, device=dev), p)
     idx = torch.arange(S, device=dev)
     inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
@@ -749,6 +801,8 @@ def _stream_scan(
     acc = _acc_zeros(C, dtype, dev)
     times = torch.full((C, n_times + 1), torch.inf, dtype=dtype, device=dev) if n_times else None
     st = srule.init()
+    tel = None if telemetry is None else telemetry.init(lead, dev)
+    tel_outs = []
 
     for _ in range(n_events):
         active = x > 0
@@ -795,16 +849,23 @@ def _stream_scan(
             "w_flow": acc["w_flow"] + torch.where(done_w, flow, 0.0).sum(-1, keepdim=True),
             "w_slow": acc["w_slow"] + torch.where(done_w, slow, 0.0).sum(-1, keepdim=True),
         }
-        x = torch.where(claimed, x_next, x_new)
+        x_old, x = x, torch.where(claimed, x_next, x_new)
         sx0 = torch.where(claimed, x_next, sx0)
         sarr = torch.where(claimed, t_next, sarr)
         sid = torch.where(claimed, arr_id, sid)
         ptr = torch.where(admit, torch.remainder(cand + 1, S), ptr)
         src = tuple(torch.where(admit, a, b) for a, b in zip(source.advance(src), src))
+        st_start = st
         st = srule.observe(st, Observation(alloc=alloc, rate=rate, dt=dt, active=active))
+        if tel is not None:
+            tel, out = telemetry.step(tel, ProbeEvent(
+                t=t, dt=dt, alloc=alloc, rate=rate, active=active, x=x_old, p=p,
+                rule_state=st_start))
+            tel_outs.append(out)
         t = t_new
 
-    return x, t, acc, None if times is None else times[:, :n_times]
+    tel_result = None if tel is None else telemetry.finalize(tel, tel_outs, lead)
+    return x, t, acc, None if times is None else times[:, :n_times], tel_result
 
 
 def run_stream(
@@ -840,24 +901,25 @@ def run_stream(
     scatters completion times (input order) through a ``[C, T + 1]`` carry,
     a parity tool, not the O(n_slots) path.  ``fused=True`` swaps in the
     rule's ``fused_variant`` (the alloc kernel at ``[C, n_slots]`` on the
-    card).  ``p`` must be a scalar.
+    card).  ``telemetry`` takes a probe (``core/telemetry.py``), whose
+    read-out comes back on ``StreamResult.telemetry``.  ``p`` must be a
+    scalar.
     """
-    _no_stream_telemetry(telemetry)
     p = _scalar_p(p, "run_stream")
     rule = _resolve_fused(rule, fused)
     x0, arr, lead, dtype = _cells(x0, arrival_times)
     T = x0.shape[-1]
     order = torch.argsort(arr, dim=-1, stable=True)
-    x_fin, t_fin, acc, times = _stream_scan(
+    x_fin, t_fin, acc, times, tel = _stream_scan(
         tape_source(x0.gather(-1, order), arr.gather(-1, order)), p, as_stateful(rule),
         n_slots=n_slots, n_events=2 * T if horizon is None else horizon, window=window,
         lead=lead, n_alone=n_alone, tol=rel_tol * x0.amax(-1, keepdim=True), t0=t0,
-        dtype=dtype, n_times=T if record_times else 0,
+        dtype=dtype, n_times=T if record_times else 0, telemetry=telemetry,
     )
     comp = None
     if record_times:
         comp = torch.zeros_like(times).scatter_(-1, order, times).reshape(*lead, T)
-    return _finalize_stream(acc, t_fin, x_fin, comp, lead)
+    return _finalize_stream(acc, t_fin, x_fin, comp, lead, tel)
 
 
 def run_stream_source(
@@ -880,15 +942,15 @@ def run_stream_source(
     ``n_events`` steps, nothing sized by a job count.  The completion
     tolerance is absolute, ``rel_tol * x_scale`` (there is no tape to take
     a max over), and no per-job times are recorded.  The result has one
-    value a row of the source (``[C]``)."""
-    _no_stream_telemetry(telemetry)
+    value a row of the source (``[C]``), the probe's read-out too."""
     p = _scalar_p(p, "run_stream_source")
     rule = _resolve_fused(rule, fused)
-    x_fin, t_fin, acc, _ = _stream_scan(
+    x_fin, t_fin, acc, _, tel = _stream_scan(
         source, p, as_stateful(rule), n_slots=n_slots, n_events=n_events, window=window,
         lead=None, n_alone=n_alone, tol=rel_tol * x_scale, t0=t0, dtype=dtype, n_times=0,
+        telemetry=telemetry,
     )
-    return _finalize_stream(acc, t_fin, x_fin, None, x_fin.shape[:1])
+    return _finalize_stream(acc, t_fin, x_fin, None, x_fin.shape[:1], tel)
 
 
 def run_stream_ranked(
@@ -1085,6 +1147,7 @@ __all__ = [
     "DEFAULT_SLICES",
     "AllocRule",
     "PDrift",
+    "ProbeEvent",
     "EngineResult",
     "EngineTrace",
     "Observation",

@@ -1,6 +1,6 @@
 """Workload tapes: where the engine's jobs and arrival epochs come from.
 
-Port of the single-class, noise-free part of ``repro.core.scenarios``.  A
+Port of the single-class part of ``repro.core.scenarios``.  A
 sampler is ``(gen, n_jobs, rates) -> Scenario`` with an explicit
 ``torch.Generator``: it draws each job's size and unit gap once and scales
 the gaps per rate, so one draw serves a whole rate axis (the JAX sweep's
@@ -18,11 +18,17 @@ tests hand the JAX sampler's tapes to the port through
   carried as an ``engine.PDrift`` (drift times ``[R, 1]`` over a rate
   axis).
 
+Every sampler takes scalar ``sigma_size`` / ``sigma_p`` estimation noise:
+lognormal ``size_factors`` (median 1) and a clipped ``p_hat`` that perturb
+what the policy sees while the physics keep ``x0`` and ``p``; they are drawn
+from the same generator after the base draw, one draw a seed shared by the
+rate axis, and agree with JAX's in distribution only.
+
 :func:`stream_tape` reduces a scenario to the plain tape the bounded-slot
 loop (``engine.run_stream``) takes.
 
-Not ported yet (ROADMAP.md Queue A): the multi-class samplers, estimation
-noise (``sigma_size``/``sigma_p``).
+Not ported yet (ROADMAP.md Queue A, item 6b): the multi-class samplers and
+per-class noise sequences.
 """
 
 from __future__ import annotations
@@ -41,11 +47,15 @@ from repro_torch.device import DTYPE, resolve_device
 class Scenario(NamedTuple):
     """One drawn workload, in input (unsorted) job order.  ``p_drift``
     makes the true exponent piecewise-constant in time; it then supersedes
-    the scalar ``p`` the simulation wrappers are called with."""
+    the scalar ``p`` the simulation wrappers are called with.
+    ``size_factors`` / ``p_hat`` (None without estimation noise) are what
+    the policy sees in place of the sizes' scale and of ``p``."""
 
     x0: torch.Tensor  # [..., M] true job sizes
     arrival_times: torch.Tensor  # [..., M] arrival epochs (zeros for batch)
     p_drift: PDrift | None = None  # times [..., D], values [D + 1]
+    size_factors: torch.Tensor | None = None  # [..., M] policy sees x * factors
+    p_hat: object = None  # float or [..., 1]; policy sees p_hat
 
 
 ScenarioSampler = Callable[[torch.Generator, int, object], Scenario]
@@ -170,6 +180,33 @@ def _drift_bursty(
     return _with_drift(scn, n_jobs, rates, p0=p0, p1=p1, drift_frac=drift_frac)
 
 
+def _any_pos(sigma) -> bool:
+    """True where a scalar sigma carries noise; a per-class sequence raises."""
+    if isinstance(sigma, (tuple, list)):
+        raise NotImplementedError(
+            "per-class sigma_size / sigma_p sequences need the multi-class "
+            "scenarios, not ported yet (ROADMAP.md Queue A, item 6b)"
+        )
+    return sigma > 0
+
+
+def _with_noise(scn: Scenario, gen: torch.Generator, p, sigma_size, sigma_p) -> Scenario:
+    """Estimation noise drawn from ``gen`` after the base draw: one
+    ``[M]`` draw of lognormal size factors and one scalar ``p_hat`` a seed,
+    both shared by the rate axis (the JAX package draws them from
+    ``fold_in`` streams of the seed's key; equal in distribution only)."""
+    size_factors, p_hat = scn.size_factors, scn.p_hat
+    M = scn.x0.shape[-1]
+    if _any_pos(sigma_size):
+        z = torch.randn(M, dtype=DTYPE, device=gen.device, generator=gen)
+        size_factors = torch.exp(sigma_size * z).expand_as(scn.x0).contiguous()
+    if _any_pos(sigma_p):
+        z = torch.randn((), dtype=DTYPE, device=gen.device, generator=gen)
+        p_hat = (p + sigma_p * z).clamp(0.05, 0.95).expand(*scn.x0.shape[:-1], 1)
+        p_hat = p_hat.contiguous()
+    return scn._replace(size_factors=size_factors, p_hat=p_hat)
+
+
 SCENARIOS: dict[str, Callable[..., Scenario]] = {
     "batch": _batch,
     "poisson": _poisson,
@@ -194,24 +231,25 @@ def make_scenario(
     The tapes land on the generator's device.  Extra ``cfg`` goes to the
     scenario (``burst``/``p_stay`` for the bursty ones, ``p0``/``p1``/
     ``drift_frac`` for the drift ones; others raise ``TypeError``).
-    Estimation noise and the multi-class scenarios raise.
+    ``sigma_size`` is the lognormal sd of the multiplicative size error,
+    ``sigma_p`` the sd of the additive error on the exponent the policy
+    assumes (centered on ``p``, clipped to [0.05, 0.95]); per-class
+    sequences and the multi-class scenarios raise.
     """
-    del p  # only the estimation-noise center reads it
-    if sigma_size or sigma_p:
-        raise NotImplementedError(
-            "estimation noise (sigma_size/sigma_p) is not ported yet "
-            "(ROADMAP.md Queue A, item 6)"
-        )
+    noisy = _any_pos(sigma_size) or _any_pos(sigma_p)
     fn = SCENARIOS.get(name.lower())
     if fn is None:
         raise NotImplementedError(
-            f"scenario {name!r} is not ported yet (ROADMAP.md Queue A, item 6); "
+            f"scenario {name!r} is not ported yet (ROADMAP.md Queue A, item 6b); "
             f"ported: {sorted(SCENARIOS)}"
         )
     inspect.signature(fn).bind(None, 0, 1.0, size_alpha=size_alpha, **cfg)  # TypeError
 
     def sample(gen, n_jobs, rates):
-        return fn(gen, n_jobs, rates, size_alpha=size_alpha, **cfg)
+        scn = fn(gen, n_jobs, rates, size_alpha=size_alpha, **cfg)
+        if noisy:
+            scn = _with_noise(scn, gen, p, sigma_size, sigma_p)
+        return scn
 
     return sample
 
@@ -219,13 +257,19 @@ def make_scenario(
 def stream_tape(scn: Scenario) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain ``(sizes, arrivals)`` tape of a :class:`Scenario` for the
     bounded-slot loop.  Its slots carry no per-job state beyond the size, so
-    a drift schedule raises rather than being dropped (it stays on the
-    finite-tape ``engine.run`` path); the JAX package's wording."""
-    if scn.p_drift is not None:
-        raise ValueError(
-            "scenario with p_drift cannot stream: the drift clock belongs to the "
-            "finite-tape engine (use the finite-tape engine.run path)"
-        )
+    estimation noise and a drift schedule raise rather than being dropped
+    (they stay on the finite-tape ``engine.run`` path); the JAX package's
+    wording."""
+    for field, why in (
+        ("size_factors", "estimation noise is per-job tape state"),
+        ("p_hat", "estimation noise is per-job tape state"),
+        ("p_drift", "the drift clock belongs to the finite-tape engine"),
+    ):
+        if getattr(scn, field) is not None:
+            raise ValueError(
+                f"scenario with {field} cannot stream: {why} "
+                "(use the finite-tape engine.run path)"
+            )
     return scn.x0, scn.arrival_times
 
 

@@ -23,6 +23,16 @@ stationary-window read-outs (:data:`STREAM_METRICS`): the window is
 policies take ``engine.run_stream_ranked``, the rest (and ``fused=True``)
 ``arrivals.simulate_stream``.
 
+``Sweep.create(telemetry=...)`` attaches a stream-mode probe
+(``core/telemetry.py``) to every cell and adds its ``tel_<metric>_mean`` /
+``tel_<metric>_max`` columns (a stream sweep's probe weights each rate's
+window); a telemetry sweep leaves the carried-rank loops, as the JAX one
+does.  ``Sweep.create(arm=...)`` runs the estimation arms of
+``benchmarks/estimation.py`` on a drift scenario, each with ``p0`` as its
+``p``: ``oracle`` (the policy sees the current true regime), ``stale``
+(``p_hat`` pinned to ``p0``) and ``estimator`` (the online blended p-hat,
+``core/estimation.py``).
+
 ``run_sweep(chunk_seeds=)`` (or ``max_jobs_in_flight=``) runs the seeds in
 sequential chunks on the same per-seed generators, with the same results
 bit for bit.  Every run appends its compact record to :data:`RUN_LOG`,
@@ -30,8 +40,8 @@ which :func:`write_bench_json` flushes (never to the JAX package's
 ``BENCH_sweeps.json``).
 
 Not ported yet (ROADMAP.md Queue A): multi-class ``classes`` (and with them
-``snap_slices``, which the JAX package wires only for classes), estimation
-``arm``, ``telemetry``, and sharding.
+``snap_slices``, which the JAX package wires only for classes; item 6b), and
+sharding (item 10).
 """
 
 from __future__ import annotations
@@ -52,12 +62,22 @@ from repro_torch.core.arrivals import (
     OnlineSimResult,
     _finalize,
     simulate_online_superstep,
+    simulate_scenario,
     simulate_stream,
 )
 from repro_torch.core.policies import make_policy, make_rank_policy
 from repro_torch.core.engine import PDrift
-from repro_torch.core.scenarios import Scenario, make_scenario, seed_generator
+from repro_torch.core.estimation import simulate_scenario_estimated
+from repro_torch.core.scenarios import Scenario, _any_pos, make_scenario, seed_generator
 from repro_torch.core.superstep import SUPERSTEP_RULE_POLICIES
+from repro_torch.core.telemetry import (
+    DEFAULT_METRICS,
+    METRICS,
+    make_probe,
+    p_hat_error_metric,
+    scalar_columns,
+    scalar_values,
+)
 from repro_torch.device import as_tensor, resolve_device
 
 #: Layout version of :meth:`SweepResult.record` (the JAX package's v2 plus
@@ -83,10 +103,12 @@ STREAM_METRICS = {
 #: fractions of each rate's nominal span ``n_jobs / rate``.
 STREAM_KEYS = ("n_slots", "warmup_frac", "end_frac")
 
+#: Estimation arms (``benchmarks/estimation.py``): how the policy learns
+#: the speedup exponent on a drift scenario.
+ARMS = ("oracle", "stale", "estimator")
+
 #: Regimes of the JAX ``Sweep`` not ported yet, with their "off" values.
-UNPORTED = {
-    "classes": None, "arm": None, "arm_kw": (), "telemetry": (), "snap_slices": False,
-}
+UNPORTED = {"classes": None, "snap_slices": False}
 
 #: Default file of :func:`write_bench_json`: the port's own run log, beside
 #: (never in) the JAX package's ``BENCH_sweeps.json``.
@@ -137,7 +159,10 @@ class Sweep(NamedTuple):
     n_chips: int | None = None
     min_chips: int = 1
     metrics: tuple[str, ...] = ("mean_flowtime",)
+    arm: str | None = None  # estimation regime: oracle | stale | estimator
+    arm_kw: tuple = ()  # e.g. (("discount", 0.9), ("prior_weight", 1.0))
     fused: bool = False  # kernels/alloc.py fused allocate (quantized heSRPT)
+    telemetry: tuple[str, ...] = ()  # in-loop probe metrics -> tel_* columns
     superstep: bool = False  # core/superstep.py closed-form path (continuous)
     stream: tuple = ()  # bounded-slot regime: (("n_slots", S), ...) kv pairs
 
@@ -146,12 +171,16 @@ class Sweep(NamedTuple):
         cls, policies, rates, *, scenario: str = "poisson", scenario_kw=None,
         n_jobs: int = 1000, n_seeds: int = 100, seed: int = 0, p: float = 0.5,
         n_servers: float = 256.0, size_alpha: float = 1.5, n_chips: int | None = None,
-        min_chips: int = 1, metrics=None, fused: bool = False, superstep: bool = False,
-        stream=None, **regimes,
+        min_chips: int = 1, metrics=None, arm: str | None = None, arm_kw=None,
+        fused: bool = False, telemetry=(), superstep: bool = False, stream=None,
+        **regimes,
     ) -> Sweep:
         stream = tuple(sorted(dict(stream or {}).items()))
+        scenario_kw = dict(scenario_kw or {})
+        noisy = (_any_pos(scenario_kw.get("sigma_size", 0.0))
+                 or _any_pos(scenario_kw.get("sigma_p", 0.0)))
         if stream:
-            _check_stream(dict(stream), scenario)
+            _check_stream(dict(stream), scenario, arm, noisy)
         for key, value in regimes.items():
             if key not in UNPORTED:
                 raise TypeError(f"Sweep.create() got an unexpected keyword {key!r}")
@@ -161,9 +190,9 @@ class Sweep(NamedTuple):
                 raise ValueError("snap_slices is only wired for multi-class sweeps")
             if value:
                 raise NotImplementedError(
-                    f"Sweep regime {key}={value!r} is not ported yet (ROADMAP.md Queue A)"
+                    f"Sweep regime {key}={value!r} is not ported yet "
+                    "(ROADMAP.md Queue A, item 6b)"
                 )
-        scenario_kw = dict(scenario_kw or {})
         make_scenario(scenario, size_alpha=size_alpha, p=p, **scenario_kw)  # validates
         metrics = tuple(metrics or (
             ("stream_flow", "stream_slowdown") if stream else ("mean_flowtime",)))
@@ -180,7 +209,20 @@ class Sweep(NamedTuple):
                 raise ValueError(f"unknown metric {m!r}; known: {SCALAR_METRICS}")
         for name in policies:
             make_policy(name)  # raises for unknown / unported policies
+        if arm is not None:
+            if arm not in ARMS:
+                raise ValueError(f"unknown arm {arm!r}; known: {ARMS}")
+            if n_chips is not None:
+                # The arm cells run the continuous simulators.
+                raise ValueError("estimation arms are continuous-only (no n_chips)")
+            if "p0" not in scenario_kw:
+                raise ValueError(
+                    "estimation arms need scenario_kw['p0'] (the pre-drift exponent the "
+                    "stale/estimator arms anchor their belief to)"
+                )
         if fused:
+            if arm is not None:
+                raise ValueError("fused sweeps are single-class, arm-free")
             if n_chips is None:
                 raise ValueError(
                     "fused=True needs n_chips (the quantized regime; continuous "
@@ -190,14 +232,15 @@ class Sweep(NamedTuple):
             if bad:
                 raise ValueError(f"fused sweeps support only heSRPT, got {bad}")
         if superstep:
-            # Exact only for the continuous, noise-free, scalar-p rank family
-            # (estimation noise raised above; fused already needs n_chips).
+            # Exact only for the continuous, noise-free, scalar-p rank family.
+            if arm is not None:
+                raise ValueError("superstep sweeps are single-class, arm-free")
             if n_chips is not None:
                 raise ValueError(
                     "superstep=True is the continuous closed-form path "
                     "(quantized chips need the per-event loop)"
                 )
-            if stream:
+            if fused or telemetry or stream:
                 raise ValueError(
                     "superstep sweeps take no fused/telemetry/stream options (all "
                     "three ride the per-event loop)"
@@ -205,6 +248,22 @@ class Sweep(NamedTuple):
             bad = tuple(q for q in policies if q not in SUPERSTEP_RULE_POLICIES)
             if bad:
                 raise ValueError(f"superstep sweeps support heSRPT/EQUI/SRPT, got {bad}")
+            if noisy:
+                raise ValueError(
+                    "superstep sweeps need noise-free scenarios (estimation noise takes "
+                    "the generic loop)"
+                )
+        if telemetry is True:
+            telemetry = DEFAULT_METRICS
+        telemetry = tuple(telemetry or ())
+        unknown = tuple(m for m in telemetry if m not in METRICS)
+        if unknown:
+            raise ValueError(f"unknown telemetry metric(s) {unknown}; known: {METRICS}")
+        if "p_hat_err" in telemetry and arm != "estimator":
+            raise ValueError(
+                "telemetry metric 'p_hat_err' needs arm='estimator' (only an "
+                "estimating rule carries a p-hat to be wrong)"
+            )
         return cls(
             policies=tuple(policies),
             rates=tuple(float(r) for r in rates),
@@ -219,7 +278,10 @@ class Sweep(NamedTuple):
             n_chips=None if n_chips is None else int(n_chips),
             min_chips=int(min_chips),
             metrics=metrics,
+            arm=arm,
+            arm_kw=tuple(sorted(dict(arm_kw or {}).items())),
             fused=bool(fused),
+            telemetry=telemetry,
             superstep=bool(superstep),
             stream=stream,
         )
@@ -234,10 +296,17 @@ class Sweep(NamedTuple):
             n_jobs=d["n_jobs"], n_seeds=d["n_seeds"], seed=d["seed"], p=d["p"],
             n_servers=d["n_servers"], size_alpha=d["size_alpha"],
             n_chips=d["n_chips"], min_chips=d["min_chips"], metrics=d["metrics"],
-            fused=d.get("fused", False), superstep=d.get("superstep", False),
+            arm=d.get("arm"), arm_kw={k: v for k, v in d.get("arm_kw", [])},
+            fused=d.get("fused", False), telemetry=tuple(d.get("telemetry", ())),
+            superstep=d.get("superstep", False),
             stream={k: v for k, v in d.get("stream", [])},
             **{k: d[k] for k in UNPORTED if k in d},
         )
+
+    def out_names(self) -> tuple[str, ...]:
+        """Every stat column a cell gives: the metrics, then the telemetry
+        probe's ``tel_*`` columns."""
+        return self.metrics + scalar_columns(self.telemetry)
 
     def jobs_per_seed(self) -> int:
         return len(self.rates) * self.n_jobs
@@ -247,7 +316,7 @@ class Sweep(NamedTuple):
         return self.n_seeds * self.jobs_per_seed()
 
 
-def _check_stream(skw: dict, scenario: str) -> None:
+def _check_stream(skw: dict, scenario: str, arm, noisy: bool) -> None:
     """``Sweep.create(stream=...)``'s validation (the JAX package's)."""
     unknown = tuple(k for k in skw if k not in STREAM_KEYS)
     if unknown:
@@ -259,7 +328,12 @@ def _check_stream(skw: dict, scenario: str) -> None:
         raise ValueError(
             f"stream window needs 0 <= warmup_frac < end_frac (got {warm} / {end})"
         )
-    if scenario.startswith(("drift_", "multiclass_")):
+    if arm is not None:
+        raise ValueError(
+            "streaming sweeps are single-class and arm-free — per-job class/estimator "
+            "state does not ride in slots"
+        )
+    if scenario.startswith(("drift_", "multiclass_")) or noisy:
         raise ValueError(
             "streaming sweeps need a plain tape scenario (no drift, classes or "
             "estimation noise — see scenarios.stream_tape)"
@@ -300,11 +374,10 @@ class SweepResult(NamedTuple):
         """Compact JSON-able record (per-cell mean/std), the JAX layout (its
         spec keys, the unported regimes at their off values) with torch,
         CUDA and card provenance."""
-        spec = {**{k: (list(v) if isinstance(v, tuple) else v) for k, v in UNPORTED.items()},
-                **self.spec._asdict()}
-        spec["scenario_kw"] = [list(kv) for kv in self.spec.scenario_kw]
-        spec["stream"] = [list(kv) for kv in self.spec.stream]
-        for key in ("policies", "rates", "metrics"):
+        spec = {**UNPORTED, **self.spec._asdict()}
+        for key in ("scenario_kw", "arm_kw", "stream"):
+            spec[key] = [list(kv) for kv in spec[key]]
+        for key in ("policies", "rates", "metrics", "telemetry"):
             spec[key] = list(spec[key])
         return {
             "kind": "sweep",
@@ -326,41 +399,80 @@ class SweepResult(NamedTuple):
 
 
 # --------------------------------------------------------------- executors
-def _policy_cells(spec: Sweep, name: str, x0, arr, p_drift) -> OnlineSimResult:
-    """Every cell of one policy column, as one batch."""
+def _probe(spec: Sweep, n_jobs: int, window=None):
+    """The stream-mode probe of a telemetry sweep's cells (None without
+    one): ``p_hat_err`` reads the estimator arm's state against ``p0``."""
+    if not spec.telemetry:
+        return None
+    reader = None
+    if spec.arm == "estimator":
+        reader = p_hat_error_metric(dict(spec.scenario_kw)["p0"],
+                                    prior_weight=dict(spec.arm_kw).get("prior_weight", 1.0))
+    return make_probe(spec.telemetry, mode="stream",
+                      alloc_unit=float(spec.n_chips) if spec.n_chips else 1.0, n_jobs=n_jobs,
+                      p_hat_reader=reader, window=window)
+
+
+def _arm_cells(spec: Sweep, name: str, scn: Scenario, probe, device):
+    """Every cell of one estimation arm, each with ``p0`` as its ``p``."""
+    akw = dict(spec.arm_kw)
+    p0 = dict(spec.scenario_kw)["p0"]
+    pol = make_policy(name, n_servers=spec.n_servers)
+    if spec.arm == "oracle":  # the policy sees the current true regime
+        return simulate_scenario(scn, p0, spec.n_servers, pol, telemetry=probe, device=device)
+    if spec.arm == "stale":  # a pinned p_hat: the policy never sees the drift
+        return simulate_scenario(scn._replace(p_hat=p0), p0, spec.n_servers, pol,
+                                 telemetry=probe, device=device)
+    return simulate_scenario_estimated(
+        scn, p0, spec.n_servers, pol, prior_p=p0,
+        prior_weight=akw.get("prior_weight", 1.0), discount=akw.get("discount", 1.0),
+        telemetry=probe, device=device,
+    )
+
+
+def _policy_cells(spec: Sweep, name: str, scn: Scenario):
+    """Every cell of one policy column, as one batch: ``(OnlineSimResult,
+    TelemetryResult or None)``."""
+    x0, arr, p_drift = scn.x0, scn.arrival_times, scn.p_drift
     if spec.superstep:
         return simulate_online_superstep(
             x0, arr, spec.p, spec.n_servers, name, p_drift=p_drift, device=x0.device
-        )
-    # The carried ranks cannot follow a regime change: drift takes engine.run.
-    rank_pol = make_rank_policy(name) if spec.n_chips is None and p_drift is None else None
+        ), None
+    probe = _probe(spec, spec.n_jobs)
+    if spec.arm is not None:
+        res = _arm_cells(spec, name, scn, probe, x0.device)
+        return res if probe is not None else (res, None)
+    kw = dict(spec.scenario_kw)
+    noisy = _any_pos(kw.get("sigma_size", 0.0)) or _any_pos(kw.get("sigma_p", 0.0))
+    # The carried ranks cannot follow a regime change, estimation noise or a
+    # probe (it reads the generic loop's events): those take engine.run.
+    rank_pol = (make_rank_policy(name)
+                if spec.n_chips is None and p_drift is None and not noisy and probe is None
+                else None)
     if rank_pol is not None:
         times = engine.run_ranked(x0, arr, spec.p, spec.n_servers, rank_pol)
-        return _finalize(x0, arr, times, spec.p, spec.n_servers)
+        return _finalize(x0, arr, times, spec.p, spec.n_servers), None
     pol = make_policy(
         name, n_servers=spec.n_chips if spec.n_chips is not None else spec.n_servers
     )
-    if spec.n_chips is None:
-        rule = engine.continuous_rule(pol, spec.n_servers, dtype=x0.dtype)
-        n_alone = spec.n_servers
-    else:
-        rule = engine.quantized_rule(
-            pol, spec.n_chips, min_chips=spec.min_chips, dtype=x0.dtype
-        )
-        n_alone = spec.n_chips
-    res = engine.run(x0, arr, spec.p, rule, fused=spec.fused, p_drift=p_drift)
-    return _finalize(x0, arr, res.completion_times, spec.p, n_alone)
+    res = simulate_scenario(scn, spec.p, spec.n_servers, pol, n_chips=spec.n_chips,
+                            min_chips=spec.min_chips, fused=spec.fused, telemetry=probe,
+                            device=x0.device)
+    return res if probe is not None else (res, None)
 
 
 def _stream_cells(spec: Sweep, name: str, x0, arr) -> engine.StreamResult:
     """Every cell of one policy column through the bounded-slot loop, each
-    rate's window ``(warmup_frac, end_frac) x n_jobs / rate``."""
+    rate's window ``(warmup_frac, end_frac) x n_jobs / rate`` (the probe's
+    too)."""
     skw = dict(spec.stream)
     n_slots = int(skw["n_slots"])
     warm, end = _stream_window(skw)
     span = spec.n_jobs / torch.tensor(spec.rates, dtype=x0.dtype, device=x0.device)[:, None]
     window = (warm * span, end * span)  # [R, 1]: over the cells' [R, S]
-    rank_pol = make_rank_policy(name) if spec.n_chips is None and not spec.fused else None
+    probe = _probe(spec, n_slots, window)
+    rank_pol = (make_rank_policy(name)
+                if spec.n_chips is None and not spec.fused and probe is None else None)
     if rank_pol is not None:
         return engine.run_stream_ranked(
             x0, arr, spec.p, spec.n_servers, rank_pol, n_slots=n_slots, window=window,
@@ -371,14 +483,17 @@ def _stream_cells(spec: Sweep, name: str, x0, arr) -> engine.StreamResult:
     )
     return simulate_stream(
         Scenario(x0, arr), spec.p, spec.n_servers, pol, n_slots=n_slots, window=window,
-        n_chips=spec.n_chips, min_chips=spec.min_chips, fused=spec.fused, device=x0.device,
+        n_chips=spec.n_chips, min_chips=spec.min_chips, fused=spec.fused, telemetry=probe,
+        device=x0.device,
     )
 
 
 def draw_scenario(spec: Sweep, *, seeds=None, device="cuda") -> Scenario:
     """The sweep's tapes ``[R, S, M]`` for ``seeds`` (default all; a seed
     chunk draws the same tapes): one generator per seed, its draw shared
-    across the rate axis.  A drift scenario's times come out ``[R, S, D]``."""
+    across the rate axis.  A drift scenario's times come out ``[R, S, D]``;
+    estimation noise ``size_factors`` ``[R, S, M]`` and ``p_hat``
+    ``[R, S, 1]``."""
     sampler = make_scenario(
         spec.scenario, size_alpha=spec.size_alpha, p=spec.p, **dict(spec.scenario_kw)
     )
@@ -390,37 +505,52 @@ def draw_scenario(spec: Sweep, *, seeds=None, device="cuda") -> Scenario:
     drift = None
     if scns[0].p_drift is not None:  # the regimes are the spec's, alike in every seed
         drift = PDrift(torch.stack([s.p_drift.times for s in scns], 1), scns[0].p_drift.values)
+
+    def stacked(field):
+        first = getattr(scns[0], field)
+        return None if first is None else torch.stack([getattr(s, field) for s in scns], 1)
+
     return Scenario(
-        x0=torch.stack([s.x0 for s in scns], 1),
-        arrival_times=torch.stack([s.arrival_times for s in scns], 1),
-        p_drift=drift,
+        x0=stacked("x0"), arrival_times=stacked("arrival_times"), p_drift=drift,
+        size_factors=stacked("size_factors"), p_hat=stacked("p_hat"),
     )
 
 
-def simulate_cells(spec: Sweep, x0, arr, *, p_drift=None, device="cuda") -> dict:
+def simulate_cells(spec: Sweep, x0, arr, *, p_drift=None, size_factors=None, p_hat=None,
+                   device="cuda") -> dict:
     """Run every policy of ``spec`` on given tapes ``x0``/``arr`` ``[R, S, M]``
-    (and the drift scenario's ``engine.PDrift``, times ``[R, S, D]``).
+    (and the drift scenario's ``engine.PDrift``, times ``[R, S, D]``; the
+    estimation noise, ``size_factors`` ``[R, S, M]`` and ``p_hat``
+    ``[R, S, 1]``).
 
-    Returns ``{policy: {metric: ndarray [R, S]}}`` (float64, counts of a
-    stream sweep included, as in the JAX sweep) — the executor
-    :func:`run_sweep` uses, open to tapes drawn elsewhere (e.g. by the JAX
-    sampler, for parity).
+    Returns ``{policy: {column: ndarray [R, S]}}`` over
+    :meth:`Sweep.out_names` (float64, counts of a stream sweep included, as
+    in the JAX sweep) — the executor :func:`run_sweep` uses, open to tapes
+    drawn elsewhere (e.g. by the JAX sampler, for parity).
     """
     dev = resolve_device(device)
     x0 = as_tensor(x0, dev)
     arr = as_tensor(arr, dev)
     if p_drift is not None:
         p_drift = PDrift(as_tensor(p_drift.times, dev), as_tensor(p_drift.values, dev))
+    scn = Scenario(
+        x0, arr, p_drift=p_drift,
+        size_factors=None if size_factors is None else as_tensor(size_factors, dev),
+        p_hat=None if p_hat is None else as_tensor(p_hat, dev),
+    )
     stats = {}
     for name in spec.policies:
         if spec.stream:
             res = _stream_cells(spec, name, x0, arr)
+            tel = res.telemetry
             fields = {m: STREAM_METRICS[m] for m in spec.metrics}
         else:
-            res = _policy_cells(spec, name, x0, arr, p_drift)
+            res, tel = _policy_cells(spec, name, scn)
             fields = {m: m for m in spec.metrics}
-        stats[name] = {m: getattr(res, f).to(torch.float64).cpu().numpy()
-                       for m, f in fields.items()}
+        cols = {m: getattr(res, f) for m, f in fields.items()}
+        if tel is not None:
+            cols.update(zip(scalar_columns(spec.telemetry), scalar_values(tel, spec.telemetry)))
+        stats[name] = {m: v.to(torch.float64).cpu().numpy() for m, v in cols.items()}
     return stats
 
 
@@ -480,10 +610,12 @@ def run_sweep(
     for s0 in range(0, spec.n_seeds, step):
         scn = draw_scenario(spec, seeds=range(s0, min(s0 + step, spec.n_seeds)), device=dev)
         parts.append(simulate_cells(  # .cpu() synchronizes
-            spec, scn.x0, scn.arrival_times, p_drift=scn.p_drift, device=dev
+            spec, scn.x0, scn.arrival_times, p_drift=scn.p_drift,
+            size_factors=scn.size_factors, p_hat=scn.p_hat, device=dev,
         ))
     stats = {
-        name: {m: np.concatenate([part[name][m] for part in parts], 1) for m in spec.metrics}
+        name: {m: np.concatenate([part[name][m] for part in parts], 1)
+               for m in spec.out_names()}
         for name in spec.policies
     }
     wall_s = time.perf_counter() - t0
@@ -502,6 +634,7 @@ def run_sweep(
 
 
 __all__ = [
+    "ARMS",
     "BENCH_JSON",
     "RUN_LOG",
     "RUN_LOG_MAX",

@@ -1,1 +1,2 @@
-"""Entry points of the port: ``serve.py`` (batched prefill + greedy decode)."""
+"""Entry points of the port: ``serve.py`` (batched prefill + greedy decode)
+and ``trace_export.py`` (a recorded, probed schedule as Perfetto JSON)."""

@@ -27,9 +27,9 @@ from repro_torch.models.transformer import stack_apply, stack_init
 
 #: Where each family that is not ported yet stands in ROADMAP.md Queue A.
 UNPORTED_FAMILIES = {
-    "moe": "ROADMAP.md Queue A item 16 (the other model families)",
-    "vlm": "ROADMAP.md Queue A item 16 (the other model families)",
-    "audio": "ROADMAP.md Queue A item 16 (the other model families)",
+    "moe": "ROADMAP.md Queue A item 9 (the other model families)",
+    "vlm": "ROADMAP.md Queue A item 9 (the other model families)",
+    "audio": "ROADMAP.md Queue A item 9 (the other model families)",
 }
 
 

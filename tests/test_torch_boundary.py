@@ -50,7 +50,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
     for name in ("kernels.alloc", "core.sweeps", "kernels.flash_attention", "kernels.ops",
                  "kernels.ssd_scan", "kernels.chunked", "models.model", "models.ssm",
                  "models.convert", "launch.serve", "train.serve_step", "core.superstep",
-                 "configs.paper", "figures"):
+                 "configs.paper", "figures", "core.telemetry", "core.estimation",
+                 "launch.trace_export"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["bad"] == []
 
@@ -60,15 +61,22 @@ def _entry_points():
     from repro_torch.core import arrivals, engine, flowtime, scenarios, simulator, sweeps
     from repro_torch.configs import smoke_config
     from repro_torch.core.policies import hesrpt
-    from repro_torch.launch import serve
+    from repro_torch.core.estimation import simulate_scenario_estimated
+    from repro_torch.launch import serve, trace_export
     from repro_torch.models.convert import params_from_jax
     from repro_torch.models.model import build_model
 
     spec = sweeps.Sweep.create(("hesrpt",), (1.0,), n_jobs=4, n_seeds=1)
     stream_spec = sweeps.Sweep.create(("hesrpt",), (1.0,), n_jobs=4, n_seeds=1,
                                       stream={"n_slots": 2})
+    tel_spec = sweeps.Sweep.create(("hesrpt",), (1.0,), n_jobs=4, n_seeds=1, telemetry=True)
     x, a = [2.0, 1.0], [0.0, 0.5]
     return {
+        "run_sweep_telemetry": lambda: sweeps.run_sweep(tel_spec),
+        "simulate_scenario_estimated": lambda: simulate_scenario_estimated(
+            scenarios.Scenario(torch.tensor(x), torch.tensor(a)), 0.5, 4.0, hesrpt, prior_p=0.5
+        ),
+        "export_sample": lambda: trace_export.export_sample(),
         "run_sweep": lambda: sweeps.run_sweep(spec),
         "run_sweep_stream": lambda: sweeps.run_sweep(stream_spec),
         "simulate_stream": lambda: arrivals.simulate_stream(

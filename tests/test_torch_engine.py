@@ -140,16 +140,21 @@ def test_batch_simulate_matches_theorem_8():
 
 
 def test_unported_engine_options_raise():
-    """telemetry and per-job drift rows (the multi-class form) are still
-    refused, naming ROADMAP.md; scalar drift regimes and the superstep,
-    ported since, are held in tests/test_torch_drift.py and
-    tests/test_torch_superstep.py."""
+    """Per-job drift rows (the multi-class form) are still refused, naming
+    ROADMAP.md; a probe on the superstep is refused in the JAX package's
+    words (probes ride the per-event loop, held in
+    tests/test_torch_telemetry.py); scalar drift regimes and the superstep
+    are held in tests/test_torch_drift.py and tests/test_torch_superstep.py."""
+    from repro_torch.core.telemetry import make_probe
+
     x, a = (torch.tensor(v[0]) for v in _tapes())
     rule = te.quantized_rule(tp.hesrpt, 16)
     rows = te.PDrift(torch.tensor([1.0]), torch.full((2, M), 0.5, dtype=torch.float64))
-    for kw in ({"telemetry": object()}, {"p_drift": rows}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            te.run(x, a, P, rule, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        te.run(x, a, P, rule, p_drift=rows)
+    with pytest.raises(ValueError, match="telemetry probes ride the per-event scan"):
+        te.run(x, a, P, te.continuous_rule(tp.hesrpt, 16.0), superstep=True,
+               telemetry=make_probe(mode="series"))
     with pytest.raises(ValueError, match="fused_variant"):
         te.run(x, a, P, te.quantized_rule(tp.equi, 16), fused=True)
 

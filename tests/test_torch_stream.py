@@ -19,7 +19,9 @@ numpy arrays, float64 throughout.
 - ``poisson_source`` in distribution (its draws cannot be JAX's);
 - ``Sweep(stream=)`` on JAX's tapes against JAX's ``run_sweep``, and the
   spec's round trip through a JAX record;
-- the refusals the JAX package makes, and ``telemetry=``.
+- the refusals the JAX package makes, a windowed series probe among them
+  (probes through the stream loops are held in
+  ``tests/test_torch_telemetry.py``).
 """
 
 import functools
@@ -43,6 +45,7 @@ from repro_torch.core import engine as te  # noqa: E402
 from repro_torch.core import policies as tp  # noqa: E402
 from repro_torch.core import scenarios as tsc  # noqa: E402
 from repro_torch.core import sweeps as tsw  # noqa: E402
+from repro_torch.core import telemetry as tt  # noqa: E402
 
 RTOL = 1e-12
 P = 0.5
@@ -312,9 +315,8 @@ _REFUSALS = {
     "tensor_p_ranked": (ValueError, "scalar p", lambda: te.run_stream_ranked(
         torch.ones(3), torch.zeros(3), torch.full((3,), P), 1.0, tp.make_rank_policy("hesrpt"),
         n_slots=2)),
-    "telemetry": (NotImplementedError, "item 5", lambda: te.run_stream(
-        torch.ones(3), torch.zeros(3), P, te.continuous_rule(tp.hesrpt, 1.0), n_slots=2,
-        telemetry=object())),
+    "telemetry": (ValueError, "stream-mode only", lambda: tt.make_probe(
+        mode="series", window=(0.0, 1.0))),
     "drift_scenario": (ValueError, "p_drift cannot stream", lambda: ta.simulate_stream(
         tsc.make_scenario("drift_poisson")(torch.Generator().manual_seed(0), 8, 1.0), P, 1.0,
         tp.hesrpt, n_slots=4, device="cpu")),

@@ -170,7 +170,8 @@ def test_sweep_superstep_equals_plain_sweep():
     plain = tsw.Sweep.create(("hesrpt", "equi", "srpt"), (0.8, 4.0), **kw)
     ss = tsw.Sweep.create(("hesrpt", "equi", "srpt"), (0.8, 4.0), superstep=True, **kw)
     assert ss.superstep and ss._replace(superstep=False) == plain
-    x0, arr, _ = tsw.draw_scenario(plain, device="cpu")
+    scn = tsw.draw_scenario(plain, device="cpu")
+    x0, arr = scn.x0, scn.arrival_times
     want = tsw.simulate_cells(plain, x0, arr, device="cpu")
     got = tsw.simulate_cells(ss, x0, arr, device="cpu")
     for pol in plain.policies:

@@ -87,15 +87,18 @@ def test_from_spec_dict_round_trips_and_refuses_unported_regimes():
     for field in tsw.Sweep._fields:
         assert getattr(spec_t, field) == getattr(spec_j, field), field
     # snap_slices: the JAX package's own refusal (it wires it only for
-    # multi-class sweeps); telemetry and estimation noise are not ported.
+    # multi-class sweeps); telemetry with classes and per-class noise
+    # sequences wait for the multi-class slice.
     with pytest.raises(ValueError, match="multi-class"):
         tsw.Sweep.from_spec_dict({**d, "snap_slices": True})
     with pytest.raises(ValueError, match="multi-class"):
         js.Sweep.create(("hesrpt",), (1.0,), n_chips=16, snap_slices=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsw.Sweep.from_spec_dict({**d, "telemetry": ["efficiency"]})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tsw.Sweep.create(("hesrpt",), (1.0,), scenario="bursty", scenario_kw={"sigma_size": 0.3})
+        tsw.Sweep.from_spec_dict({**d, "telemetry": ["efficiency"],
+                                  "classes": [[0.3, 1.0], [0.7, 1.0]]})
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        tsw.Sweep.create(("hesrpt",), (1.0,), scenario="bursty",
+                         scenario_kw={"sigma_size": (0.3, 0.1)})
     with pytest.raises(TypeError):
         tsw.Sweep.create(("hesrpt",), (1.0,), scenario="poisson", scenario_kw={"burst": 2.0})
     with pytest.raises(ValueError):
