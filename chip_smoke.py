@@ -212,7 +212,25 @@ raises, and the exit code is not 0):
     every column within 1e-12 relative, the smoke fused lane's histograms
     within 1e-12; (f) ``trace_export.export_sample(n_chips=16)`` on the
     card (heSRPT through the fused allocate) passes
-    ``validate_trace_events`` (24 alloc launches).
+    ``validate_trace_events`` (24 alloc launches);
+27. multi-class workloads (``core/multiclass.py``), which launch no kernel,
+    as in the reference (the alloc count is zeroed before (a) and must read
+    0 after it): (a) ``lanes.multiclass_specs``, ``benchmarks/
+    multiclass.py``'s grid: K = 4 at its full size (1000 jobs x 10 seeds x
+    rates 0.5, 2, 8, 256 servers, continuous), K = 2 and 3 at its quick size
+    (300 x 8; cut for the time budget), each of the four class-aware
+    policies one ``run_sweep`` of one ``[R * S, M]`` batch: each policy's
+    wall, the overall and per-class mean flow and slowdown, and the
+    class-aware / class-blind ratios of ``gap_rows``; (b) the K = 2 snap
+    pair (``hesrpt_pc`` on 256 chips, 300 jobs x 8 seeds, slices off and
+    on): walls and the snapped / whole-chips ratio; (c) K = 3 classes at
+    p = 0.5 through ``simulate_multiclass`` bit for bit with the
+    single-class run on the same tapes, continuous and whole chips; (d) K =
+    4's ``hesrpt_pc`` column run twice, every column bit for bit (the
+    per-class sums are fixed-order masked sums, no atomics); (e) smoke
+    ``Sweep(classes=)``, its snapped twin, a ``drift_multiclass`` sweep and
+    ``simulate_multiclass(estimator_kw=)``, CPU against card within 1e-12
+    relative.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -2130,6 +2148,149 @@ def phase_telemetry(alloc, lanes, sweeps, engine, policies, telemetry, analysis,
             "export_events": len(events), "phase_s": phase_s}
 
 
+def phase_multiclass(alloc, lanes, sweeps, multiclass, arrivals, policies, card,
+                     device) -> dict:
+    """Phase 27: multi-class workloads.  The path launches no kernel, as in
+    the reference: the alloc count is zeroed before (a) and must read 0
+    after it."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    alloc.LAUNCHES = 0
+    # (a) The class-aware grid: one run_sweep a policy, each one [R * S, M]
+    # batch through the generic loop.
+    # K = 4 at benchmarks/multiclass.py's full grid; K = 2 and 3 at that
+    # file's quick size (300 jobs x 8 seeds), cut for the script's time
+    # budget: at full size the two columns add ~46 s on an H100 (PERF.md
+    # section 5), which takes the phase past 90 s.
+    quick = dict(lanes.multiclass_specs("quick"))
+    grids = {"K=4": dict(lanes.multiclass_specs("full"))["K=4"],
+             "K=3": quick["K=3"], "K=2": quick["K=2"]}
+    walls, tables, gaps, results = {}, {}, {}, {}
+    for label in sorted(grids, reverse=True):
+        spec = grids[label]
+        by_pol, stats = {}, {}
+        for name in spec.policies:
+            res = sweeps.run_sweep(spec._replace(policies=(name,)), device=device)
+            by_pol[name] = res.wall_s
+            stats[name] = res.stats[name]
+            for m, a in stats[name].items():
+                assert np.all(np.isfinite(a)), (label, name, m)
+        res = sweeps.SweepResult(spec, stats, sum(by_pol.values()), device.type, 1, device)
+        walls[label], results[label] = by_pol, res
+        gaps[label] = lanes.gap_ratios(res)
+        # Means over seeds: [R] overall, [R, K] per class.
+        tables[label] = {name: {m: a.mean(axis=1).tolist() for m, a in stats[name].items()}
+                         for name in spec.policies}
+
+    alloc_launches = alloc.LAUNCHES
+    assert alloc_launches == 0, f"the class-aware grid launched the alloc kernel {alloc_launches}x"
+
+    # (b) The K = 2 snap pair on 256 whole chips.
+    pair = {label: sweeps.run_sweep(spec, device=device)
+            for label, spec in lanes.multiclass_specs("full") if label.startswith("snap")}
+    off, on = (pair[k].stats["hesrpt_pc"]["mean_flowtime"] for k in ("snap-off", "snap-on"))
+    snap_ratio = [float(on[r].mean() / off[r].mean()) for r in range(off.shape[0])]
+
+    # (c) The equal-p reduction: K = 3 classes at p = 0.5 are the
+    # single-class run bit for bit, continuous and whole chips.
+    eq = tuple(multiclass.ClassSpec(p=0.5, mix=1.0 / 3, size_alpha=a, size_scale=s)
+               for a, s in ((1.5, 1.0), (2.0, 2.0), (2.5, 4.0)))
+    eq_spec = sweeps.Sweep.create(("hesrpt_pc",), lanes.MC_RATES, scenario="multiclass_poisson",
+                                  n_jobs=300, n_seeds=8, n_servers=256.0, classes=eq)
+    scn = sweeps.draw_scenario(eq_spec, device=device)
+    equal = {}
+    for regime, kw in (("continuous", {}), ("chips", {"n_chips": 256})):
+        got = multiclass.simulate_multiclass(scn, classes=eq, policy="hesrpt_pc",
+                                             n_servers=256.0, device=device, **kw)
+        if kw:
+            ref = arrivals.simulate_online_quantized(scn.x0, scn.arrival_times, 0.5, 256,
+                                                     policies.hesrpt, device=device)
+        else:
+            ref = arrivals.simulate_online(scn.x0, scn.arrival_times, 0.5, 256.0,
+                                           policies.hesrpt, device=device)
+        equal[regime] = bool(torch.equal(got.completion_times, ref.completion_times))
+        assert equal[regime], f"equal-p classes differ from the single-class run ({regime})"
+
+    # (d) Determinism: K = 4's hesrpt_pc column again, every column bit for bit.
+    k4 = grids["K=4"]
+    again = sweeps.run_sweep(k4._replace(policies=("hesrpt_pc",)), device=device)
+    deterministic = all(np.array_equal(again.stats["hesrpt_pc"][m],
+                                       results["K=4"].stats["hesrpt_pc"][m])
+                        for m in k4.metrics)
+    assert deterministic, "two card runs of the K = 4 hesrpt_pc column differ"
+
+    # (e) CPU against card at smoke size: Sweep(classes=), a drift_multiclass
+    # sweep, and simulate_multiclass(estimator_kw=).
+    smoke = dict(lanes.multiclass_specs("smoke"))
+    drift_spec = smoke["K=2"]._replace(scenario="drift_multiclass",
+                                       scenario_kw=(("p1", (0.15, 0.25)),))
+    cpu_gap = 0.0
+    for sm in (smoke["K=2"], smoke["snap-on"], drift_spec):
+        s_scn = sweeps.draw_scenario(sm, device="cpu")
+        kw = dict(p_drift=s_scn.p_drift, class_ids=s_scn.class_ids, p_job=s_scn.p_job)
+        cpu_gap = max(cpu_gap, _sweep_gap(
+            sweeps.simulate_cells(sm, s_scn.x0, s_scn.arrival_times, device="cpu", **kw),
+            sweeps.simulate_cells(sm, s_scn.x0, s_scn.arrival_times, device=device, **kw)))
+    est_scn = sweeps.draw_scenario(smoke["K=2"], device="cpu")
+    est = {}
+    for dev in ("cpu", device):
+        moved = est_scn._replace(**{f: getattr(est_scn, f).to(dev)
+                                    for f in ("x0", "arrival_times", "class_ids", "p_job")})
+        est[str(dev)] = multiclass.simulate_multiclass(
+            moved, classes=smoke["K=2"].classes, policy="hesrpt_pc", n_servers=256.0,
+            estimator_kw={"discount": 0.95}, device=dev).completion_times.cpu()
+    want = est["cpu"]
+    est_gap = float(((est[str(device)] - want).abs() / want.abs()).max())
+    cpu_gap = max(cpu_gap, est_gap)
+    assert cpu_gap <= 1e-12, f"multi-class CPU vs card {cpu_gap}"
+    phase_s = time.perf_counter() - t_phase
+
+    for label in sorted(grids, reverse=True):
+        spec = grids[label]
+        print(f"phase 27: {label} ({spec.n_jobs} jobs x {spec.n_seeds} seeds x rates "
+              f"{spec.rates}, {int(spec.n_servers)} servers, continuous, "
+              f"{alloc_launches} alloc launches) on {card}: walls "
+              + ", ".join(f"{n} {w:.3f} s" for n, w in walls[label].items()), flush=True)
+        for name, t in tables[label].items():
+            print(f"phase 27: {label} {name:>12s} mean flow | slowdown by rate: "
+                  + "  ".join(f"{f:.4f} | {s:.3f}" for f, s in zip(
+                      t["mean_flowtime"], t["mean_slowdown"], strict=True)), flush=True)
+            print(f"phase 27: {label} {name:>12s} per class at rate {spec.rates[-1]:g}: "
+                  + "  ".join(f"k={k}: flow {f:.4f} slow {s:.3f}" for k, (f, s) in enumerate(
+                      zip(t["class_flowtime"][-1], t["class_slowdown"][-1], strict=True))),
+                  flush=True)
+        print(f"phase 27: {label} class-aware/class-blind mean flow "
+              + "  ".join(f"{r:g}: {g:.3f}" for r, g in zip(spec.rates, gaps[label]["flow"],
+                                                          strict=True))
+              + "; mean slowdown "
+              + "  ".join(f"{r:g}: {g:.3f}" for r, g in zip(spec.rates,
+                                                          gaps[label]["slowdown"], strict=True)),
+              flush=True)
+    snap_spec = dict(lanes.multiclass_specs("full"))["snap-on"]
+    print(f"phase 27: snap pair (K = 2, hesrpt_pc, {snap_spec.n_chips} chips, "
+          f"{snap_spec.n_jobs} jobs x {snap_spec.n_seeds} seeds): walls off "
+          f"{pair['snap-off'].wall_s:.3f} s, on {pair['snap-on'].wall_s:.3f} s; snapped / "
+          "whole-chips mean flow " + "  ".join(
+              f"{r:g}: {g:.3f}" for r, g in zip(snap_spec.rates, snap_ratio, strict=True)),
+          flush=True)
+    print(f"phase 27: equal-p reduction (K = 3 at p = 0.5, 300 jobs x 8 seeds x 3 rates) bit "
+          f"for bit with the single-class run: continuous {equal['continuous']}, chips "
+          f"{equal['chips']}; K = 4 hesrpt_pc twice on the card bit for bit: {deterministic} "
+          f"(wall {again.wall_s:.3f} s)", flush=True)
+    print(f"phase 27: smoke Sweep(classes=), snapped, drift_multiclass and the class "
+          f"estimator CPU vs card {cpu_gap:.2e} relative (estimator {est_gap:.2e}); phase 27 "
+          f"took {phase_s:.1f} s", flush=True)
+    return {"walls_s": walls, "tables": tables, "gaps": gaps,
+            "snap_walls_s": {k: v.wall_s for k, v in pair.items()}, "snap_ratio": snap_ratio,
+            "equal_p_bit_for_bit": equal, "deterministic": deterministic,
+            "repeat_wall_s": again.wall_s, "cpu_vs_cuda_max_rel": cpu_gap,
+            "alloc_launches": alloc_launches,
+            "jobs_seeds": {k: [s.n_jobs, s.n_seeds] for k, s in grids.items()},
+            "phase_s": phase_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -2148,7 +2309,8 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import figures, lanes
     from repro_torch.core import (
-        analysis, engine, flowtime, policies, scenarios, simulator, superstep, sweeps, telemetry,
+        analysis, arrivals, engine, flowtime, multiclass, policies, scenarios, simulator,
+        superstep, sweeps, telemetry,
     )
     from repro_torch.launch import trace_export
     from repro_torch.kernels import alloc, chunked, flash_attention, ops, ref, rglru_scan, ssd_scan
@@ -2210,6 +2372,7 @@ def main() -> int:
     stream = phase_stream(alloc, lanes, sweeps, engine, scenarios, policies, card, device)
     tel = phase_telemetry(alloc, lanes, sweeps, engine, policies, telemetry, analysis,
                           trace_export, card, device)
+    mc = phase_multiclass(alloc, lanes, sweeps, multiclass, arrivals, policies, card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -2330,6 +2493,7 @@ def main() -> int:
         "snap_chunk_timing": snap,
         "stream": stream,
         "telemetry": tel,
+        "multiclass": mc,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -16,6 +16,9 @@ The PyTorch/CUDA port of the JAX package ``repro``.  Its paths so far:
   ``tel_*`` sweep columns (``core/telemetry.py``), the Perfetto export
   (``launch/trace_export.py``), the estimating rule, estimation noise and
   the estimation arms (``core/estimation.py``, ``Sweep(arm=)``);
+- multi-class workloads: per-job exponents and per-job drift rows through
+  the event loop, the class-aware policies and samplers, class-pooled
+  estimation and ``Sweep(classes=)`` (``core/multiclass.py``);
 - serving the dense, ssm and hybrid families (batched prefill, greedy
   decode over KV, conv and state caches): ``configs/``, ``models/``,
   ``train/serve_step.py``, ``launch/serve.py``, with the flash, SSD and

@@ -1,9 +1,9 @@
 """Online (arrival-stream) simulation — thin wrappers over ``core/engine.py``.
 
-Port of the single-class part of ``repro.core.arrivals`` (the generic, the
-carried-rank, the superstep and the whole-chips paths, each under a
-drifting ``p`` where the engine takes one; :func:`simulate_scenario` with
-estimation noise and a telemetry probe): each wrapper takes ``[..., M]``
+Port of ``repro.core.arrivals`` (the generic, the carried-rank, the
+superstep and the whole-chips paths, each under a drifting ``p`` where the
+engine takes one; :func:`simulate_scenario` with estimation noise, a
+telemetry probe and the class-blind run of a multi-class scenario): each wrapper takes ``[..., M]``
 tapes (array-likes or tensors, moved to ``device``), runs the engine over
 every cell at once and reduces completion times to per-job flow times and
 slowdowns (:class:`OnlineSimResult`, per-cell scalars over the leading
@@ -123,19 +123,23 @@ def simulate_online_quantized(
     return (out, res) if record else out
 
 
-def _noise_rows(scn: Scenario, x0, arr):
-    """The scenario's estimation noise in the loop's form: size factors
-    ``[C, M]`` in each row's arrival-sorted order (the order ``engine.run``
-    walks), ``p_hat`` a float or a ``[C, 1]`` column."""
-    M = x0.shape[-1]
-    factors = scn.size_factors
-    if factors is not None:
-        order = torch.argsort(arr.reshape(-1, M), dim=-1, stable=True)
-        factors = as_tensor(factors, x0.device).expand_as(x0).reshape(-1, M).gather(-1, order)
+def _noise_rows(scn: Scenario, x0, order):
+    """The scenario's estimation noise in the loop's form: size factors and a
+    per-job ``p_hat`` ``[C, M]`` in each row's arrival order ``order`` (the
+    ``engine.loop_order`` of the tapes), any other ``p_hat`` a float or a
+    ``[C, 1]`` column."""
+    lead = x0.shape[:-1]
+
+    def rows(v):
+        return engine.to_loop_order(as_tensor(v, x0.device), order, lead)
+
+    factors = None if scn.size_factors is None else rows(scn.size_factors)
     p_hat = scn.p_hat
-    if isinstance(p_hat, torch.Tensor):
+    if engine.is_per_job(p_hat, x0.shape[-1]):
+        p_hat = rows(p_hat)
+    elif isinstance(p_hat, torch.Tensor):
         p_hat = (float(p_hat) if p_hat.ndim == 0
-                 else as_tensor(p_hat, x0.device).expand(*x0.shape[:-1], 1).reshape(-1, 1))
+                 else as_tensor(p_hat, x0.device).expand(*lead, 1).reshape(-1, 1))
     return factors, p_hat
 
 
@@ -154,9 +158,25 @@ def simulate_scenario(
     (the oracle arm); ``p`` still normalizes the slowdowns.  ``telemetry``
     takes a probe (``core/telemetry.py``); the return is then
     ``(OnlineSimResult, TelemetryResult)``.
+
+    A multi-class scenario (``scn.p_job`` set) runs the physics, and
+    normalizes the slowdowns, on each job's own exponent while the policy
+    sees the scalar ``p``, or the row mean of a per-job ``scn.p_hat``: the
+    class-blind baseline (the class-aware policies are
+    ``core/multiclass.py``'s).
     """
     x0, arr = _tapes(scn.x0, scn.arrival_times, device)
-    factors, p_hat = _noise_rows(scn, x0, arr)
+    p_phys, p_hat = p, scn.p_hat
+    if scn.p_job is not None:
+        p_phys = as_tensor(scn.p_job, x0.device).expand_as(x0)
+        if p_hat is None:
+            p_hat = p  # the class-blind policy still assumes the scalar p
+    if engine.is_per_job(p_hat, x0.shape[-1]):
+        # One belief a row, the mean of the per-job estimates: the
+        # single-class brackets telescope to 1 only for one exponent.
+        p_hat = as_tensor(p_hat, x0.device).expand_as(x0).mean(-1, keepdim=True)
+    order = engine.loop_order(arr.expand_as(x0).reshape(-1, x0.shape[-1]))
+    factors, p_hat = _noise_rows(scn._replace(p_hat=p_hat), x0, order)
     if n_chips is not None:
         rule = engine.quantized_rule(policy, n_chips, min_chips=min_chips, dtype=x0.dtype,
                                      size_factors=factors, p_hat=p_hat)
@@ -165,9 +185,9 @@ def simulate_scenario(
         rule = engine.continuous_rule(policy, n_servers, dtype=x0.dtype,
                                       size_factors=factors, p_hat=p_hat)
         n_alone = n_servers
-    res = engine.run(x0, arr, p, rule, horizon=horizon, rel_tol=rel_tol, fused=fused,
+    res = engine.run(x0, arr, p_phys, rule, horizon=horizon, rel_tol=rel_tol, fused=fused,
                      p_drift=scn.p_drift, telemetry=telemetry)
-    out = _finalize(x0, arr, res.completion_times, p, n_alone)
+    out = _finalize(x0, arr, res.completion_times, p_phys, n_alone)
     return (out, res.telemetry) if telemetry is not None else out
 
 

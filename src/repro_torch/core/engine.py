@@ -27,6 +27,9 @@ tensor value — so the loop is bound by launches, not by syncs.
   (:class:`PDrift`): each row's regime boundaries are events of their own,
   and the rule sees each row's current ``p`` as a ``[C, 1]`` column, which
   the fused allocate hands to the kernel (one exponent a cell).
+- per-job exponents (the multi-class runs, ``core/multiclass.py``): a
+  ``p[..., M]`` and per-job drift rows travel with their jobs into the
+  loop's arrival order, and the rule sees a ``[C, M]`` exponent.
 - :func:`snap_to_slices` — whole chips snapped to power-of-two slices
   (``quantized_rule(snap_slices=True)``, ``knee_rule`` likewise).
 - :func:`run_stream`, :func:`run_stream_ranked` and
@@ -41,9 +44,6 @@ tensor value — so the loop is bound by launches, not by syncs.
   :func:`quantized_rule` take estimation noise (``size_factors``,
   ``p_hat``), and ``core/estimation.py`` builds the estimating
   :class:`StatefulRule`.
-
-Not ported yet (ROADMAP.md Queue A, item 6b): per-job drift rows and the
-multi-class runs.
 """
 
 from __future__ import annotations
@@ -81,13 +81,13 @@ class PDrift(NamedTuple):
     or ``[..., D]`` / ``[..., D + 1]`` broadcasting over the cells' lead
     dims (a sweep's drift time differs by rate).  Between ``times[r-1]`` and
     ``times[r]`` the physics, and the ``p`` the rule is shown, use
-    ``values[r]``.  Per-job regime rows (``values`` ``[D + 1, M]``, more
-    dims than ``times``) are the JAX package's multi-class form and are not
-    ported yet.
+    ``values[r]``.  Per-job regime rows, ``values`` ``[..., D + 1, M]`` in
+    input job order (one more dim than ``times``: the multi-class form),
+    give every job its own exponent in each regime.
     """
 
     times: torch.Tensor  # [D] or [..., D] regime-change epochs, ascending
-    values: torch.Tensor  # [D + 1] or [..., D + 1] exponent per regime
+    values: torch.Tensor  # [D + 1], [..., D + 1] or per job [..., D + 1, M]
 
 
 def _per_job_rows(p_drift: PDrift) -> bool:
@@ -115,8 +115,9 @@ class ProbeEvent(NamedTuple):
     rate: torch.Tensor  # [C, M] realized service rate
     active: torch.Tensor  # [C, M] bool, arrived & unfinished this epoch
     x: torch.Tensor  # [C, M] remaining sizes at epoch start
-    p: Any  # float, or [C, 1] under drift: the true exponent this epoch
+    p: Any  # float, [C, 1] under drift, or [C, M] per job: the true exponent
     rule_state: Any  # the rule's state at epoch start
+    p_per_job: bool = False  # p is one exponent a job (even at M == 1)
 
 
 class StatefulRule(NamedTuple):
@@ -337,25 +338,51 @@ def _cells(x0, arrival_times):
     return x0, arr, lead, dtype
 
 
-def _drift_rows(p_drift: PDrift, lead, dtype, device):
+def loop_order(arr: torch.Tensor) -> torch.Tensor:
+    """The order :func:`run` walks each cell row in: a stable argsort of its
+    arrival times ``[C, M]``.  A rule's closure over per-job vectors takes
+    them through :func:`to_loop_order` with this order."""
+    return torch.argsort(arr, dim=-1, stable=True)
+
+
+def to_loop_order(v: torch.Tensor, order: torch.Tensor, lead, mid=()) -> torch.Tensor:
+    """Per-job values in input order, ``v`` ``[..., *mid, M]`` broadcasting
+    over the cells' ``lead`` dims, as the loop's rows ``[C, *mid, M]`` in its
+    arrival order ``order`` ``[C, M]`` (``mid`` is ``(D + 1,)`` for per-job
+    drift regimes)."""
+    C, M = order.shape
+    v = v.expand(*lead, *mid, M).reshape(C, *mid, M)
+    return v.gather(-1, order.view(C, *(1,) * len(mid), M).expand(C, *mid, M))
+
+
+def is_per_job(v, M: int) -> bool:
+    """Whether ``v`` holds one value a job (a ``[..., M]`` tensor) rather than
+    one for every job (a float or a 0-d tensor) or one a cell row (a
+    ``[..., 1]`` column); at ``M == 1`` a tensor with a dim is per job."""
+    return isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[-1] == M
+
+
+def _drift_rows(p_drift: PDrift, lead, dtype, device, order=None):
     """``(times, values)`` of every cell row: ``[C, D + 1]`` boundaries
     with a ``+inf`` past the last (so the next boundary is a gather even
-    for ``D = 0``) and ``[C, D + 1]`` regimes."""
-    if _per_job_rows(p_drift):
-        raise NotImplementedError(
-            "per-job drift rows (PDrift.values [D + 1, M]) need the per-job p "
-            "of multi-class runs, not ported yet (ROADMAP.md Queue A, item 6b)"
-        )
+    for ``D = 0``) and ``[C, D + 1]`` regimes, or per-job rows ``[C, D + 1,
+    M]`` permuted by ``order`` (``[C, M]``, the loop's arrival order)."""
     times = torch.as_tensor(p_drift.times, device=device).to(dtype)
     values = torch.as_tensor(p_drift.values, device=device).to(dtype)
+    per_job = _per_job_rows(p_drift)
     D = times.shape[-1]
-    if values.shape[-1] != D + 1:
+    n_regimes = values.shape[-2] if per_job else values.shape[-1]
+    if n_regimes != D + 1:
         raise ValueError(f"PDrift needs D + 1 regimes for D boundaries, got "
-                         f"{values.shape[-1]} for {D}")
+                         f"{n_regimes} for {D}")
     C = math.prod(lead)
     times = times.expand(*lead, D).reshape(C, D)
     inf = torch.full((C, 1), torch.inf, dtype=dtype, device=device)
-    return torch.cat([times, inf], -1), values.expand(*lead, D + 1).reshape(C, D + 1)
+    if per_job:
+        values = to_loop_order(values, order, lead, (D + 1,))
+    else:
+        values = values.expand(*lead, D + 1).reshape(C, D + 1)
+    return torch.cat([times, inf], -1), values
 
 
 # ------------------------------------------------------------ the event loop
@@ -383,15 +410,19 @@ def run(
     drift boundaries, or ``horizon``).  Each step advances every cell to its
     next event (the ``min`` of next departure, next arrival and next drift
     boundary) and re-queries ``rule`` on the active set; steps after a
-    cell's last event are no-ops.  ``p`` is one exponent for every job
-    and every cell (per-job exponents come with the multi-class runs).
+    cell's last event are no-ops.  ``p`` is a float, one exponent for every
+    job and every cell, or a per-job tensor ``[..., M]`` in input order
+    (:func:`is_per_job`: the multi-class runs), which travels with its
+    jobs into the loop's arrival order; the rule then sees a ``[C, M]``
+    exponent, and a closure over per-job vectors must be permuted the same
+    way (:func:`loop_order`, :func:`to_loop_order`).
 
     ``p_drift`` (:class:`PDrift`) supersedes ``p`` with a piecewise-constant
     exponent: each row looks its regime up at its own clock, ``dt`` stops at
     the next boundary, the clock lands exactly on an arrival or a boundary,
     and ties go to the arrival, then the departure, then the boundary, as in
     the JAX scan.  The rule is shown each row's current ``p`` as a ``[C, 1]``
-    column.
+    column, or with per-job rows each job's as ``[C, M]``.
 
     ``record=True`` also returns the per-event trajectory; ``fused=True``
     swaps in the rule's ``fused_variant``.  ``superstep=True`` hands the
@@ -419,15 +450,19 @@ def run(
     x0, arr_in, lead, dtype = _cells(x0, arrival_times)
     C, M = x0.shape
     dev = x0.device
-    drift = None if p_drift is None else _drift_rows(p_drift, lead, dtype, dev)
+
+    # Event logic walks arrivals in time order; un-sort at the end.
+    order = loop_order(arr_in)
+    arr = arr_in.gather(-1, order)
+    x = x0.gather(-1, order)
+    per_job = is_per_job(p, M)
+    if per_job:  # per-job exponents travel with their jobs
+        p = to_loop_order(p.to(device=dev, dtype=dtype), order, lead)
+    drift = None if p_drift is None else _drift_rows(p_drift, lead, dtype, dev, order)
+    drift_per_job = drift is not None and drift[1].ndim == 3
     n_drift = 0 if drift is None else drift[0].shape[-1] - 1
     E = ((M if pre_arrived else 2 * M) + n_drift) if horizon is None else horizon
     tol = rel_tol * x0.amax(-1, keepdim=True)
-
-    # Event logic walks arrivals in time order; un-sort at the end.
-    order = torch.argsort(arr_in, dim=-1, stable=True)
-    arr = arr_in.gather(-1, order)
-    x = x0.gather(-1, order)
     idx = torch.arange(M, device=dev)
     i = torch.full((C, 1), M if pre_arrived else 0, dtype=torch.int64, device=dev)
     t = torch.full((C, 1), float(t0), dtype=dtype, device=dev)
@@ -447,7 +482,10 @@ def run(
             # The regime at each row's clock (right: a row landed on a
             # boundary already reads the new exponent) and its next boundary.
             r = torch.searchsorted(drift[0], t, right=True)
-            p_now = drift[1].gather(-1, r)
+            if drift_per_job:  # each job's exponent in its row's regime
+                p_now = drift[1].gather(1, r.unsqueeze(-1).expand(C, 1, M)).squeeze(1)
+            else:
+                p_now = drift[1].gather(-1, r)
             t_next_drift = drift[0].gather(-1, r)
             dt_drift = torch.clamp(t_next_drift - t, min=0.0)
         alloc, rate = srule.allocate(st, x_act, p_now)
@@ -487,7 +525,7 @@ def run(
         if tel is not None:
             tel, out = telemetry.step(tel, ProbeEvent(
                 t=t, dt=dt, alloc=alloc, rate=rate, active=active, x=x, p=p_now,
-                rule_state=st_start))
+                rule_state=st_start, p_per_job=per_job if drift is None else drift_per_job))
             tel_outs.append(out)
         if record:
             trace[0].append(alloc)
@@ -530,8 +568,15 @@ def run_ranked(
     so the ranks are carried — an arrival inserts one rank, a departure
     drops rank ``m`` — instead of re-sorted at every event.  Ties break by
     arrival order.  Returns completion times ``[..., M]`` in input order
-    (``inf`` if never departed).  ``p`` is a scalar.
+    (``inf`` if never departed).  ``p`` is a scalar: with per-job exponents
+    the rates are no longer monotone in size, so neither carried invariant
+    holds (those runs take :func:`run`).
     """
+    if isinstance(p, torch.Tensor) and p.ndim >= 1:
+        raise ValueError(
+            "run_ranked needs a scalar p — per-job exponents break the carried-rank "
+            "invariants; multi-class runs take the generic run()"
+        )
     x0, arr_in, lead, dtype = _cells(x0, arrival_times)
     C, M = x0.shape
     dev = x0.device

@@ -1,6 +1,6 @@
 """Online speedup-exponent estimation as loop-carried rule state.
 
-Port of the single-class part of ``repro.core.estimation``.  With
+Port of ``repro.core.estimation``.  With
 ``s(k) = c k^p`` every observation satisfies ``log T = log c + p log k``, so
 the discounted weighted least-squares slope needs only the running moments
 ``(sum w, sum w lk, sum w lt, sum w lk^2, sum w lk lt)`` a job, updated in
@@ -16,9 +16,12 @@ Every state tensor is ``[M]`` at first and ``[C, M]`` once the loop's
 first observation broadcasts it over the cell rows; :func:`blended_p_hat`
 returns one ``[C, 1]`` value a row, the form the policies take for ``p``.
 
-The class-pooled read-outs (``pool_by_class``, ``p_hat_classes``) and the
-class-aware rule (``estimating_class_rule``) belong to the multi-class
-slice (ROADMAP.md Queue A, item 6b) and raise.
+Jobs of one class share one exponent, so :func:`p_hat_classes` fits each
+class from the sum of its jobs' statistics (:func:`pool_by_class`, ``[C,
+K]``), and :func:`estimating_class_rule` shows the class-aware policies of
+``core/multiclass.py`` each job's class estimate.  The pooling is a masked
+sum over a one-hot ``[C, M, K]`` class mask (no atomic adds, so the order of
+the sums is fixed on the card).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine
+from repro_torch.core.analysis import _class_mask
 from repro_torch.core.policies import Policy
 from repro_torch.device import resolve_device
 
@@ -124,29 +128,31 @@ def blended_p_hat(state: EstState, x_act: torch.Tensor, prior_p, *, prior_weight
     return (ps * x_act).sum(-1, keepdim=True) / wsum.clamp(min=torch.finfo(x_act.dtype).tiny)
 
 
-def _multiclass(name: str):
-    raise NotImplementedError(
-        f"estimation.{name} is the multi-class estimator, not ported yet "
-        "(ROADMAP.md Queue A, item 6b)"
-    )
+def pool_by_class(state: EstState, class_ids, n_classes: int) -> EstState:
+    """Sum the per-job statistics ``[..., M]`` of each class into ``[..., K]``
+    (``class_ids`` in the state's arrival-sorted job order); ``n`` comes
+    back int64."""
+    mask = _class_mask(torch.as_tensor(class_ids, device=state.s_w.device), n_classes)
+    return EstState(*(torch.where(mask, f.unsqueeze(-1), 0).sum(-2) for f in state))
 
 
-def pool_by_class(*args, **kwargs):
-    """Multi-class (ROADMAP.md Queue A, item 6b): raises."""
-    _multiclass("pool_by_class")
+def p_hat_classes(state: EstState, class_ids, n_classes: int, prior_p, *, prior_weight=1.0,
+                  base: EstState | None = None) -> torch.Tensor:
+    """Per-class p-hat ``[..., K]`` from class-pooled statistics: the WLS on
+    the concatenated histories of a class's jobs.  ``prior_p`` and
+    ``prior_weight`` are scalars, per class ``[K]`` or per row ``[C, 1]``;
+    ``base`` adds already-pooled ``[K]`` statistics of jobs outside the
+    state (departed jobs keep informing their class)."""
+    pooled = pool_by_class(state, class_ids, n_classes)
+    if base is not None:
+        pooled = EstState(*(a + torch.as_tensor(b, device=a.device)
+                            for a, b in zip(pooled, base, strict=True)))
+    return _ridge_slope(pooled.n, pooled.s_w, pooled.s_k, pooled.s_t, pooled.s_kk,
+                        pooled.s_kt, _as_like(prior_p, state.s_w),
+                        _as_like(prior_weight, state.s_w))
 
 
-def p_hat_classes(*args, **kwargs):
-    """Multi-class (ROADMAP.md Queue A, item 6b): raises."""
-    _multiclass("p_hat_classes")
-
-
-def estimating_class_rule(*args, **kwargs):
-    """Multi-class (ROADMAP.md Queue A, item 6b): raises."""
-    _multiclass("estimating_class_rule")
-
-
-# ------------------------------------------------------ the stateful rule
+# ------------------------------------------------------ the stateful rules
 def _rule_parts(n_alloc, n_chips, min_chips, snap_slices, dtype, discount):
     """The allocate tail (``engine.finish_alloc``, true-p rate) and the
     observe closure; continuous rules observe the chip count
@@ -190,6 +196,38 @@ def estimating_rule(
     return engine.StatefulRule(init=lambda: init_state, observe=observe, allocate=allocate)
 
 
+def estimating_class_rule(
+    name: str, *, class_ids: torch.Tensor, n_classes: int, prior_p, prior_weight=1.0,
+    discount=1.0, dtype=torch.float64, n_servers: float | None = None,
+    n_chips: int | None = None, min_chips: int = 1, snap_slices: bool = False, w=None,
+    init_state: EstState | None = None, base_class_state: EstState | None = None,
+) -> engine.StatefulRule:
+    """Class-aware estimating rule: the ``core/multiclass.py`` policy
+    ``name`` sees each job's class p-hat (pooled statistics, read back
+    through ``class_ids``), the physics keep each job's true exponent.
+
+    ``class_ids`` and ``w`` are ``[C, M]`` (or ``[M]``) in the loop's
+    arrival-sorted order; ``prior_p`` / ``prior_weight`` scalars, per class
+    ``[K]`` or per row ``[C, 1]``.  ``base_class_state`` adds pooled ``[K]``
+    statistics of jobs not in this run.
+    """
+    from repro_torch.core.multiclass import class_theta
+
+    if init_state is None:
+        init_state = init_est_state(class_ids.shape[-1], dtype, device=class_ids.device)
+    n_alloc = float(n_chips) if n_chips is not None else float(n_servers)
+    finish, observe = _rule_parts(n_alloc, n_chips, min_chips, snap_slices, dtype, discount)
+
+    def allocate(state, x_act, p):
+        p_k = p_hat_classes(state, class_ids, n_classes, prior_p,
+                            prior_weight=prior_weight, base=base_class_state)
+        ids = class_ids.expand(*p_k.shape[:-1], class_ids.shape[-1])
+        p_seen = p_k.gather(-1, ids)
+        return finish(class_theta(name, x_act, p_seen, n_servers=n_alloc, w=w), p)
+
+    return engine.StatefulRule(init=lambda: init_state, observe=observe, allocate=allocate)
+
+
 def simulate_scenario_estimated(
     scn, p, n_servers, policy: Policy, *, prior_p, prior_weight=1.0, discount=1.0,
     n_chips: int | None = None, min_chips: int = 1, rel_tol: float = 1e-9,
@@ -197,9 +235,9 @@ def simulate_scenario_estimated(
 ):
     """Run drawn scenarios ``[..., M]`` with the estimator in the loop: the
     policy allocates with the blended p-hat fit online from observed
-    throughput, the physics use the true exponent (``scn.p_drift`` where
-    set).  The estimator-free arms are ``arrivals.simulate_scenario`` with
-    and without a pinned ``p_hat``.
+    throughput, the physics use the true exponent (``scn.p_job`` per job
+    where set, and ``scn.p_drift`` where set).  The estimator-free arms are
+    ``arrivals.simulate_scenario`` with and without a pinned ``p_hat``.
 
     ``telemetry`` takes a probe; the return is then ``(OnlineSimResult,
     TelemetryResult)`` (``p_hat_err`` reads the rule's state through
@@ -208,6 +246,8 @@ def simulate_scenario_estimated(
     from repro_torch.core.arrivals import _finalize, _tapes
 
     x0, arr = _tapes(scn.x0, scn.arrival_times, device)
+    if scn.p_job is not None:
+        p = torch.as_tensor(scn.p_job, dtype=x0.dtype, device=x0.device).expand_as(x0)
     rule = estimating_rule(
         policy, n_servers, prior_p=prior_p, prior_weight=prior_weight, discount=discount,
         dtype=x0.dtype, n_jobs=x0.shape[-1], n_chips=n_chips, min_chips=min_chips,

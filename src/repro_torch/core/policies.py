@@ -2,10 +2,12 @@
 
 Port of ``repro.core.policies``: ``hesrpt``, ``helrpt``, ``srpt``,
 ``equi``, the rank-space forms, the paper's Fig-4 competitors ``hell`` and
-``knee``, ``waterfill`` and ``weighted_hesrpt``.  Every policy maps
-remaining sizes ``x[..., M]`` (entries ``<= 0`` are departed jobs) and the
-speedup exponent ``p`` to shares ``theta[..., M]`` row by row, so a
-``[cells, M]`` batch is one call.  The JAX package's ``lax.cond`` branches
+``knee``, and the class-aware ``hesrpt_per_class``, ``weighted_hesrpt`` and
+``waterfill``.  Every policy maps remaining sizes ``x[..., M]`` (entries
+``<= 0`` are departed jobs) and the speedup exponent ``p`` to shares
+``theta[..., M]`` row by row, so a ``[cells, M]`` batch is one call.  The
+class-aware three also take a per-job ``p[..., M]`` (one exponent a job,
+the multi-class runs of ``core/multiclass.py``).  The JAX package's ``lax.cond`` branches
 become ``torch.where`` over both branches, decided per row.
 
 Paper: Berg, Vesilo, Harchol-Balter, "heSRPT: Optimal Parallel Scheduling of
@@ -164,10 +166,26 @@ def knee(x: torch.Tensor, p, n_servers, alpha) -> torch.Tensor:
     return torch.where(total <= n_servers, under, over)
 
 
+def hesrpt_per_class(x: torch.Tensor, p) -> torch.Tensor:
+    """Class-aware heSRPT: each job's Thm-7 bracket at its own exponent,
+    ``(r/m)^c_i - ((r-1)/m)^c_i`` with ``c_i = 1/(1-p_i)`` and ``r`` its
+    global descending-size rank (ties by index), renormalized to sum to 1.
+    ``p`` is per job (``[..., M]``) or broadcasts.  The index tie-break is
+    the reference's: ``x = [1, 1]`` at ``p = 0.5`` gives ``[0.25, 0.75]``."""
+    active = x > 0
+    m = active.sum(-1, keepdim=True)
+    rf = ranks_from_order(size_order_desc(x), active).to(x.dtype)
+    c = 1.0 / (1.0 - torch.as_tensor(p, dtype=x.dtype, device=x.device))
+    m_safe = _m_safe(m, x.dtype)
+    th = torch.where(active, (rf / m_safe).pow(c) - ((rf - 1.0) / m_safe).pow(c), 0.0)
+    return th / th.sum(-1, keepdim=True).clamp(min=_tiny(x))
+
+
 def weighted_hesrpt(x: torch.Tensor, p, w: torch.Tensor) -> torch.Tensor:
     """Weighted heSRPT: Thm-7 brackets over cumulative *weight* fractions
     ``W_r / W`` of the jobs ranked largest to smallest, renormalized.
-    Uniform weights give :func:`hesrpt` up to the last ulp."""
+    Uniform weights give :func:`hesrpt` up to the last ulp; ``p`` may be per
+    job, as in :func:`hesrpt_per_class`."""
     active = x > 0
     order = size_order_desc(x)
     w_act = torch.where(active, w, 0.0)
@@ -184,7 +202,7 @@ def waterfill(x: torch.Tensor, p, n_servers, w=None, *, n_iter: int = 64) -> tor
     """Class-weighted water-filling: ``theta`` maximizing ``sum_i w_i / x_i
     s(theta_i N)`` subject to ``sum theta = 1``, by ``n_iter`` bisection
     steps on the log water level (a fixed number of batched steps, each row
-    its own bracket), then renormalized."""
+    its own bracket), then renormalized.  ``p`` and ``w`` may be per job."""
     active = x > 0
     dtype = x.dtype
     p = torch.as_tensor(p, dtype=dtype, device=x.device).expand_as(x)

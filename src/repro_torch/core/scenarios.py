@@ -1,14 +1,13 @@
 """Workload tapes: where the engine's jobs and arrival epochs come from.
 
-Port of the single-class part of ``repro.core.scenarios``.  A
-sampler is ``(gen, n_jobs, rates) -> Scenario`` with an explicit
-``torch.Generator``: it draws each job's size and unit gap once and scales
-the gaps per rate, so one draw serves a whole rate axis (the JAX sweep's
-pairing, one key per seed shared across rates).  ``rates`` may be a float
-(tapes ``[M]``) or a sequence (tapes ``[R, M]``).  The draws differ from
-JAX's threefry streams and agree with them in distribution only; parity
-tests hand the JAX sampler's tapes to the port through
-:func:`tape_from_numpy`.
+Port of ``repro.core.scenarios``.  A sampler is ``(gen, n_jobs, rates) ->
+Scenario`` with an explicit ``torch.Generator``: it draws each job's size
+and unit gap once and scales the gaps per rate, so one draw serves a whole
+rate axis (the JAX sweep's pairing, one key per seed shared across rates).
+``rates`` may be a float (tapes ``[M]``) or a sequence (tapes ``[R, M]``).
+The draws differ from JAX's threefry streams and agree with them in
+distribution only; parity tests hand the JAX sampler's tapes to the port
+through :func:`tape_from_numpy`.
 
 - ``batch``, ``poisson``, ``deterministic``;
 - ``bursty`` — a 2-state Markov-modulated on-off stream whose long-run
@@ -16,19 +15,22 @@ tests hand the JAX sampler's tapes to the port through
 - ``drift_poisson`` / ``drift_bursty`` — the true exponent drifts ``p0 ->
   p1`` at ``drift_frac`` of the stream's nominal span ``n_jobs / rate``,
   carried as an ``engine.PDrift`` (drift times ``[R, 1]`` over a rate
-  axis).
+  axis);
+- ``multiclass_poisson`` / ``multiclass_bursty`` / ``drift_multiclass`` —
+  K-class mixtures (``core/multiclass.py``, registered here on first use):
+  each job carries ``class_ids`` and its class's true exponent ``p_job``.
 
-Every sampler takes scalar ``sigma_size`` / ``sigma_p`` estimation noise:
+Every sampler takes ``sigma_size`` / ``sigma_p`` estimation noise, scalars
+or per-class sequences (one entry a class id, multi-class scenarios only):
 lognormal ``size_factors`` (median 1) and a clipped ``p_hat`` that perturb
-what the policy sees while the physics keep ``x0`` and ``p``; they are drawn
-from the same generator after the base draw, one draw a seed shared by the
-rate axis, and agree with JAX's in distribution only.
+what the policy sees while the physics keep ``x0`` and ``p``.  ``p_hat`` is
+one value a row, or per job (``[..., M]``, centred on each job's own
+``p_job``) when the scenario has classes or ``sigma_p`` is a sequence.
+They are drawn from the same generator after the base draw, one draw a
+seed shared by the rate axis, and agree with JAX's in distribution only.
 
 :func:`stream_tape` reduces a scenario to the plain tape the bounded-slot
 loop (``engine.run_stream``) takes.
-
-Not ported yet (ROADMAP.md Queue A, item 6b): the multi-class samplers and
-per-class noise sequences.
 """
 
 from __future__ import annotations
@@ -49,13 +51,17 @@ class Scenario(NamedTuple):
     makes the true exponent piecewise-constant in time; it then supersedes
     the scalar ``p`` the simulation wrappers are called with.
     ``size_factors`` / ``p_hat`` (None without estimation noise) are what
-    the policy sees in place of the sizes' scale and of ``p``."""
+    the policy sees in place of the sizes' scale and of ``p``.
+    ``class_ids`` / ``p_job`` (None for one class) give each job its class
+    and its class's true speedup exponent."""
 
     x0: torch.Tensor  # [..., M] true job sizes
     arrival_times: torch.Tensor  # [..., M] arrival epochs (zeros for batch)
-    p_drift: PDrift | None = None  # times [..., D], values [D + 1]
+    p_drift: PDrift | None = None  # times [..., D], values [D + 1] or [..., D + 1, M]
     size_factors: torch.Tensor | None = None  # [..., M] policy sees x * factors
-    p_hat: object = None  # float or [..., 1]; policy sees p_hat
+    p_hat: object = None  # float, [..., 1] or per job [..., M]; policy sees p_hat
+    class_ids: torch.Tensor | None = None  # [..., M] int64 job class ids
+    p_job: torch.Tensor | None = None  # [..., M] float64 per-job true exponent
 
 
 ScenarioSampler = Callable[[torch.Generator, int, object], Scenario]
@@ -181,29 +187,42 @@ def _drift_bursty(
 
 
 def _any_pos(sigma) -> bool:
-    """True where a scalar sigma carries noise; a per-class sequence raises."""
+    """True where a scalar or per-class sequence sigma carries any noise."""
     if isinstance(sigma, (tuple, list)):
-        raise NotImplementedError(
-            "per-class sigma_size / sigma_p sequences need the multi-class "
-            "scenarios, not ported yet (ROADMAP.md Queue A, item 6b)"
-        )
+        return any(sg > 0 for sg in sigma)
     return sigma > 0
 
 
 def _with_noise(scn: Scenario, gen: torch.Generator, p, sigma_size, sigma_p) -> Scenario:
-    """Estimation noise drawn from ``gen`` after the base draw: one
-    ``[M]`` draw of lognormal size factors and one scalar ``p_hat`` a seed,
-    both shared by the rate axis (the JAX package draws them from
-    ``fold_in`` streams of the seed's key; equal in distribution only)."""
+    """Estimation noise drawn from ``gen`` after the base draw: one ``[M]``
+    draw of lognormal size factors, and one ``p_hat`` a seed (a scalar, or
+    ``[M]`` per job where the scenario has classes or ``sigma_p`` is a
+    per-class sequence), shared by the rate axis (the JAX package draws them
+    from ``fold_in`` streams of the seed's key; equal in distribution only).
+    A per-class sigma is read through ``scn.class_ids``; a per-job
+    ``p_hat`` is centred on each job's own ``p_job``, clipped to
+    [0.05, 0.95]."""
     size_factors, p_hat = scn.size_factors, scn.p_hat
     M = scn.x0.shape[-1]
+
+    def per_job(sigma):
+        if isinstance(sigma, (tuple, list)):
+            if scn.class_ids is None:
+                raise ValueError("per-class sigma needs a multi-class scenario")
+            return torch.tensor(sigma, dtype=DTYPE, device=scn.x0.device)[scn.class_ids]
+        return sigma
+
     if _any_pos(sigma_size):
         z = torch.randn(M, dtype=DTYPE, device=gen.device, generator=gen)
-        size_factors = torch.exp(sigma_size * z).expand_as(scn.x0).contiguous()
+        size_factors = torch.exp(per_job(sigma_size) * z).expand_as(scn.x0).contiguous()
     if _any_pos(sigma_p):
-        z = torch.randn((), dtype=DTYPE, device=gen.device, generator=gen)
-        p_hat = (p + sigma_p * z).clamp(0.05, 0.95).expand(*scn.x0.shape[:-1], 1)
-        p_hat = p_hat.contiguous()
+        per_job_hat = scn.p_job is not None or isinstance(sigma_p, (tuple, list))
+        z = torch.randn(M if per_job_hat else (), dtype=DTYPE, device=gen.device,
+                        generator=gen)
+        center = scn.p_job if scn.p_job is not None else p
+        p_hat = (center + per_job(sigma_p) * z).clamp(0.05, 0.95)
+        shape = scn.x0.shape if per_job_hat else (*scn.x0.shape[:-1], 1)
+        p_hat = p_hat.expand(shape).contiguous()
     return scn._replace(size_factors=size_factors, p_hat=p_hat)
 
 
@@ -221,8 +240,8 @@ def make_scenario(
     name: str,
     *,
     size_alpha: float = 1.5,
-    sigma_size: float = 0.0,
-    sigma_p: float = 0.0,
+    sigma_size=0.0,
+    sigma_p=0.0,
     p: float = 0.5,
     **cfg,
 ) -> ScenarioSampler:
@@ -230,19 +249,23 @@ def make_scenario(
 
     The tapes land on the generator's device.  Extra ``cfg`` goes to the
     scenario (``burst``/``p_stay`` for the bursty ones, ``p0``/``p1``/
-    ``drift_frac`` for the drift ones; others raise ``TypeError``).
-    ``sigma_size`` is the lognormal sd of the multiplicative size error,
-    ``sigma_p`` the sd of the additive error on the exponent the policy
-    assumes (centered on ``p``, clipped to [0.05, 0.95]); per-class
-    sequences and the multi-class scenarios raise.
+    ``drift_frac`` for the drift ones, ``classes`` and ``p1`` for the
+    multi-class ones; what a single-class sampler does not take raises
+    ``TypeError``).  ``sigma_size`` is the lognormal sd of the
+    multiplicative size error, ``sigma_p`` the sd of the additive error on
+    the exponent the policy assumes (centered on ``p``, or on each job's
+    ``p_job`` in a multi-class scenario; clipped to [0.05, 0.95]); each a
+    scalar or a per-class sequence.
     """
     noisy = _any_pos(sigma_size) or _any_pos(sigma_p)
     fn = SCENARIOS.get(name.lower())
     if fn is None:
-        raise NotImplementedError(
-            f"scenario {name!r} is not ported yet (ROADMAP.md Queue A, item 6b); "
-            f"ported: {sorted(SCENARIOS)}"
-        )
+        # The multi-class samplers register themselves on import.
+        from repro_torch.core import multiclass  # noqa: F401
+
+        fn = SCENARIOS.get(name.lower())
+    if fn is None:
+        raise ValueError(f"unknown scenario {name!r}; known: {sorted(SCENARIOS)}")
     inspect.signature(fn).bind(None, 0, 1.0, size_alpha=size_alpha, **cfg)  # TypeError
 
     def sample(gen, n_jobs, rates):
@@ -257,12 +280,13 @@ def make_scenario(
 def stream_tape(scn: Scenario) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain ``(sizes, arrivals)`` tape of a :class:`Scenario` for the
     bounded-slot loop.  Its slots carry no per-job state beyond the size, so
-    estimation noise and a drift schedule raise rather than being dropped
-    (they stay on the finite-tape ``engine.run`` path); the JAX package's
-    wording."""
+    estimation noise, per-job class exponents and a drift schedule raise
+    rather than being dropped (they stay on the finite-tape ``engine.run``
+    path); the JAX package's wording."""
     for field, why in (
         ("size_factors", "estimation noise is per-job tape state"),
         ("p_hat", "estimation noise is per-job tape state"),
+        ("p_job", "per-job class exponents do not ride in slots yet"),
         ("p_drift", "the drift clock belongs to the finite-tape engine"),
     ):
         if getattr(scn, field) is not None:

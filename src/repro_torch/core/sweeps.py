@@ -1,8 +1,8 @@
 """Sweeps: policies x rates x seeds through the batched event loop.
 
-Port of the single-class part of ``repro.core.sweeps``.  :class:`Sweep` is
-the same declarative spec (pure data; :meth:`Sweep.from_spec_dict` reads the
-``spec`` of a JAX ``SweepResult.record()``), and :func:`run_sweep` draws one
+Port of ``repro.core.sweeps``.  :class:`Sweep` is the same declarative
+spec (pure data; :meth:`Sweep.from_spec_dict` reads the ``spec`` of a JAX
+``SweepResult.record()``), and :func:`run_sweep` draws one
 tape per seed — sizes and unit gaps once, the gaps scaled per rate, the
 JAX sweep's pairing — then runs every ``(rate, seed)`` cell of a policy as
 one ``[R * S, M]`` batch through the engine (:func:`simulate_cells`).
@@ -33,15 +33,21 @@ does.  ``Sweep.create(arm=...)`` runs the estimation arms of
 (``p_hat`` pinned to ``p0``) and ``estimator`` (the online blended p-hat,
 ``core/estimation.py``).
 
+``Sweep.create(classes=...)`` runs a multi-class scenario
+(``multiclass_poisson``, ``multiclass_bursty``, ``drift_multiclass``)
+through ``multiclass.simulate_multiclass`` with the class-aware policies
+(``snap_slices`` snaps its whole chips to power-of-two slices) and adds the
+per-class columns :data:`CLASS_METRICS`, ``[R, S, K]``.  A multi-class
+scenario without ``classes`` is the class-blind baseline: the generic loop
+with each job's true exponent.
+
 ``run_sweep(chunk_seeds=)`` (or ``max_jobs_in_flight=``) runs the seeds in
 sequential chunks on the same per-seed generators, with the same results
 bit for bit.  Every run appends its compact record to :data:`RUN_LOG`,
 which :func:`write_bench_json` flushes (never to the JAX package's
 ``BENCH_sweeps.json``).
 
-Not ported yet (ROADMAP.md Queue A): multi-class ``classes`` (and with them
-``snap_slices``, which the JAX package wires only for classes; item 6b), and
-sharding (item 10).
+Not ported yet (ROADMAP.md Queue A, item 10): sharding.
 """
 
 from __future__ import annotations
@@ -57,7 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine
-from repro_torch.core.analysis import seed_axis_stats
+from repro_torch.core.analysis import per_class_mean, seed_axis_stats
 from repro_torch.core.arrivals import (
     OnlineSimResult,
     _finalize,
@@ -68,6 +74,7 @@ from repro_torch.core.arrivals import (
 from repro_torch.core.policies import make_policy, make_rank_policy
 from repro_torch.core.engine import PDrift
 from repro_torch.core.estimation import simulate_scenario_estimated
+from repro_torch.core.multiclass import MULTICLASS_POLICY_NAMES, as_specs, simulate_multiclass
 from repro_torch.core.scenarios import Scenario, _any_pos, make_scenario, seed_generator
 from repro_torch.core.superstep import SUPERSTEP_RULE_POLICIES
 from repro_torch.core.telemetry import (
@@ -86,6 +93,13 @@ SCHEMA_VERSION = 2
 
 #: Per-cell scalar metrics a sweep can report.
 SCALAR_METRICS = ("total_flowtime", "mean_flowtime", "mean_slowdown", "makespan")
+
+#: Per-class metrics of a multi-class sweep (``[R, S, K]``): the class mean
+#: of a per-job field of ``OnlineSimResult``.
+CLASS_METRICS = {
+    "class_flowtime": "flow_times",
+    "class_slowdown": "slowdowns",
+}
 
 #: Streaming metrics (``Sweep.create(stream=...)``): per-cell read-outs of
 #: ``engine.StreamResult``, stationary-window aggregates of the bounded-slot
@@ -106,9 +120,6 @@ STREAM_KEYS = ("n_slots", "warmup_frac", "end_frac")
 #: Estimation arms (``benchmarks/estimation.py``): how the policy learns
 #: the speedup exponent on a drift scenario.
 ARMS = ("oracle", "stale", "estimator")
-
-#: Regimes of the JAX ``Sweep`` not ported yet, with their "off" values.
-UNPORTED = {"classes": None, "snap_slices": False}
 
 #: Default file of :func:`write_bench_json`: the port's own run log, beside
 #: (never in) the JAX package's ``BENCH_sweeps.json``.
@@ -139,8 +150,18 @@ def provenance(device: torch.device) -> dict:
     }
 
 
+def _hashable(v):
+    """JSON-ish values (lists, dicts, ClassSpec rows) as hashables, as the
+    JAX spec stores them."""
+    if isinstance(v, dict):
+        return tuple(sorted((k, _hashable(x)) for k, x in v.items()))
+    if isinstance(v, (list, tuple)):
+        return tuple(_hashable(x) for x in v)
+    return v
+
+
 class Sweep(NamedTuple):
-    """Declarative single-class sweep spec: pure hashable data.
+    """Declarative sweep spec: pure hashable data.
 
     Build it with :meth:`create` (normalizes and validates) or
     :meth:`from_spec_dict` (a JAX record's ``spec``).
@@ -158,6 +179,8 @@ class Sweep(NamedTuple):
     size_alpha: float = 1.5
     n_chips: int | None = None
     min_chips: int = 1
+    snap_slices: bool = False  # power-of-two slices (multi-class sweeps)
+    classes: tuple | None = None  # tuple[ClassSpec, ...] for multi-class
     metrics: tuple[str, ...] = ("mean_flowtime",)
     arm: str | None = None  # estimation regime: oracle | stale | estimator
     arm_kw: tuple = ()  # e.g. (("discount", 0.9), ("prior_weight", 1.0))
@@ -171,31 +194,26 @@ class Sweep(NamedTuple):
         cls, policies, rates, *, scenario: str = "poisson", scenario_kw=None,
         n_jobs: int = 1000, n_seeds: int = 100, seed: int = 0, p: float = 0.5,
         n_servers: float = 256.0, size_alpha: float = 1.5, n_chips: int | None = None,
-        min_chips: int = 1, metrics=None, arm: str | None = None, arm_kw=None,
-        fused: bool = False, telemetry=(), superstep: bool = False, stream=None,
-        **regimes,
+        min_chips: int = 1, snap_slices: bool = False, classes=None, metrics=None,
+        arm: str | None = None, arm_kw=None, fused: bool = False, telemetry=(),
+        superstep: bool = False, stream=None,
     ) -> Sweep:
+        if classes is not None:
+            classes = as_specs(classes)
         stream = tuple(sorted(dict(stream or {}).items()))
-        scenario_kw = dict(scenario_kw or {})
+        skw_items = _hashable(dict(scenario_kw or {}))
+        scenario_kw = dict(skw_items)
         noisy = (_any_pos(scenario_kw.get("sigma_size", 0.0))
                  or _any_pos(scenario_kw.get("sigma_p", 0.0)))
         if stream:
-            _check_stream(dict(stream), scenario, arm, noisy)
-        for key, value in regimes.items():
-            if key not in UNPORTED:
-                raise TypeError(f"Sweep.create() got an unexpected keyword {key!r}")
-            if key == "snap_slices" and value:
-                # The JAX package's own refusal: it wires snap_slices only
-                # with classes, which are not ported.
-                raise ValueError("snap_slices is only wired for multi-class sweeps")
-            if value:
-                raise NotImplementedError(
-                    f"Sweep regime {key}={value!r} is not ported yet "
-                    "(ROADMAP.md Queue A, item 6b)"
-                )
-        make_scenario(scenario, size_alpha=size_alpha, p=p, **scenario_kw)  # validates
-        metrics = tuple(metrics or (
-            ("stream_flow", "stream_slowdown") if stream else ("mean_flowtime",)))
+            _check_stream(dict(stream), scenario, arm, noisy, classes)
+        class_kw = {} if classes is None else {"classes": classes}
+        make_scenario(scenario, size_alpha=size_alpha, p=p, **class_kw, **scenario_kw)
+        if metrics is None:
+            metrics = (("stream_flow", "stream_slowdown") if stream
+                       else ("mean_flowtime",) if classes is None
+                       else ("mean_flowtime", "mean_slowdown", *CLASS_METRICS))
+        metrics = tuple(metrics)
         for m in metrics:
             if stream:
                 if m not in STREAM_METRICS:
@@ -205,13 +223,22 @@ class Sweep(NamedTuple):
                     )
             elif m in STREAM_METRICS:
                 raise ValueError(f"metric {m!r} needs a streaming sweep (stream=)")
+            elif m in CLASS_METRICS:
+                if classes is None:
+                    raise ValueError(f"metric {m!r} needs a multi-class sweep")
             elif m not in SCALAR_METRICS:
                 raise ValueError(f"unknown metric {m!r}; known: {SCALAR_METRICS}")
         for name in policies:
-            make_policy(name)  # raises for unknown / unported policies
+            if classes is None:
+                make_policy(name)  # raises for unknown policies
+            elif name.lower() not in (*MULTICLASS_POLICY_NAMES, "hesrpt"):
+                raise ValueError(f"unknown multi-class policy {name!r}; known: "
+                                 f"{MULTICLASS_POLICY_NAMES}")
         if arm is not None:
             if arm not in ARMS:
                 raise ValueError(f"unknown arm {arm!r}; known: {ARMS}")
+            if classes is not None:
+                raise ValueError("estimation arms are single-class sweeps")
             if n_chips is not None:
                 # The arm cells run the continuous simulators.
                 raise ValueError("estimation arms are continuous-only (no n_chips)")
@@ -220,8 +247,10 @@ class Sweep(NamedTuple):
                     "estimation arms need scenario_kw['p0'] (the pre-drift exponent the "
                     "stale/estimator arms anchor their belief to)"
                 )
+        if snap_slices and classes is None:
+            raise ValueError("snap_slices is only wired for multi-class sweeps")
         if fused:
-            if arm is not None:
+            if classes is not None or arm is not None:
                 raise ValueError("fused sweeps are single-class, arm-free")
             if n_chips is None:
                 raise ValueError(
@@ -233,7 +262,7 @@ class Sweep(NamedTuple):
                 raise ValueError(f"fused sweeps support only heSRPT, got {bad}")
         if superstep:
             # Exact only for the continuous, noise-free, scalar-p rank family.
-            if arm is not None:
+            if classes is not None or arm is not None:
                 raise ValueError("superstep sweeps are single-class, arm-free")
             if n_chips is not None:
                 raise ValueError(
@@ -253,12 +282,20 @@ class Sweep(NamedTuple):
                     "superstep sweeps need noise-free scenarios (estimation noise takes "
                     "the generic loop)"
                 )
+            if scenario.startswith("multiclass_"):
+                raise ValueError(
+                    "superstep sweeps are single-class (per-job exponents take the "
+                    "generic scan)"
+                )
         if telemetry is True:
             telemetry = DEFAULT_METRICS
         telemetry = tuple(telemetry or ())
         unknown = tuple(m for m in telemetry if m not in METRICS)
         if unknown:
             raise ValueError(f"unknown telemetry metric(s) {unknown}; known: {METRICS}")
+        if telemetry and classes is not None:
+            # The reference threads no probe through simulate_multiclass.
+            raise ValueError("telemetry columns are single-class only for now")
         if "p_hat_err" in telemetry and arm != "estimator":
             raise ValueError(
                 "telemetry metric 'p_hat_err' needs arm='estimator' (only an "
@@ -268,7 +305,7 @@ class Sweep(NamedTuple):
             policies=tuple(policies),
             rates=tuple(float(r) for r in rates),
             scenario=scenario,
-            scenario_kw=tuple(sorted(scenario_kw.items())),
+            scenario_kw=skw_items,
             n_jobs=int(n_jobs),
             n_seeds=int(n_seeds),
             seed=int(seed),
@@ -277,6 +314,8 @@ class Sweep(NamedTuple):
             size_alpha=float(size_alpha),
             n_chips=None if n_chips is None else int(n_chips),
             min_chips=int(min_chips),
+            snap_slices=bool(snap_slices),
+            classes=classes,
             metrics=metrics,
             arm=arm,
             arm_kw=tuple(sorted(dict(arm_kw or {}).items())),
@@ -288,8 +327,8 @@ class Sweep(NamedTuple):
 
     @classmethod
     def from_spec_dict(cls, d: dict) -> Sweep:
-        """The spec of a JAX ``SweepResult.record()`` (its ``"spec"`` dict);
-        unported regimes that are switched on raise."""
+        """The spec of a JAX ``SweepResult.record()`` (its ``"spec"`` dict),
+        ``classes`` as rows of ``ClassSpec`` fields included."""
         return cls.create(
             d["policies"], d["rates"], scenario=d["scenario"],
             scenario_kw={k: v for k, v in d.get("scenario_kw", [])},
@@ -300,7 +339,7 @@ class Sweep(NamedTuple):
             fused=d.get("fused", False), telemetry=tuple(d.get("telemetry", ())),
             superstep=d.get("superstep", False),
             stream={k: v for k, v in d.get("stream", [])},
-            **{k: d[k] for k in UNPORTED if k in d},
+            snap_slices=d.get("snap_slices", False), classes=d.get("classes"),
         )
 
     def out_names(self) -> tuple[str, ...]:
@@ -316,7 +355,7 @@ class Sweep(NamedTuple):
         return self.n_seeds * self.jobs_per_seed()
 
 
-def _check_stream(skw: dict, scenario: str, arm, noisy: bool) -> None:
+def _check_stream(skw: dict, scenario: str, arm, noisy: bool, classes) -> None:
     """``Sweep.create(stream=...)``'s validation (the JAX package's)."""
     unknown = tuple(k for k in skw if k not in STREAM_KEYS)
     if unknown:
@@ -328,7 +367,7 @@ def _check_stream(skw: dict, scenario: str, arm, noisy: bool) -> None:
         raise ValueError(
             f"stream window needs 0 <= warmup_frac < end_frac (got {warm} / {end})"
         )
-    if arm is not None:
+    if classes is not None or arm is not None:
         raise ValueError(
             "streaming sweeps are single-class and arm-free — per-job class/estimator "
             "state does not ride in slots"
@@ -347,8 +386,9 @@ def _stream_window(skw: dict) -> tuple[float, float]:
 class SweepResult(NamedTuple):
     """A completed sweep: the spec, per-seed stats and where it ran.
 
-    ``stats[policy][metric]`` is a numpy array ``[n_rates, n_seeds]``;
-    ``chunk_seeds`` the seed-chunk size it ran in (None: one chunk).
+    ``stats[policy][metric]`` is a numpy array ``[n_rates, n_seeds]`` (``[n_rates,
+    n_seeds, K]`` for a per-class metric); ``chunk_seeds`` the seed-chunk
+    size it ran in (None: one chunk).
     """
 
     spec: Sweep
@@ -360,23 +400,29 @@ class SweepResult(NamedTuple):
     chunk_seeds: int | None = None
 
     def cell_means(self, metric: str | None = None) -> dict:
-        """``{rate: {policy: mean-over-seeds}}``."""
+        """``{rate: {policy: mean-over-seeds}}``; a per-class metric keeps
+        its class axis, one mean over seeds a class (a list of ``K``)."""
         metric = metric or self.spec.metrics[0]
+
+        def mean(a):
+            return np.mean(a, axis=0).tolist() if a.ndim == 2 else float(np.mean(a))
+
         return {
             float(rate): {
-                name: float(np.mean(self.stats[name][metric][ri]))
-                for name in self.spec.policies
+                name: mean(self.stats[name][metric][ri]) for name in self.spec.policies
             }
             for ri, rate in enumerate(self.spec.rates)
         }
 
     def record(self) -> dict:
-        """Compact JSON-able record (per-cell mean/std), the JAX layout (its
-        spec keys, the unported regimes at their off values) with torch,
-        CUDA and card provenance."""
-        spec = {**UNPORTED, **self.spec._asdict()}
+        """Compact JSON-able record (per-cell mean/std, ``[R, K]`` lists for
+        a per-class metric), the JAX layout (its spec keys, ``classes`` as
+        rows of ``ClassSpec`` fields) with torch, CUDA and card provenance."""
+        spec = self.spec._asdict()
         for key in ("scenario_kw", "arm_kw", "stream"):
             spec[key] = [list(kv) for kv in spec[key]]
+        if spec["classes"] is not None:
+            spec["classes"] = [list(c) for c in spec["classes"]]
         for key in ("policies", "rates", "metrics", "telemetry"):
             spec[key] = list(spec[key])
         return {
@@ -434,6 +480,12 @@ def _policy_cells(spec: Sweep, name: str, scn: Scenario):
     """Every cell of one policy column, as one batch: ``(OnlineSimResult,
     TelemetryResult or None)``."""
     x0, arr, p_drift = scn.x0, scn.arrival_times, scn.p_drift
+    if spec.classes is not None:
+        return simulate_multiclass(
+            scn, classes=spec.classes, policy=name, n_servers=spec.n_servers,
+            n_chips=spec.n_chips, min_chips=spec.min_chips, snap_slices=spec.snap_slices,
+            device=x0.device,
+        ), None
     if spec.superstep:
         return simulate_online_superstep(
             x0, arr, spec.p, spec.n_servers, name, p_drift=p_drift, device=x0.device
@@ -444,10 +496,12 @@ def _policy_cells(spec: Sweep, name: str, scn: Scenario):
         return res if probe is not None else (res, None)
     kw = dict(spec.scenario_kw)
     noisy = _any_pos(kw.get("sigma_size", 0.0)) or _any_pos(kw.get("sigma_p", 0.0))
-    # The carried ranks cannot follow a regime change, estimation noise or a
-    # probe (it reads the generic loop's events): those take engine.run.
+    # The carried ranks cannot follow a regime change, per-job exponents,
+    # estimation noise or a probe (it reads the generic loop's events):
+    # those take engine.run.
     rank_pol = (make_rank_policy(name)
-                if spec.n_chips is None and p_drift is None and not noisy and probe is None
+                if spec.n_chips is None and p_drift is None and scn.p_job is None
+                and not noisy and probe is None
                 else None)
     if rank_pol is not None:
         times = engine.run_ranked(x0, arr, spec.p, spec.n_servers, rank_pol)
@@ -491,11 +545,15 @@ def _stream_cells(spec: Sweep, name: str, x0, arr) -> engine.StreamResult:
 def draw_scenario(spec: Sweep, *, seeds=None, device="cuda") -> Scenario:
     """The sweep's tapes ``[R, S, M]`` for ``seeds`` (default all; a seed
     chunk draws the same tapes): one generator per seed, its draw shared
-    across the rate axis.  A drift scenario's times come out ``[R, S, D]``;
-    estimation noise ``size_factors`` ``[R, S, M]`` and ``p_hat``
-    ``[R, S, 1]``."""
+    across the rate axis.  A drift scenario's times come out ``[R, S, D]``
+    (per-job regime rows ``[R, S, D + 1, M]``, each seed's own); estimation
+    noise ``size_factors`` ``[R, S, M]`` and ``p_hat`` ``[R, S, 1]`` (per
+    job ``[R, S, M]``); a multi-class scenario's ``class_ids`` and
+    ``p_job`` ``[R, S, M]``."""
+    class_kw = {} if spec.classes is None else {"classes": spec.classes}
     sampler = make_scenario(
-        spec.scenario, size_alpha=spec.size_alpha, p=spec.p, **dict(spec.scenario_kw)
+        spec.scenario, size_alpha=spec.size_alpha, p=spec.p, **class_kw,
+        **dict(spec.scenario_kw),
     )
     seeds = range(spec.n_seeds) if seeds is None else seeds
     scns = [
@@ -503,8 +561,12 @@ def draw_scenario(spec: Sweep, *, seeds=None, device="cuda") -> Scenario:
         for s in seeds
     ]
     drift = None
-    if scns[0].p_drift is not None:  # the regimes are the spec's, alike in every seed
-        drift = PDrift(torch.stack([s.p_drift.times for s in scns], 1), scns[0].p_drift.values)
+    if scns[0].p_drift is not None:
+        # Scalar regimes are the spec's, alike in every seed; per-job rows
+        # follow each seed's class draw.
+        values = (torch.stack([s.p_drift.values for s in scns], 1)
+                  if engine._per_job_rows(scns[0].p_drift) else scns[0].p_drift.values)
+        drift = PDrift(torch.stack([s.p_drift.times for s in scns], 1), values)
 
     def stacked(field):
         first = getattr(scns[0], field)
@@ -513,20 +575,24 @@ def draw_scenario(spec: Sweep, *, seeds=None, device="cuda") -> Scenario:
     return Scenario(
         x0=stacked("x0"), arrival_times=stacked("arrival_times"), p_drift=drift,
         size_factors=stacked("size_factors"), p_hat=stacked("p_hat"),
+        class_ids=stacked("class_ids"), p_job=stacked("p_job"),
     )
 
 
 def simulate_cells(spec: Sweep, x0, arr, *, p_drift=None, size_factors=None, p_hat=None,
-                   device="cuda") -> dict:
+                   class_ids=None, p_job=None, device="cuda") -> dict:
     """Run every policy of ``spec`` on given tapes ``x0``/``arr`` ``[R, S, M]``
-    (and the drift scenario's ``engine.PDrift``, times ``[R, S, D]``; the
-    estimation noise, ``size_factors`` ``[R, S, M]`` and ``p_hat``
-    ``[R, S, 1]``).
+    (and the drift scenario's ``engine.PDrift``, times ``[R, S, D]``, values
+    shared or per-job rows ``[R, S, D + 1, M]``; the estimation noise,
+    ``size_factors`` ``[R, S, M]`` and ``p_hat`` ``[R, S, 1]`` or
+    ``[R, S, M]``; a multi-class scenario's ``class_ids`` and ``p_job``
+    ``[R, S, M]``).
 
     Returns ``{policy: {column: ndarray [R, S]}}`` over
-    :meth:`Sweep.out_names` (float64, counts of a stream sweep included, as
-    in the JAX sweep) — the executor :func:`run_sweep` uses, open to tapes
-    drawn elsewhere (e.g. by the JAX sampler, for parity).
+    :meth:`Sweep.out_names` (``[R, S, K]`` for a per-class column; float64,
+    counts of a stream sweep included, as in the JAX sweep) — the executor
+    :func:`run_sweep` uses, open to tapes drawn elsewhere (e.g. by the JAX
+    sampler, for parity).
     """
     dev = resolve_device(device)
     x0 = as_tensor(x0, dev)
@@ -537,6 +603,8 @@ def simulate_cells(spec: Sweep, x0, arr, *, p_drift=None, size_factors=None, p_h
         x0, arr, p_drift=p_drift,
         size_factors=None if size_factors is None else as_tensor(size_factors, dev),
         p_hat=None if p_hat is None else as_tensor(p_hat, dev),
+        class_ids=None if class_ids is None else as_tensor(class_ids, dev, torch.int64),
+        p_job=None if p_job is None else as_tensor(p_job, dev),
     )
     stats = {}
     for name in spec.policies:
@@ -547,7 +615,9 @@ def simulate_cells(spec: Sweep, x0, arr, *, p_drift=None, size_factors=None, p_h
         else:
             res, tel = _policy_cells(spec, name, scn)
             fields = {m: m for m in spec.metrics}
-        cols = {m: getattr(res, f) for m, f in fields.items()}
+        cols = {m: per_class_mean(getattr(res, CLASS_METRICS[m]), scn.class_ids,
+                                  len(spec.classes))
+                if m in CLASS_METRICS else getattr(res, f) for m, f in fields.items()}
         if tel is not None:
             cols.update(zip(scalar_columns(spec.telemetry), scalar_values(tel, spec.telemetry)))
         stats[name] = {m: v.to(torch.float64).cpu().numpy() for m, v in cols.items()}
@@ -611,7 +681,8 @@ def run_sweep(
         scn = draw_scenario(spec, seeds=range(s0, min(s0 + step, spec.n_seeds)), device=dev)
         parts.append(simulate_cells(  # .cpu() synchronizes
             spec, scn.x0, scn.arrival_times, p_drift=scn.p_drift,
-            size_factors=scn.size_factors, p_hat=scn.p_hat, device=dev,
+            size_factors=scn.size_factors, p_hat=scn.p_hat, class_ids=scn.class_ids,
+            p_job=scn.p_job, device=dev,
         ))
     stats = {
         name: {m: np.concatenate([part[name][m] for part in parts], 1)
@@ -636,6 +707,7 @@ def run_sweep(
 __all__ = [
     "ARMS",
     "BENCH_JSON",
+    "CLASS_METRICS",
     "RUN_LOG",
     "RUN_LOG_MAX",
     "SCALAR_METRICS",

@@ -75,10 +75,13 @@ def _true_p_scalar(ev) -> Any:
 
     A float, a 0-dim tensor or a ``[C, 1]`` column (a drifting ``p``, one
     regime a row) is the row's exponent as it stands, also on an epoch with
-    no active job; a per-job ``[C, M]`` exponent gives the active-job mean.
+    no active job; a per-job exponent (``ev.p_per_job``, set by the loop
+    where ``p`` came per job) gives the active-job mean, 0 on an epoch with
+    no active job, as the reference gives.  The source decides, not the
+    shape: at ``M == 1`` a per-job ``p`` and a column look alike.
     """
     p = ev.p
-    if not isinstance(p, torch.Tensor) or p.ndim == 0 or p.shape[-1] == 1:
+    if not ev.p_per_job:
         return p
     n = ev.active.sum(-1, keepdim=True).clamp(min=1)
     return torch.where(ev.active, p, 0.0).sum(-1, keepdim=True) / n

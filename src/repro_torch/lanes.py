@@ -22,12 +22,22 @@ through the bounded-slot loop (``Sweep(stream=)``) over a pool of 64 slots
 a cell, reading every stream metric: the fused lane launches the kernel
 once an event step at ``[192, 64]``; the continuous lane takes the
 carried-rank stream.
+
+The multi-class grid (:func:`multiclass_specs`) is ``benchmarks/
+multiclass.py``'s as port data: K = 2, 3 and 4 classes from
+:func:`class_grid`, the four class-aware policies, rates 0.5, 2 and 8 on
+256 servers, at its full (1000 jobs x 10 seeds), quick (300 x 8) or smoke
+(80 x 4, rates 0.5 and 4) size, and the K = 2 snap pair (``hesrpt_pc`` on
+256 chips, at most 300 jobs x 8 seeds, slices off and on).  That file's
+``cross_check`` against ``ClusterScheduler`` needs ``sched/``, which is not
+ported.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.core.multiclass import ClassSpec
 from repro_torch.core.sweeps import STREAM_METRICS, Sweep, SweepResult, run_sweep
 
 RATES_FULL = tuple(float(r) for r in np.geomspace(0.25, 16.0, 24).round(4))
@@ -85,6 +95,68 @@ def stream_lane_specs(smoke: bool = False) -> list[tuple[str, Sweep]]:
             spec = spec._replace(n_jobs=STREAM_JOBS_SMOKE)
         out.append((f"stream-{label}", spec._replace(
             stream=(("n_slots", n_slots),), metrics=tuple(STREAM_METRICS))))
+    return out
+
+
+#: ``benchmarks/multiclass.py``'s policies and rates.
+MC_POLICIES = ("hesrpt_pc", "waterfill", "hesrpt_sd", "hesrpt_blind")
+MC_RATES = (0.5, 2.0, 8.0)
+#: Its sizes: the class counts K, jobs, seeds and rates of each tier.
+MC_SIZES = {
+    "full": ((2, 3, 4), 1000, 10, MC_RATES),
+    "quick": ((2, 3), 300, 8, MC_RATES),
+    "smoke": ((2,), 80, 4, (0.5, 4.0)),
+}
+#: The snap pair's pool and its cap on the grid (that file's ``min(n, 300)``
+#: jobs and ``min(s, 8)`` seeds).
+MC_SNAP_CHIPS, MC_SNAP_JOBS, MC_SNAP_SEEDS = 256, 300, 8
+
+
+def class_grid(K: int) -> tuple[ClassSpec, ...]:
+    """``benchmarks/multiclass.py``'s K classes: exponents over [0.3, 0.85],
+    Pareto tails over [1.5, 2.5], geometric scales 1 .. 2^(K-1), equal
+    mix."""
+    ps = np.linspace(0.3, 0.85, K)
+    alphas = np.linspace(1.5, 2.5, K)
+    scales = np.geomspace(1.0, 2.0 ** (K - 1), K)
+    return tuple(
+        ClassSpec(p=float(p), mix=1.0 / K, size_alpha=float(a), size_scale=float(sc))
+        for p, a, sc in zip(ps, alphas, scales, strict=True)
+    )
+
+
+def multiclass_specs(size: str = "full") -> list[tuple[str, Sweep]]:
+    """The multi-class grid at ``size`` (``"full"``, ``"quick"``, ``"smoke"``)
+    as ``(label, Sweep)`` pairs: ``"K=k"`` for each of the tier's class
+    counts, then ``"snap-off"`` / ``"snap-on"``."""
+    ks, n_jobs, n_seeds, rates = MC_SIZES[size]
+    out = [
+        (f"K={K}", Sweep.create(
+            MC_POLICIES, rates, scenario="multiclass_poisson", n_jobs=n_jobs,
+            n_seeds=n_seeds, seed=0, n_servers=256.0, classes=class_grid(K),
+        ))
+        for K in ks
+    ]
+    for label, snap in (("snap-off", False), ("snap-on", True)):
+        out.append((label, Sweep.create(
+            ("hesrpt_pc",), rates, scenario="multiclass_poisson",
+            n_jobs=min(n_jobs, MC_SNAP_JOBS), n_seeds=min(n_seeds, MC_SNAP_SEEDS), seed=0,
+            n_servers=256.0, n_chips=MC_SNAP_CHIPS, snap_slices=snap, classes=class_grid(2),
+        )))
+    return out
+
+
+def gap_ratios(res: SweepResult) -> dict[str, list[float]]:
+    """Class-aware against class-blind heSRPT (``benchmarks/multiclass.py``'s
+    ``gap_rows``): at each rate, the best class-aware policy's mean over
+    seeds over ``hesrpt_blind``'s, for mean flow time and mean slowdown."""
+    out = {}
+    for metric, label in (("mean_flowtime", "flow"), ("mean_slowdown", "slowdown")):
+        blind = res.stats["hesrpt_blind"][metric].mean(axis=1)
+        aware = [res.stats[name][metric].mean(axis=1)
+                 for name in res.spec.policies if name != "hesrpt_blind"]
+        out[label] = [float(min(a[ri] for a in aware) / blind[ri])
+                      for ri in range(len(res.spec.rates))]
     return out
 
 

@@ -51,7 +51,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "kernels.ssd_scan", "kernels.chunked", "models.model", "models.ssm",
                  "models.convert", "launch.serve", "train.serve_step", "core.superstep",
                  "configs.paper", "figures", "core.telemetry", "core.estimation",
-                 "launch.trace_export"):
+                 "launch.trace_export", "core.multiclass"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["bad"] == []
 
@@ -62,6 +62,7 @@ def _entry_points():
     from repro_torch.configs import smoke_config
     from repro_torch.core.policies import hesrpt
     from repro_torch.core.estimation import simulate_scenario_estimated
+    from repro_torch.core.multiclass import multiclass_sweep, simulate_multiclass
     from repro_torch.launch import serve, trace_export
     from repro_torch.models.convert import params_from_jax
     from repro_torch.models.model import build_model
@@ -71,7 +72,17 @@ def _entry_points():
                                       stream={"n_slots": 2})
     tel_spec = sweeps.Sweep.create(("hesrpt",), (1.0,), n_jobs=4, n_seeds=1, telemetry=True)
     x, a = [2.0, 1.0], [0.0, 0.5]
+    mc_spec = sweeps.Sweep.create(("hesrpt_pc",), (1.0,), scenario="multiclass_poisson",
+                                  n_jobs=4, n_seeds=1, classes=((0.3, 1.0), (0.7, 1.0)))
     return {
+        "simulate_multiclass": lambda: simulate_multiclass(
+            scenarios.Scenario(torch.tensor(x), torch.tensor(a), class_ids=torch.tensor([0, 1]),
+                               p_job=torch.tensor([0.3, 0.7])), classes=mc_spec.classes
+        ),
+        "multiclass_sweep": lambda: multiclass_sweep(("hesrpt_pc",), (1.0,),
+                                                     classes=mc_spec.classes, n_jobs=4,
+                                                     n_seeds=1),
+        "run_sweep_classes": lambda: sweeps.run_sweep(mc_spec),
         "run_sweep_telemetry": lambda: sweeps.run_sweep(tel_spec),
         "simulate_scenario_estimated": lambda: simulate_scenario_estimated(
             scenarios.Scenario(torch.tensor(x), torch.tensor(a)), 0.5, 4.0, hesrpt, prior_p=0.5

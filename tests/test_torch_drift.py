@@ -14,7 +14,10 @@ one past the last departure); each JAX configuration runs once,
   (``1e-10`` absolute, as ``tests/test_torch_superstep.py``);
 - ``drift_poisson`` / ``drift_bursty`` sweeps through ``simulate_cells`` on
   the JAX sampler's tapes and drift times against ``repro.core.sweeps``;
-- what stays refused: per-job drift rows, weighted heSRPT under drift.
+- per-job drift rows (the multi-class form) that give every job the
+  row's regime are the scalar regimes bit for bit (the multi-class rows
+  themselves are held in ``tests/test_torch_multiclass.py``); what stays
+  refused: per-job rows on the superstep, weighted heSRPT under drift.
 """
 
 import functools
@@ -283,8 +286,11 @@ def test_drift_sweep_matches_jax_on_its_tapes(scenario, regime):
 def test_drift_refusals():
     x, a = (torch.tensor(v) for v in _inputs(False))
     rows = te.PDrift(torch.tensor([1.0]), torch.full((2, M), 0.5, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="Queue A, item 6"):
-        te.run(x, a, P, te.quantized_rule(tp.hesrpt, 16), p_drift=rows)
+    scalar = te.PDrift(torch.tensor([1.0]), torch.tensor([0.5, 0.5], dtype=torch.float64))
+    per_job = te.run(x, a, P, te.quantized_rule(tp.hesrpt, 16), p_drift=rows, record=True)
+    shared = te.run(x, a, P, te.quantized_rule(tp.hesrpt, 16), p_drift=scalar, record=True)
+    assert torch.equal(per_job.trace.alloc, shared.trace.alloc)
+    assert torch.equal(per_job.completion_times, shared.completion_times)
     with pytest.raises(ValueError, match="scalar drift regimes"):
         te.run(x, a, P, te.continuous_rule(tp.hesrpt, N), superstep=True, p_drift=rows)
     with pytest.raises(ValueError, match="scalar drift regimes"):

@@ -140,18 +140,19 @@ def test_batch_simulate_matches_theorem_8():
 
 
 def test_unported_engine_options_raise():
-    """Per-job drift rows (the multi-class form) are still refused, naming
-    ROADMAP.md; a probe on the superstep is refused in the JAX package's
-    words (probes ride the per-event loop, held in
+    """A per-job p on the carried-rank loop is refused (its invariants need
+    one exponent; per-job rows and per-job p run in engine.run, held in
+    tests/test_torch_multiclass.py); a probe on the superstep is refused in
+    the JAX package's words (probes ride the per-event loop, held in
     tests/test_torch_telemetry.py); scalar drift regimes and the superstep
     are held in tests/test_torch_drift.py and tests/test_torch_superstep.py."""
     from repro_torch.core.telemetry import make_probe
 
     x, a = (torch.tensor(v[0]) for v in _tapes())
     rule = te.quantized_rule(tp.hesrpt, 16)
-    rows = te.PDrift(torch.tensor([1.0]), torch.full((2, M), 0.5, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        te.run(x, a, P, rule, p_drift=rows)
+    with pytest.raises(ValueError, match="run_ranked needs a scalar p"):
+        te.run_ranked(x, a, torch.full((M,), P, dtype=torch.float64), 16.0,
+                      tp.hesrpt_theta_from_ranks)
     with pytest.raises(ValueError, match="telemetry probes ride the per-event scan"):
         te.run(x, a, P, te.continuous_rule(tp.hesrpt, 16.0), superstep=True,
                telemetry=make_probe(mode="series"))

@@ -17,8 +17,11 @@ JAX's ``repro.core.estimation`` on the same inputs:
   ``simulate_cells`` on the JAX sampler's tapes and noise against JAX's
   ``run_sweep`` (every column, the ``tel_*`` ones of an estimator sweep
   included); the port's noise draws in distribution;
-- what stays refused: the multi-class estimator (item 6b), per-class
-  sigma sequences, arms with ``n_chips``/``fused``/``stream``.
+- the class-pooled fit (``p_hat_classes``) on the NumPy estimator's
+  pooled twin (the multi-class estimator against JAX is held in
+  ``tests/test_torch_multiclass.py``); what stays refused: per-class sigma
+  sequences on a one-class scenario, arms with ``n_chips``/``fused``/
+  ``stream``.
 """
 
 import functools
@@ -156,9 +159,33 @@ def test_state_from_history_matches_jax():
 
 
 def test_multiclass_estimator_stays_refused():
-    for fn in (tes.pool_by_class, tes.p_hat_classes, tes.estimating_class_rule):
-        with pytest.raises(NotImplementedError, match="item 6b"):
-            fn()
+    """The class-pooled estimator is ported: two jobs of one class, each with
+    a 2-point history, pool into the NumPy ``pooled_p_hat`` fit of all four
+    samples (tests/test_estimation.py's check), in both packages."""
+    from repro.sched.estimator import pooled_p_hat
+
+    p_true = 0.63
+    a = SpeedupEstimator(prior_p=0.3, prior_weight=1e-9)
+    b = SpeedupEstimator(prior_p=0.3, prior_weight=1e-9)
+    for k in (2.0, 8.0):
+        a.observe(k, k ** p_true)
+    for k in (16.0, 64.0):
+        b.observe(k, k ** p_true)
+    pooled = pooled_p_hat([a, b], 0.3, 1e-9)
+    state = tes.init_est_state(2, device="cpu")
+    jstate = jes.init_est_state(2, jnp.float64)
+    for ka, kb in ((2.0, 16.0), (8.0, 64.0)):
+        state = tes.observe_throughput(state, _obs([ka, kb], [ka ** p_true, kb ** p_true]))
+        jstate = jes.observe_throughput(jstate, je.Observation(
+            alloc=jnp.asarray([ka, kb]), rate=jnp.asarray([ka ** p_true, kb ** p_true]),
+            dt=jnp.asarray(1.0), active=jnp.ones(2, bool)))
+    ids = torch.zeros(2, dtype=torch.int64)
+    got = float(tes.p_hat_classes(state, ids, 1, 0.3, prior_weight=1e-9)[0])
+    want = float(jes.p_hat_classes(jstate, jnp.zeros(2, jnp.int32), 1, 0.3,
+                                   prior_weight=1e-9)[0])
+    np.testing.assert_allclose(got, pooled, rtol=1e-9)
+    np.testing.assert_allclose(got, want, rtol=RTOL)
+    assert int(tes.pool_by_class(state, ids, 1).n[0]) == 4
 
 
 # ------------------------------------------------------ stateful-rule engine
@@ -406,8 +433,10 @@ def test_arm_and_noise_refusals():
     ):
         with pytest.raises(ValueError, match=match):
             tsw.Sweep.create(("hesrpt",), (1.0,), **bad)
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tsw.Sweep.create(("hesrpt",), (1.0,), scenario_kw={"sigma_size": (0.3, 0.1)})
+    spec = tsw.Sweep.create(("hesrpt",), (1.0,), scenario_kw={"sigma_size": (0.3, 0.1)},
+                            n_jobs=4, n_seeds=1)  # accepted, as by JAX; the draw refuses
+    with pytest.raises(ValueError, match="per-class sigma needs a multi-class scenario"):
+        tsw.run_sweep(spec, device="cpu")
     scn = tsc.make_scenario("poisson", sigma_size=0.2)(torch.Generator().manual_seed(0), 8, 1.0)
     with pytest.raises(ValueError, match="size_factors cannot stream"):
         ta.simulate_stream(scn, 0.5, 4.0, tp.hesrpt, n_slots=4, device="cpu")

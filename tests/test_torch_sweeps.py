@@ -87,18 +87,23 @@ def test_from_spec_dict_round_trips_and_refuses_unported_regimes():
     for field in tsw.Sweep._fields:
         assert getattr(spec_t, field) == getattr(spec_j, field), field
     # snap_slices: the JAX package's own refusal (it wires it only for
-    # multi-class sweeps); telemetry with classes and per-class noise
-    # sequences wait for the multi-class slice.
+    # multi-class sweeps), and telemetry with classes (the reference threads
+    # no probe through simulate_multiclass); a per-class noise sequence on a
+    # one-class scenario is refused where it is drawn, as in JAX.
     with pytest.raises(ValueError, match="multi-class"):
         tsw.Sweep.from_spec_dict({**d, "snap_slices": True})
     with pytest.raises(ValueError, match="multi-class"):
         js.Sweep.create(("hesrpt",), (1.0,), n_chips=16, snap_slices=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsw.Sweep.from_spec_dict({**d, "telemetry": ["efficiency"],
-                                  "classes": [[0.3, 1.0], [0.7, 1.0]]})
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        tsw.Sweep.create(("hesrpt",), (1.0,), scenario="bursty",
-                         scenario_kw={"sigma_size": (0.3, 0.1)})
+    classes = [[0.3, 1.0], [0.7, 1.0]]
+    mc = {**d, "scenario": "multiclass_poisson", "policies": ["hesrpt_pc"], "classes": classes}
+    with pytest.raises(ValueError, match="single-class only for now"):
+        tsw.Sweep.from_spec_dict({**mc, "telemetry": ["efficiency"]})
+    assert tsw.Sweep.from_spec_dict({**mc, "n_chips": None}).classes == (
+        (0.3, 1.0, 1.5, 1.0, 1.0, 4.0), (0.7, 1.0, 1.5, 1.0, 1.0, 4.0))
+    noisy = tsw.Sweep.create(("hesrpt",), (1.0,), scenario="bursty", n_jobs=4, n_seeds=1,
+                             scenario_kw={"sigma_size": (0.3, 0.1)})
+    with pytest.raises(ValueError, match="per-class sigma needs a multi-class scenario"):
+        tsw.draw_scenario(noisy, device="cpu")
     with pytest.raises(TypeError):
         tsw.Sweep.create(("hesrpt",), (1.0,), scenario="poisson", scenario_kw={"burst": 2.0})
     with pytest.raises(ValueError):
