@@ -207,7 +207,7 @@ raises, and the exit code is not 0):
     the same grid, ``drift_poisson`` and ``drift_bursty``): estimator <=
     stale x 1.02 at every load and scenario, the forgetting rows, and the
     estimator arm of ``benchmarks/telemetry.py`` with ``p_hat_err``
-    (``estimation.cross_check`` needs ``sched/``, not ported); (e) smoke
+    (``estimation.cross_check`` runs in phase 28); (e) smoke
     telemetry and estimator sweeps on the same tapes, CPU against card,
     every column within 1e-12 relative, the smoke fused lane's histograms
     within 1e-12; (f) ``trace_export.export_sample(n_chips=16)`` on the
@@ -230,7 +230,26 @@ raises, and the exit code is not 0):
     per-class sums are fixed-order masked sums, no atomics); (e) smoke
     ``Sweep(classes=)``, its snapped twin, a ``drift_multiclass`` sweep and
     ``simulate_multiclass(estimator_kw=)``, CPU against card within 1e-12
-    relative.
+    relative;
+28. the cluster scheduler (``sched/``), which launches no kernel, as in the
+    reference (the alloc count is zeroed before (a) and must read 0 after
+    (e)): (a) ``examples/quickstart.py``'s cluster step (64 chips, sizes 8,
+    5, 3, 2, 1, heSRPT on whole chips): the allocation, and the total flow
+    beside Thm 8's fluid optimum; (b) a backlog of 1000 Pareto(1.5) + 1 jobs
+    (``default_rng(0)``) on 4096 chips, heSRPT and the class-aware
+    ``hesrpt_pc`` over ``lanes.class_grid(4)``'s exponents, each delegated
+    to ``engine.run`` and per event: chips equal at every allocate event,
+    completion times within 1e-9 relative, both walls; the delegated heSRPT
+    run on the CPU within 1e-12 of the card's; (c) the estimator at 64 jobs
+    on 256 chips (true p in [0.3, 0.8], priors 0.5, discount 0.9),
+    continuous and whole chips, and the class-aware estimator on a table
+    reused after a first run: delegated against per event within 1e-8;
+    (d) the five cross-checks of ``lanes`` at their benchmarks' sizes and
+    bars (quantized: chips exact, epoch times and flows 1e-9; arrivals
+    1e-6; estimation 1e-8; multi-class: chips exact, continuous 1e-10,
+    whole chips 1e-9; the stream oracle 1e-6); (e) ``lanes.sched_scale``
+    at M = 100 .. 1e5 on 4096 chips: theta us (median of 5), quantize us,
+    4096 chips at every M, and the card's chips at 1e5 equal to the CPU's.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -306,6 +325,10 @@ STREAM_HORIZONS_CUT = (64_000,)
 # The widths the alloc kernel takes in the streaming loop: a pool of slots,
 # padded to at least 32 entries.
 POOL_WIDTHS = (1, 12, 24, 64, 256)
+# Phase 28: a cluster's backlog (jobs, chips; sched_scale's pool) and the
+# estimator tables (benchmarks/estimation.py's regime at 64 jobs).
+SCHED_JOBS, SCHED_CHIPS = 1000, 4096
+SCHED_EST_JOBS, SCHED_EST_CHIPS = 64, 256
 
 
 def _card() -> str:
@@ -2291,6 +2314,204 @@ def phase_multiclass(alloc, lanes, sweeps, multiclass, arrivals, policies, card,
             "phase_s": phase_s}
 
 
+def _allocs(sched_obj) -> list[dict]:
+    return [e["chips"] for e in sched_obj.events if e["event"] == "allocate"]
+
+
+def _times_gap(got: dict, want: dict) -> float:
+    """Largest relative gap between two ``completion_times`` dicts."""
+    return max(abs(got[k] - w) / abs(w) for k, w in want.items())
+
+
+def _both_ways(make, device) -> dict:
+    """One job table run delegated (``run_fluid_to_completion()``) and per
+    event (``use_engine=False``) on ``device``: walls, chips equal at every
+    allocate event, the completion-time gap."""
+    out = {}
+    for label, use_engine in (("delegated", True), ("per_event", False)):
+        s = make(device)
+        assert s._engine_eligible(), "the instance must delegate"
+        t0 = time.perf_counter()  # both paths end in a copy to the host
+        res = s.run_fluid_to_completion(use_engine=use_engine)
+        out[label] = (s, res, time.perf_counter() - t0)
+    (a, ra, wall_a), (b, rb, wall_b) = out["delegated"], out["per_event"]
+    ea, eb = _allocs(a), _allocs(b)
+    # Fractional chips (quantize=False) differ in the last ulps.
+    chips_rel = max((abs(e[k] - c) / max(abs(c), 1e-300) for e, f in zip(ea, eb, strict=True)
+                     for k, c in f.items()), default=0.0) if len(ea) == len(eb) else math.inf
+    return {"walls_s": {"delegated": wall_a, "per_event": wall_b},
+            "chips_equal": ea == eb, "chips_max_rel": chips_rel, "n_events": len(eb),
+            "max_rel": _times_gap(ra["completion_times"], rb["completion_times"]),
+            "total_flow": ra["total_flow_time"], "result": ra}
+
+
+def phase_sched(alloc, lanes, sched, flowtime, policies, card, device) -> dict:
+    """Phase 28: the cluster scheduler (``sched/``) and the benchmarks that
+    hold the engine against it.  It launches no kernel, as in the
+    reference (``ClusterScheduler`` never passes ``fused=``): the alloc
+    count is zeroed before (a) and must read 0 after (e)."""
+    import numpy as np
+    import torch
+
+    t_phase = time.perf_counter()
+    alloc.LAUNCHES = 0
+    # (a) examples/quickstart.py's cluster step: 64 chips, heSRPT on whole chips.
+    sizes = [8.0, 5.0, 3.0, 2.0, 1.0]
+    q = sched.ClusterScheduler(64, policy="hesrpt", device=device)
+    for i, size in enumerate(sizes):
+        q.add_job(sched.Job(f"job{i}", size=size, p=0.5))
+    quick_alloc = q.allocations()
+    quick = q.run_fluid_to_completion()
+    fluid = float(flowtime.hesrpt_total_flowtime(
+        torch.tensor(sizes, dtype=torch.float64, device=device), 0.5, 64.0))
+    assert sum(quick_alloc.values()) == 64, quick_alloc
+    assert fluid * (1 - 1e-12) <= quick["total_flow_time"] < math.inf, (quick, fluid)
+
+    # (b) A backlog at a real cluster's size: 1000 Pareto(1.5) + 1 jobs on
+    # 4096 chips, heSRPT and class-aware hesrpt_pc over class_grid(4).
+    rng = np.random.default_rng(0)
+    x = rng.pareto(1.5, SCHED_JOBS) + 1.0
+    classes = lanes.class_grid(4)
+    cls = rng.integers(0, len(classes), SCHED_JOBS)
+
+    def backlog(dev, **kw):
+        s = sched.ClusterScheduler(SCHED_CHIPS, device=dev, **kw)
+        for i, size in enumerate(x):
+            k = int(cls[i])
+            s.add_job(sched.Job(f"j{i}", size=float(size),
+                                p=classes[k].p if kw.get("class_aware") else 0.5, class_id=k))
+        return s
+
+    backlogs = {
+        "hesrpt": _both_ways(lambda d: backlog(d, policy="hesrpt"), device),
+        "hesrpt_pc": _both_ways(
+            lambda d: backlog(d, policy="hesrpt_pc", class_aware=True), device),
+    }
+    for label, r in backlogs.items():
+        assert r["chips_equal"], f"{label}: delegated chips differ from the per-event path"
+        assert r["max_rel"] <= 1e-9, (label, r["max_rel"])
+    t0 = time.perf_counter()
+    cpu_run = backlog("cpu", policy="hesrpt").run_fluid_to_completion()
+    cpu_wall = time.perf_counter() - t0
+    cpu_gap = _times_gap(cpu_run["completion_times"],
+                         backlogs["hesrpt"].pop("result")["completion_times"])
+    backlogs["hesrpt_pc"].pop("result")
+    assert cpu_gap <= 1e-12, f"backlog CPU vs card {cpu_gap}"
+
+    # (c) The estimator modes at 64 jobs (true p in [0.3, 0.8], priors 0.5,
+    # discount 0.9), and the class-aware estimator on a reused table.
+    rng = np.random.default_rng(1)
+    xe, pe = rng.pareto(1.5, SCHED_EST_JOBS) + 1.0, rng.uniform(0.3, 0.8, SCHED_EST_JOBS)
+    ce = rng.integers(0, len(classes), 2 * SCHED_EST_JOBS)
+
+    def est_table(dev, quantize):
+        s = sched.ClusterScheduler(SCHED_EST_CHIPS, policy="hesrpt", use_estimator=True,
+                                   quantize=quantize, est_discount=0.9, device=dev)
+        for i in range(SCHED_EST_JOBS):
+            s.add_job(sched.Job(f"j{i}", size=float(xe[i]), p=float(pe[i]), prior_p=0.5))
+        return s
+
+    def reused_table(dev):
+        s = sched.ClusterScheduler(SCHED_EST_CHIPS, policy="hesrpt_pc", use_estimator=True,
+                                   class_aware=True, device=dev)
+        for batch in range(2):
+            if batch:
+                s.run_fluid_to_completion(use_engine=False)  # builds real histories
+            for i in range(SCHED_EST_JOBS):
+                k = int(ce[batch * SCHED_EST_JOBS + i])
+                s.add_job(sched.Job(f"b{batch}j{i}", size=float(xe[i]), p=classes[k].p,
+                                    class_id=k, prior_p=0.5))
+        return s
+
+    estimators = {
+        "continuous": _both_ways(lambda d: est_table(d, False), device),
+        "whole_chips": _both_ways(lambda d: est_table(d, True), device),
+        "class_reused": _both_ways(reused_table, device),
+    }
+    for label, r in estimators.items():
+        r.pop("result")
+        assert r["max_rel"] <= 1e-8, (label, r["max_rel"])
+
+    # (d) The five cross-checks at their benchmarks' own sizes and bars.
+    t0 = time.perf_counter()
+    checks = {
+        "quantized": lanes.quantized_cross_check(device=device),
+        "arrivals": lanes.arrivals_cross_check(device=device),
+        "estimation": lanes.estimation_cross_check(device=device),
+        "multiclass": lanes.multiclass_cross_check(device=device),
+        "stream_oracle": lanes.stream_oracle_check(device=device),
+    }
+    checks_s = time.perf_counter() - t0
+    qc, mcc = checks["quantized"], checks["multiclass"]
+    assert qc["chips_exact"] and qc["worst_flow_rel"] < 1e-9, qc
+    assert qc["worst_epoch_time_rel"] < 1e-9, qc
+    assert checks["arrivals"] < 1e-6, checks["arrivals"]
+    assert checks["estimation"]["worst_flow_rel"] < 1e-8, checks["estimation"]
+    assert mcc["chips_exact"] and mcc["worst_continuous_flow_rel"] < 1e-10, mcc
+    assert mcc["worst_quantized_flow_rel"] < 1e-9, mcc
+    assert checks["stream_oracle"] < 1e-6, checks["stream_oracle"]
+
+    # (e) One decision epoch at M = 100 .. 1e5 on 4096 chips; the card's
+    # chips at the largest M against the CPU's.
+    scale = lanes.sched_scale(device=device)
+    st = scale.stats["hesrpt"]
+    assert np.all(st["chips_sum"] == SCHED_CHIPS), st["chips_sum"]
+    m_top = scale.spec["ms"][-1]
+    xs = np.sort(np.random.default_rng(0).pareto(1.5, m_top) + 1.0)[::-1].copy()
+    top = {dev: sched.quantize_allocation(
+        policies.hesrpt(torch.tensor(xs, device=dev), scale.spec["p"]), SCHED_CHIPS).cpu()
+        for dev in ("cpu", device)}
+    scale_cpu_equal = bool(torch.equal(top["cpu"], top[device]))
+    assert scale_cpu_equal, "sched_scale's chips at the largest M differ CPU vs card"
+    launches = alloc.LAUNCHES
+    assert launches == 0, f"the cluster scheduler launched the alloc kernel {launches}x"
+    phase_s = time.perf_counter() - t_phase
+
+    print(f"phase 28: quickstart on 64 chips (heSRPT, whole chips, p 0.5): allocation "
+          f"{quick_alloc}; total flow {quick['total_flow_time']:.6f} against Thm 8's fluid "
+          f"optimum {fluid:.6f}", flush=True)
+    for label, r in backlogs.items():
+        print(f"phase 28: backlog {label} ({SCHED_JOBS} jobs, {SCHED_CHIPS} chips) on {card}: "
+              f"delegated {r['walls_s']['delegated']:.3f} s, per event "
+              f"{r['walls_s']['per_event']:.3f} s, {r['n_events']} allocate events, chips "
+              f"equal at every one {r['chips_equal']}, completion times {r['max_rel']:.2e} "
+              f"relative; total flow {r['total_flow']:.4f}", flush=True)
+    print(f"phase 28: backlog heSRPT delegated on the CPU {cpu_wall:.3f} s, completion times "
+          f"{cpu_gap:.2e} relative to the card's", flush=True)
+    for label, r in estimators.items():
+        print(f"phase 28: estimator {label} ({SCHED_EST_JOBS} jobs, {SCHED_EST_CHIPS} chips): "
+              f"delegated {r['walls_s']['delegated']:.3f} s, per event "
+              f"{r['walls_s']['per_event']:.3f} s, completion times {r['max_rel']:.2e} "
+              f"relative, chips equal {r['chips_equal']} (within {r['chips_max_rel']:.2e})",
+              flush=True)
+    print(f"phase 28: cross-checks ({checks_s:.3f} s): quantized chips exact "
+          f"{qc['chips_exact']} over {qc['n_events']} events, epoch times "
+          f"{qc['worst_epoch_time_rel']:.2e}, flows {qc['worst_flow_rel']:.2e}; arrivals "
+          f"{checks['arrivals']:.2e}; estimation {checks['estimation']['worst_flow_rel']:.2e} "
+          f"({checks['estimation']['n_cases']} cases); multiclass chips exact "
+          f"{mcc['chips_exact']} over {mcc['n_events']} events, continuous "
+          f"{mcc['worst_continuous_flow_rel']:.2e}, whole chips "
+          f"{mcc['worst_quantized_flow_rel']:.2e}; stream oracle "
+          f"{checks['stream_oracle']:.2e}", flush=True)
+    for mi, m in enumerate(scale.spec["ms"]):
+        print(f"phase 28: sched_scale M = {m} on {card}: theta {np.median(st['theta_us'][mi]):.1f} "
+              f"us (median of {scale.spec['repeats']}), quantize {st['quantize_us'][mi, 0]:.1f} "
+              f"us, chips {int(st['chips_sum'][mi, 0])}", flush=True)
+    print(f"phase 28: chips at M = {m_top} card == CPU {scale_cpu_equal}; {launches} alloc "
+          f"launches; phase 28 took {phase_s:.1f} s", flush=True)
+    return {"quickstart": {"allocation": quick_alloc, "total_flow": quick["total_flow_time"],
+                           "fluid_optimum": fluid},
+            "backlog": backlogs, "backlog_cpu_wall_s": cpu_wall, "backlog_cpu_vs_cuda": cpu_gap,
+            "estimators": estimators, "cross_checks": checks, "cross_checks_s": checks_s,
+            "sched_scale": {"ms": scale.spec["ms"],
+                            "theta_us_median": np.median(st["theta_us"], axis=1).tolist(),
+                            "theta_us": st["theta_us"].tolist(),
+                            "quantize_us": st["quantize_us"][:, 0].tolist(),
+                            "chips_sum": st["chips_sum"][:, 0].tolist(),
+                            "cpu_equal_at_top": scale_cpu_equal},
+            "alloc_launches": launches, "phase_s": phase_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -2307,7 +2528,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import figures, lanes
+    from repro_torch import figures, lanes, sched
     from repro_torch.core import (
         analysis, arrivals, engine, flowtime, multiclass, policies, scenarios, simulator,
         superstep, sweeps, telemetry,
@@ -2373,6 +2594,7 @@ def main() -> int:
     tel = phase_telemetry(alloc, lanes, sweeps, engine, policies, telemetry, analysis,
                           trace_export, card, device)
     mc = phase_multiclass(alloc, lanes, sweeps, multiclass, arrivals, policies, card, device)
+    cluster = phase_sched(alloc, lanes, sched, flowtime, policies, card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -2494,6 +2716,7 @@ def main() -> int:
         "stream": stream,
         "telemetry": tel,
         "multiclass": mc,
+        "sched": cluster,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -19,6 +19,11 @@ The PyTorch/CUDA port of the JAX package ``repro``.  Its paths so far:
 - multi-class workloads: per-job exponents and per-job drift rows through
   the event loop, the class-aware policies and samplers, class-pooled
   estimation and ``Sweep(classes=)`` (``core/multiclass.py``);
+- the cluster scheduler: ``ClusterScheduler``'s job table and decision
+  epochs, per event or delegated to the event loop, the speedup
+  estimator, whole-chip quantization and straggler detection (``sched/``),
+  with the benchmarks' cross-checks against it and the decision-epoch
+  benchmark (``lanes.py``); ``sched/elastic.py`` waits for the training path;
 - serving the dense, ssm and hybrid families (batched prefill, greedy
   decode over KV, conv and state caches): ``configs/``, ``models/``,
   ``train/serve_step.py``, ``launch/serve.py``, with the flash, SSD and

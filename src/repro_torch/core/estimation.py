@@ -85,7 +85,7 @@ def observe_throughput(state: EstState, obs: engine.Observation, *, discount=1.0
     ok = obs.active & (obs.alloc > 0) & (obs.rate > 0) & (obs.dt > 0)
     lk = torch.where(obs.alloc > 0, obs.alloc, 1).to(dtype).log()
     lt = torch.where(obs.rate > 0, obs.rate, 1.0).to(dtype).log()
-    d = torch.where(ok, torch.tensor(discount, dtype=dtype, device=ok.device), 1.0)
+    d = torch.where(ok, torch.as_tensor(discount, dtype=dtype, device=ok.device), 1.0)
     okf = ok.to(dtype)
     return EstState(
         n=state.n + ok.to(torch.int32),

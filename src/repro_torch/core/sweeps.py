@@ -417,7 +417,17 @@ class SweepResult(NamedTuple):
     def record(self) -> dict:
         """Compact JSON-able record (per-cell mean/std, ``[R, K]`` lists for
         a per-class metric), the JAX layout (its spec keys, ``classes`` as
-        rows of ``ClassSpec`` fields) with torch, CUDA and card provenance."""
+        rows of ``ClassSpec`` fields) with torch, CUDA and card provenance.
+        A benchmark's own spec dict (``lanes.sched_scale``) keeps its keys
+        and its ``kind``, with no job counts, as in JAX."""
+        cells = {name: {m: seed_axis_stats(a) for m, a in by_m.items()}
+                 for name, by_m in self.stats.items()}
+        if not isinstance(self.spec, Sweep):
+            return {"kind": self.spec.get("kind", "bench"), "provenance": provenance(self.device),
+                    "spec": dict(self.spec), "cells": cells, "n_seeds": None,
+                    "total_jobs": None, "wall_s": self.wall_s, "compile_s": 0.0,
+                    "backend": self.backend, "device_count": self.device_count,
+                    "chunk_seeds": self.chunk_seeds, "sharded": False}
         spec = self.spec._asdict()
         for key in ("scenario_kw", "arm_kw", "stream"):
             spec[key] = [list(kv) for kv in spec[key]]
@@ -429,10 +439,7 @@ class SweepResult(NamedTuple):
             "kind": "sweep",
             "provenance": provenance(self.device),
             "spec": spec,
-            "cells": {
-                name: {m: seed_axis_stats(a) for m, a in by_m.items()}
-                for name, by_m in self.stats.items()
-            },
+            "cells": cells,
             "n_seeds": self.spec.n_seeds,
             "total_jobs": self.spec.total_jobs() * len(self.spec.policies),
             "wall_s": self.wall_s,
@@ -644,6 +651,12 @@ RUN_LOG: list[dict] = []
 RUN_LOG_MAX = 512
 
 
+def log_record(record: dict) -> None:
+    """Append ``record`` to :data:`RUN_LOG`, keeping the last :data:`RUN_LOG_MAX`."""
+    RUN_LOG.append(record)
+    del RUN_LOG[:-RUN_LOG_MAX]
+
+
 def bench_records() -> list[dict]:
     return list(RUN_LOG)
 
@@ -699,8 +712,7 @@ def run_sweep(
         device=dev,
         chunk_seeds=chunk,
     )
-    RUN_LOG.append(result.record())
-    del RUN_LOG[:-RUN_LOG_MAX]
+    log_record(result.record())
     return result
 
 
@@ -717,6 +729,7 @@ __all__ = [
     "SweepResult",
     "bench_records",
     "draw_scenario",
+    "log_record",
     "provenance",
     "resolve_chunk",
     "run_sweep",

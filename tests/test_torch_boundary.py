@@ -51,7 +51,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "kernels.ssd_scan", "kernels.chunked", "models.model", "models.ssm",
                  "models.convert", "launch.serve", "train.serve_step", "core.superstep",
                  "configs.paper", "figures", "core.telemetry", "core.estimation",
-                 "launch.trace_export", "core.multiclass"):
+                 "launch.trace_export", "core.multiclass", "sched.cluster",
+                 "sched.estimator", "sched.quantize", "sched.stragglers", "lanes"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["bad"] == []
 
@@ -66,6 +67,7 @@ def _entry_points():
     from repro_torch.launch import serve, trace_export
     from repro_torch.models.convert import params_from_jax
     from repro_torch.models.model import build_model
+    from repro_torch.sched import ClusterScheduler
 
     spec = sweeps.Sweep.create(("hesrpt",), (1.0,), n_jobs=4, n_seeds=1)
     stream_spec = sweeps.Sweep.create(("hesrpt",), (1.0,), n_jobs=4, n_seeds=1,
@@ -75,6 +77,8 @@ def _entry_points():
     mc_spec = sweeps.Sweep.create(("hesrpt_pc",), (1.0,), scenario="multiclass_poisson",
                                   n_jobs=4, n_seeds=1, classes=((0.3, 1.0), (0.7, 1.0)))
     return {
+        "ClusterScheduler": lambda: ClusterScheduler(16),
+        "sched_scale": lambda: lanes.sched_scale(ms=(10,), repeats=1),
         "simulate_multiclass": lambda: simulate_multiclass(
             scenarios.Scenario(torch.tensor(x), torch.tensor(a), class_ids=torch.tensor([0, 1]),
                                p_job=torch.tensor([0.3, 0.7])), classes=mc_spec.classes
