@@ -179,8 +179,8 @@ raises, and the exit code is not 0):
     (rates 1, 2, 4, 8, 1000 jobs, 10 seeds, 64 slots; heSRPT, SRPT, EQUI on
     the carried-rank stream): wall and windowed mean flows; (d) horizon
     scaling: ``run_stream_source(poisson_source)`` at 32 slots (rate 4, 4
-    servers, p 0.5) over ``STREAM_HORIZONS`` events (64,000 is cut for the
-    time limit): us an event and peak device bytes above the baseline,
+    servers, p 0.5) over ``STREAM_HORIZONS`` events (16,000 and 64,000 are
+    cut for the time limit): us an event and peak device bytes above the baseline,
     which must not grow with the horizon, beside ``engine.run`` on E/2 jobs;
     (e) the long horizon: at least 50 x 32 jobs through 32 slots, never
     more than 32 in flight, deferrals printed; (f) the smoke stream lanes on
@@ -249,7 +249,49 @@ raises, and the exit code is not 0):
     1e-6; estimation 1e-8; multi-class: chips exact, continuous 1e-10,
     whole chips 1e-9; the stream oracle 1e-6); (e) ``lanes.sched_scale``
     at M = 100 .. 1e5 on 4096 chips: theta us (median of 5), quantize us,
-    4096 chips at every M, and the card's chips at 1e5 equal to the CPU's.
+    4096 chips at every M, and the card's chips at 1e5 equal to the CPU's;
+29. the training path (``models/model.py::loss_fn``, ``train/``,
+    ``data/pipeline.py``), which launches none of the four kernels: none has
+    a backward, here or in the reference, so training takes the chunked
+    forms (``kernels/chunked.py``): (a) the chunked attention's forward and
+    hand-written backward against autograd through the plain version, float32,
+    under a seeded cotangent, at phi4-mini's [2, 24 / 8, 1024, 128] causal
+    and recurrentgemma's [1, 16 / 1, 4096, 256] with window 2048: output, dq,
+    dk and dv within 2e-5 in relative norm, and fwd + bwd timed beside the
+    plain version's; ``ops.attention`` with ``impl="cuda"`` or ``"auto"`` on
+    a tensor that requires grad raises; (b) phi4-mini at its published widths with the depth cut
+    from 32 to 16 layers (2.84e9 float32 parameters drawn on the card from a
+    seed), built as ``launch/train.py`` builds it without ``--smoke`` (bf16
+    activations, ``remat="full"``, AdamW with 10 warmup steps), batch 2 x
+    1024 from ``make_stream_for``, 8 steps on ``run_with_recovery``'s
+    schedule with a checkpoint before step 4 and a failure at step 6 (the
+    step donated: the optimizer updates in place; the one 34 GB state is
+    written to disk by ``checkpoint.save`` and read back in place by
+    ``checkpoint.restore``; ``run_with_recovery`` itself would also write the
+    step-0 and final states, more than the 45 GiB of disk writes a run of
+    this script may make): every loss and grad norm finite, the first loss within 1.0 of
+    ln(200064), the last below the first, the replayed steps' losses equal
+    to the first pass's, and no flash, SSD or RG-LRU launch (counted from
+    zero); the step's ms (median after the first), tokens/s, peak memory,
+    and one more step profiled: device time, idle share, the chunked
+    attention's and AdamW's shares and the top kernels, then steps without
+    remat; (b') ``run_with_recovery`` itself on the card, disk checkpoints
+    and all, on the smoke phi4-mini with (b)'s schedule: the recovery, the
+    replayed losses and the final state bit for bit with an uninterrupted
+    run; (c) at that width with 2 layers, float32: ``loss_fn``'s loss and
+    every gradient leaf with remat "full" and "none", bit for bit; (d) the
+    smoke phi4-mini, mamba2 and recurrentgemma: the first step's gradient,
+    each leaf by relative norm, and its grad norm, then two float32 train
+    steps' losses, from the same parameters and batches on the CPU and on
+    the card, within 1e-5 relative (the SSD and RG-LRU chunked forms under
+    autograd on the card);
+30. (run right after phases 12 and 16, on their weights) mamba2-130m (batch 4
+    x 30,000) and recurrentgemma-9b (batch 4 x 4096) at full width and depth
+    with bf16 activations (``ModelOptions()``, kernels on) through
+    ``prefill_fn``: the SSD, RG-LRU and flash launches equal the layer counts
+    (24 / 0 / 0 and 0 / 26 / 12), no alignment copy, and the last logits lie
+    within twice the distance from the phase's float32 logits that the same
+    bf16 prefill on the plain versions has.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -320,8 +362,8 @@ RGLRU_TOL = FLASH_TOL
 # that horizon alone took 107 s, 1.67 ms an event step of host launches,
 # with the same peak device bytes as the three below). The finite-tape
 # comparator runs at every horizon kept.
-STREAM_HORIZONS = (1_000, 4_000, 16_000)
-STREAM_HORIZONS_CUT = (64_000,)
+STREAM_HORIZONS = (1_000, 4_000)
+STREAM_HORIZONS_CUT = (16_000, 64_000)
 # The widths the alloc kernel takes in the streaming loop: a pool of slots,
 # padded to at least 32 entries.
 POOL_WIDTHS = (1, 12, 24, 64, 256)
@@ -1047,8 +1089,10 @@ def phase_ssd_vs_plain(ssd_kernel, chunked, ref, device) -> dict:
     return worst
 
 
-def phase_serve_ssm(ssd_kernel, flash, card, device) -> dict:
-    """Phase 12: mamba2-130m at full width through ``generate``."""
+def phase_serve_ssm(ssd_kernel, flash, card, device) -> tuple:
+    """Phase 12: mamba2-130m at full width through ``generate``.  Returns
+    the record, the weights and the float32 prefill's last logits (phase
+    30's)."""
     import numpy as np
     import torch
 
@@ -1103,14 +1147,15 @@ def phase_serve_ssm(ssd_kernel, flash, card, device) -> dict:
           f"({decode_tps:.1f} tok/s), peak memory {peak_gb:.2f} GB; SSD launches {launches}, "
           f"flash launches {flash_launches}; last logits kernel vs chunked max |err| {err:.3e} "
           f"(max |logit| {want.abs().max().item():.3f})", flush=True)
-    del params, got, want
+    del want
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "params": n_params, "param_count": cfg.param_count(),
             "batch": SSM_BATCH, "prompt_len": SSM_PROMPT, "gen_len": SSM_GEN,
             "init_s": init_s, "prefill_s": timings["prefill_s"],
             "decode_s": timings["decode_s"], "decode_tok_s": decode_tps,
             "peak_mem_gb": peak_gb, "ssd_launches": launches, "flash_launches": flash_launches,
-            "logits_max_abs_err_vs_chunked": err, "sample_ids": ids[0, :16].tolist()}
+            "logits_max_abs_err_vs_chunked": err, "sample_ids": ids[0, :16].tolist()}, \
+        params, got
 
 
 def phase_ssd_timing(ssd_kernel, chunked, card, device) -> dict:
@@ -1212,8 +1257,10 @@ def phase_rglru_vs_plain(rglru_kernel, chunked, ref, ops, device) -> dict:
     return worst
 
 
-def phase_serve_hybrid(rglru_kernel, flash, ssd_kernel, card, device) -> dict:
-    """Phase 16: recurrentgemma-9b at full width through ``generate``."""
+def phase_serve_hybrid(rglru_kernel, flash, ssd_kernel, card, device) -> tuple:
+    """Phase 16: recurrentgemma-9b at full width through ``generate``.
+    Returns the record, the weights and the float32 prefill's last logits
+    (phase 30's)."""
     import numpy as np
     import torch
 
@@ -1280,7 +1327,7 @@ def phase_serve_hybrid(rglru_kernel, flash, ssd_kernel, card, device) -> dict:
           f"{want.abs().max().item():.3f}); flash bound at [{HYBRID_BATCH}, {cfg.n_heads}, "
           f"{s_}, {cfg.head_dim}], window {w_}: {pairs} pairs per head, {flash_ops:.4e} flop, "
           f"{flash_bound_ms:.4f} ms float32", flush=True)
-    del params, got, want
+    del want
     torch.cuda.empty_cache()
     return {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params,
             "param_count": cfg.param_count(), "batch": HYBRID_BATCH,
@@ -1291,7 +1338,7 @@ def phase_serve_hybrid(rglru_kernel, flash, ssd_kernel, card, device) -> dict:
             "ssd_launches": launches["ssd"], "logits_max_abs_err_vs_chunked": err,
             "flash_pairs_per_head": pairs, "flash_ops": flash_ops,
             "flash_bound_ms": flash_bound_ms,
-            "sample_ids": ids[0, :16].tolist()}
+            "sample_ids": ids[0, :16].tolist()}, params, got
 
 
 def phase_rglru_timing(rglru_kernel, ref, card, device) -> dict:
@@ -2512,6 +2559,563 @@ def phase_sched(alloc, lanes, sched, flowtime, policies, card, device) -> dict:
             "alloc_launches": launches, "phase_s": phase_s}
 
 
+# Phase 29: the training path.  phi4-mini at its published widths, depth cut
+# from 32 to 16 layers: its float32 masters, gradients and two moments take
+# 16 B a parameter, 71.2 GB at all 32 layers (4.45e9 parameters) and 45.4 GB
+# at 16 (2.84e9), which leaves room on an 80 GB card for the logits and the
+# optimizer's temporaries.  Batch 2 x 1024 from the synthetic stream; 8 steps
+# through run_with_recovery, a checkpoint every 4, a failure at step 6.
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "phi4-mini-3.8b", 16, 2, 1024
+TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 4, 6
+# (b, hq, hkv, s, d, window), causal: the attention of phase 29 (b)'s step
+# (phi4-mini) and recurrentgemma's local attention at phase 16's prompt.
+VJP_SHAPES = {"phi4-mini": (TRAIN_BATCH, 24, 8, TRAIN_SEQ, 128, 0),
+              "recurrentgemma": (1, 16, 1, HYBRID_PROMPT, 256, 2048)}
+# tests/test_torch_chunked_attention.py's float32 bar (relative norm); and
+# two float32 train steps on the CPU and the card, the losses and all the
+# parameters as one vector: two summation orders.  (One leaf alone is no
+# measure: a zero-initialized bias moves by +-lr where its gradient's sign
+# is at the rounding's mercy; float32 against float64 on the CPU alone
+# differs by 5.6e-4 on mamba2's first conv_b.)
+VJP_REL = 2e-5
+TRAIN_CPU_REL = 1e-5
+TRAIN_SMOKE_ARCHS = (SERVE_ARCH, SSM_ARCH, HYBRID_ARCH)
+
+
+def _rel_norm(got, want) -> float:
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+def phase_attention_vjp(chunked, ref, ops, card, device) -> dict:
+    """Phase 29 (a): the chunked attention's forward and hand-written
+    backward against autograd through the plain version (the scores
+    materialized), float32, under a seeded cotangent; both timed fwd + bwd."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(29)
+    out = {}
+    for name, (b, hq, hkv, s, d, window) in VJP_SHAPES.items():
+        q = torch.randn((b, hq, s, d), generator=gen, device=device)
+        k = torch.randn((b, hkv, s, d), generator=gen, device=device)
+        v = torch.randn((b, hkv, s, d), generator=gen, device=device)
+        do = torch.randn((b, hq, s, d), generator=gen, device=device)
+
+        def fwd_bwd(fn, dtype=torch.float32):
+            leaves = [t.to(dtype, copy=True).requires_grad_(True) for t in (q, k, v)]
+            o = fn(*leaves, causal=True, window=window)
+            o.backward(do.to(dtype))
+            return [o.detach()] + [t.grad for t in leaves]
+
+        got = fwd_bwd(chunked.attention)
+        want = fwd_bwd(ref.attention)
+        gaps = {n: _rel_norm(g, w) for n, g, w in zip(("out", "dq", "dk", "dv"), got, want)}
+        del got, want
+        ms = _time_ms(lambda: fwd_bwd(chunked.attention), 5)
+        plain_ms = _time_ms(lambda: fwd_bwd(ref.attention), 5)
+        bf16_ms = _time_ms(lambda: fwd_bwd(chunked.attention, torch.bfloat16), 5)
+        out[name] = {"shape": [b, hq, hkv, s, d], "window": window, "rel_gaps": gaps,
+                     "ms": ms, "plain_ms": plain_ms, "bf16_ms": bf16_ms}
+        print(f"phase 29 (a): chunked attention VJP {name} [{b}, {hq}, {s}, {d}] / [{b}, {hkv}, "
+              f"{s}, {d}] causal{f' window {window}' if window else ''} on {card}: relative "
+              "gaps to autograd through the plain version "
+              + ", ".join(f"{n} {g:.3e}" for n, g in gaps.items())
+              + f" (bar {VJP_REL:g}); fwd + bwd {ms:.4f} ms float32, {bf16_ms:.4f} ms bf16 "
+              f"inputs, plain version {plain_ms:.4f} ms", flush=True)
+        assert max(gaps.values()) <= VJP_REL, (name, gaps)
+        del q, k, v, do
+    qg = torch.randn((1, 2, 8, 16), device=device, requires_grad=True)
+    kv = torch.randn((1, 2, 8, 16), device=device)
+    for impl in ("cuda", "auto"):
+        try:
+            ops.attention(qg, kv, kv, impl=impl)
+        except RuntimeError as e:
+            assert "chunked" in str(e), e
+        else:
+            raise AssertionError(f'ops.attention(impl="{impl}") took a tensor that requires grad')
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kernel_device_rows(prof, annotations=()) -> list[dict]:
+    """Device rows of the trace, but the ``record_function`` ranges in
+    ``annotations`` (each also shows as a device-side span)."""
+    from torch.autograd import DeviceType
+
+    rows = [{"name": e.key, "count": e.count, "device_us": e.self_device_time_total}
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) == DeviceType.CUDA and e.key not in annotations]
+    return sorted(rows, key=lambda r: -r["device_us"])
+
+
+def _determinism_probe(params, batch, cfg, device) -> dict:
+    """The two backward scatters of (b)'s loss run twice on the same inputs:
+    the embedding's (rows of repeated tokens add into one row) and the gold
+    gather's; the largest relative difference of each pair of gradients."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models.model import cross_entropy
+
+    out = {}
+    tokens, labels = batch["tokens"].long(), batch["labels"].long()
+    gen = torch.Generator(device=device).manual_seed(7)
+    cot = torch.randn(tokens.shape + (cfg.d_model,), generator=gen, device=device)
+    grads = []
+    for _ in range(2):
+        table = params["embed"].detach().requires_grad_(True)
+        F.embedding(tokens, table).backward(cot)
+        grads.append(table.grad)
+    out["embedding"] = ((grads[0] - grads[1]).abs().max() / grads[1].abs().max()).item()
+    del grads, cot
+    logits = torch.randn(tokens.shape + (cfg.vocab_size,), generator=gen, device=device)
+    grads = []
+    for _ in range(2):
+        lg = logits.to(torch.bfloat16).requires_grad_(True)
+        cross_entropy(lg, labels, torch.ones(labels.shape, device=device)).backward()
+        grads.append(lg.grad.float())
+    out["gold_gather"] = ((grads[0] - grads[1]).abs().max() / grads[1].abs().max()).item()
+    return out
+
+
+def phase_train(flash, ssd_kernel, rglru_kernel, chunked, card, device) -> dict:
+    """Phase 29 (b): phi4-mini at full width, depth cut, trained as
+    ``launch/train.py`` builds it without ``--smoke`` (bf16 activations,
+    remat, the mixers' chunked paths, AdamW, the step donated), on the
+    schedule of ``run_with_recovery`` with a failure at step 6: the state
+    before step 4 written to disk by ``checkpoint.save``, read back into the
+    failed state by ``checkpoint.restore`` and steps 4-5 replayed; then one
+    step profiled.  ``run_with_recovery`` also writes the step-0 and final
+    states: three full-width checkpoints would write ~100 GB, more than the
+    45 GiB of disk writes a run of this script may make, so it runs, disk
+    checkpoints and all, in ``phase_train_recovery``."""
+    import os
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_stream_for
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+    from repro_torch.train import TrainConfig, checkpoint, make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+
+    full = get_config(TRAIN_ARCH)
+    cfg = full.scaled(n_layers=TRAIN_LAYERS)
+    opts = ModelOptions(attn_impl="chunked", mixer_impl="chunked",
+                        activation_dtype="bfloat16", remat="full")
+    model = build_model(cfg, opts, device=device)
+    tc = TrainConfig(optimizer=OptimizerConfig(lr=1e-3, warmup_steps=10,
+                                               total_steps=TRAIN_STEPS))
+    step_fn = make_train_step(model, tc, donate=True)
+    stream = make_stream_for(cfg, TRAIN_SEQ, TRAIN_BATCH)
+
+    def batches(step):
+        return {k: torch.as_tensor(v, device=device) for k, v in stream.batch(step).items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    opt_state = init_opt_state(params)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in _leaves(params))
+    assert n_params == cfg.param_count(), (n_params, cfg.param_count())
+
+    log, step_s = [], []
+    state = {"params": params, "opt_state": opt_state}
+    del params, opt_state
+
+    def run(steps):
+        for step in steps:
+            batch = batches(step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(state["params"], state["opt_state"], batch)
+            state.update(params=params, opt_state=opt_state)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            log.append({"step": step, "loss": m["loss"].item(),
+                        "grad_norm": m["grad_norm"].item(), "lr": m["lr"].item(),
+                        "ms": step_s[-1] * 1e3})
+
+    flash.LAUNCHES = ssd_kernel.LAUNCHES = rglru_kernel.LAUNCHES = 0
+    t_run = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        run(range(TRAIN_CKPT_EVERY))
+        t0 = time.perf_counter()
+        checkpoint.save(ckpt, state, step=TRAIN_CKPT_EVERY)
+        save_s = time.perf_counter() - t0
+        run(range(TRAIN_CKPT_EVERY, TRAIN_FAIL_AT))
+        t0 = time.perf_counter()  # the failure at TRAIN_FAIL_AT: the checkpoint back, in place
+        resumed_from = checkpoint.load_manifest(ckpt)["step"]
+        checkpoint.restore(ckpt, state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        ckpt_gb = os.path.getsize(os.path.join(ckpt, "arrays.npz")) / 1e9
+        recoveries = [{"failed_at": TRAIN_FAIL_AT, "resumed_from": resumed_from}]
+    run(range(resumed_from, TRAIN_STEPS))
+    run_s = time.perf_counter() - t_run
+    params, opt_state = state["params"], state["opt_state"]
+    del state
+    launches = {"flash": flash.LAUNCHES, "ssd": ssd_kernel.LAUNCHES,
+                "rglru": rglru_kernel.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    steady = sorted(step_s[1:])
+    step_ms = steady[len(steady) // 2] * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for row in log:
+        print(f"phase 29 (b): step {row['step']} loss {row['loss']:.6f} grad norm "
+              f"{row['grad_norm']:.4f} lr {row['lr']:.3e} {row['ms']:.1f} ms", flush=True)
+
+    first, replay = {}, {}
+    for row in log:
+        (replay if row["step"] in first else first)[row["step"]] = row["loss"]
+    replayed = sorted(replay)
+    assert recoveries == [{"failed_at": TRAIN_FAIL_AT,
+                           "resumed_from": TRAIN_CKPT_EVERY}], recoveries
+    assert replayed == list(range(TRAIN_CKPT_EVERY, TRAIN_FAIL_AT)), replayed
+    assert sorted(first) == list(range(TRAIN_STEPS)), sorted(first)
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in log)
+    ln_v = math.log(cfg.vocab_size)
+    assert abs(first[0] - ln_v) <= 1.0, (first[0], ln_v)
+    assert first[TRAIN_STEPS - 1] < first[0], (first[TRAIN_STEPS - 1], first[0])
+    assert launches == {"flash": 0, "ssd": 0, "rglru": 0}, launches
+    replay_gap = max(abs(replay[s] - first[s]) / abs(first[s]) for s in replayed)
+    probe = None
+    if replay_gap:
+        probe = _determinism_probe(params, batches(0), cfg, device)
+        print(f"phase 29 (b): replayed losses differ from the first pass by {replay_gap:.3e} "
+              f"relative; two backward passes of the same inputs differ by {probe} "
+              "(max |diff| / max |grad|)", flush=True)
+        assert replay_gap <= 1e-6, replay_gap
+
+    # One more step under the profiler: device time by kernel, the chunked
+    # attention's share (its forward, recomputed under remat, and backward).
+    batch = batches(TRAIN_STEPS)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, opt_state, _ = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+    spans = ("train_step.loss_and_grad", "train_step.apply_updates")
+    rows = _kernel_device_rows(prof, spans)
+    device_s = sum(r["device_us"] for r in rows) * 1e-6
+    # The autograd.Function's forward and its backward node, each with the
+    # device time of the kernels launched under it.
+    attn = {e.key: e.device_time_total for e in prof.key_averages() if "ChunkedAttention" in e.key}
+    bwd = attn.get("_ChunkedAttentionBackward",
+                   attn.get("autograd::engine::evaluate_function: _ChunkedAttentionBackward", 0.0))
+    attn_s = (attn.get("_ChunkedAttention", 0.0) + bwd) * 1e-6
+    assert rows and attn_s > 0, ("the profiler saw no device time", attn)
+    # AdamW: the device time of the kernels launched in its host range (the
+    # record_function of train/train_step.py); the backward runs on the
+    # autograd engine's device thread, outside the loss-and-gradient range,
+    # so that half is the rest of the step's device time.
+    from torch.autograd import DeviceType
+
+    adamw_ms = sum(e.device_time_total for e in prof.key_averages()
+                   if e.key == spans[1] and e.device_type == DeviceType.CPU) * 1e-3
+    halves = {"loss_and_grad": device_s * 1e3 - adamw_ms, "apply_updates": adamw_ms}
+    idle = 1.0 - device_s / (step_ms / 1e3)
+    del prof
+
+    # The same step without remat: what recomputing the blocks costs.
+    plain = build_model(cfg, ModelOptions(attn_impl="chunked", mixer_impl="chunked",
+                                          activation_dtype="bfloat16", remat="none"),
+                        device=device)
+    no_remat_step = make_train_step(plain, tc, donate=True)
+    torch.cuda.reset_peak_memory_stats(device)
+    no_remat_s = []
+    for i in range(3):
+        batch = batches(TRAIN_STEPS + 1 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, _ = no_remat_step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        no_remat_s.append(time.perf_counter() - t0)
+    no_remat_ms = sorted(no_remat_s[1:])[0] * 1e3
+    no_remat_peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    del params, opt_state, batch
+    torch.cuda.empty_cache()
+    print(f"phase 29 (b): {cfg.name} at published widths, depth cut from {full.n_layers} to "
+          f"{cfg.n_layers} layers ({n_params} parameters, init {init_s:.2f} s), bf16 "
+          f"activations, remat full, batch {TRAIN_BATCH} x {TRAIN_SEQ} on {card}: "
+          f"{TRAIN_STEPS} steps + {len(replayed)} replayed in {run_s:.2f} s ({sum(step_s):.2f} s "
+          f"of steps; the {ckpt_gb:.1f} GB checkpoint saved in {save_s:.2f} s, restored in "
+          f"{restore_s:.2f} s); "
+          f"step {step_ms:.1f} ms (median of the steps after the first), "
+          f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory {peak_gb:.2f} GB; first loss "
+          f"{first[0]:.4f} (ln V = {ln_v:.4f}), last {first[TRAIN_STEPS - 1]:.4f}; replayed "
+          f"steps {replayed}, gap to the first pass {replay_gap:.3e}; kernel launches "
+          f"{launches}; one profiled step: device {device_s * 1e3:.1f} ms, idle share "
+          f"{idle:.4f}, chunked attention {attn_s * 1e3:.1f} ms ({attn_s / device_s:.4f} of "
+          f"device time; {attn}); loss and gradient {halves.get('loss_and_grad', 0):.1f} ms, "
+          f"AdamW {halves.get('apply_updates', 0):.1f} ms of device time; without remat a step "
+          f"takes {no_remat_ms:.1f} ms (the faster of two after one) and {no_remat_peak_gb:.2f} "
+          "GB at peak", flush=True)
+    for r in rows[:10]:
+        print(f"phase 29 (b):   {r['device_us'] / 1e3:9.2f} ms {r['count']:6d}x {r['name'][:90]}",
+              flush=True)
+    return {"arch": cfg.name, "layers": cfg.n_layers, "full_layers": full.n_layers,
+            "params": n_params, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "init_s": init_s,
+            "log": log, "replay_gap": replay_gap, "determinism_probe": probe, "run_s": run_s,
+            "steps_s": sum(step_s), "recoveries": recoveries, "ckpt_gb": ckpt_gb,
+            "save_s": save_s, "restore_s": restore_s,
+            "step_ms": step_ms, "tokens_per_s": tokens / step_ms * 1e3, "peak_mem_gb": peak_gb,
+            "launches": launches, "device_ms": device_s * 1e3, "idle_share": idle,
+            "attention_ms": attn_s * 1e3, "attention_share": attn_s / device_s,
+            "device_ms_by_half": halves, "no_remat_step_ms": no_remat_ms,
+            "no_remat_peak_gb": no_remat_peak_gb, "top": rows[:12]}
+
+
+def phase_train_recovery(card, device) -> dict:
+    """Phase 29 (b'): ``run_with_recovery`` itself on the card, its
+    checkpoints on disk: the smoke phi4-mini (its state is kilobytes),
+    phase (b)'s schedule (8 steps, a checkpoint every 4, a failure at 6),
+    the step donated; against the same run with no failure."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import make_stream_for
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train import checkpoint
+    from repro_torch.train.ft import FailureInjector, run_with_recovery
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.tree import leaves
+
+    cfg = smoke_config(TRAIN_ARCH)
+    model = build_model(cfg, ModelOptions(attn_impl="chunked", activation_dtype="bfloat16",
+                                          remat="full"), device=device)
+    tc = TrainConfig(optimizer=OptimizerConfig(lr=1e-3, warmup_steps=10,
+                                               total_steps=TRAIN_STEPS))
+    stream = make_stream_for(cfg, TRAIN_SEQ, TRAIN_BATCH)
+
+    def batches(step):
+        return {k: torch.as_tensor(v, device=device) for k, v in stream.batch(step).items()}
+
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for fail_at in ([TRAIN_FAIL_AT], []):
+            params = model.init(torch.Generator(device=device).manual_seed(0))
+            seen = []
+            ckpt = os.path.join(tmp, f"ckpt{len(runs)}")
+            t0 = time.perf_counter()
+            params, state, hist = run_with_recovery(
+                make_train_step(model, tc, donate=True), batches, params,
+                init_opt_state(params), n_steps=TRAIN_STEPS, ckpt_dir=ckpt,
+                ckpt_every=TRAIN_CKPT_EVERY, injector=FailureInjector(fail_at),
+                on_metrics=lambda s, m: seen.append(s))
+            runs.append((hist, leaves((params, state)), seen, time.perf_counter() - t0,
+                         checkpoint.load_manifest(ckpt)["step"]))
+    (hist, state, seen, wall, last), (hist_u, state_u, _, wall_u, _) = runs
+    assert hist["recoveries"] == [{"failed_at": TRAIN_FAIL_AT,
+                                   "resumed_from": TRAIN_CKPT_EVERY}], hist["recoveries"]
+    assert seen == list(range(TRAIN_FAIL_AT)) + list(range(TRAIN_CKPT_EVERY, TRAIN_STEPS))
+    assert last == TRAIN_STEPS
+    k = TRAIN_FAIL_AT - TRAIN_CKPT_EVERY
+    assert hist["loss"][TRAIN_FAIL_AT:TRAIN_FAIL_AT + k] == hist["loss"][TRAIN_CKPT_EVERY:
+                                                                         TRAIN_FAIL_AT]
+    assert hist_u["loss"] == hist["loss"][:TRAIN_FAIL_AT] + hist["loss"][TRAIN_FAIL_AT + k:]
+    bitwise = all(torch.equal(a, b) for a, b in zip(state, state_u, strict=True))
+    assert bitwise, "the recovered run's final state is not the uninterrupted run's"
+    assert all(t.device.type == device.type for t in state)
+    print(f"phase 29 (b'): run_with_recovery on {card}, smoke {cfg.name} (bf16, remat), "
+          f"{TRAIN_STEPS} steps, disk checkpoints every {TRAIN_CKPT_EVERY}, failure at "
+          f"{TRAIN_FAIL_AT}: recoveries {hist['recoveries']}, replayed losses bit for bit, final "
+          f"state == the uninterrupted run's bit for bit; walls {wall:.2f} / {wall_u:.2f} s",
+          flush=True)
+    return {"recoveries": hist["recoveries"], "losses": hist["loss"], "wall_s": wall,
+            "wall_uninterrupted_s": wall_u}
+
+
+def _grads(model, params, batch):
+    """``loss_fn``'s loss and its gradient, a leaf of ``params`` each."""
+    import torch
+
+    from repro_torch.train.tree import leaves, tree_map
+
+    alias = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = model.loss_fn(alias, batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves(alias))
+
+
+def phase_remat(card, device) -> dict:
+    """Phase 29 (c): ``loss_fn`` with remat "full" and "none" at phi4-mini's
+    full width, 2 layers, float32: the loss and every gradient leaf."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_stream_for
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=2)
+    models = {r: build_model(cfg, ModelOptions(attn_impl="chunked", activation_dtype="float32",
+                                               remat=r), device=device)
+              for r in ("full", "none")}
+    params = models["none"].init(torch.Generator(device=device).manual_seed(3))
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in make_stream_for(cfg, TRAIN_SEQ, TRAIN_BATCH).batch(0).items()}
+    loss_n, grads_n = _grads(models["none"], params, batch)
+    loss_f, grads_f = _grads(models["full"], params, batch)
+    bitwise = torch.equal(loss_n, loss_f) and all(map(torch.equal, grads_n, grads_f))
+    gap = max([abs(loss_f.item() - loss_n.item()) / abs(loss_n.item())]
+              + [_rel_norm(a, b) for a, b in zip(grads_f, grads_n)])
+    none_twice = None
+    if not bitwise:  # remat, or the backward itself?
+        _, grads_n2 = _grads(models["none"], params, batch)
+        none_twice = max(_rel_norm(a, b) for a, b in zip(grads_n2, grads_n))
+    print(f"phase 29 (c): {cfg.name} full width, 2 layers, float32, batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} on {card}: remat full vs none bit for bit: {bitwise}; largest relative "
+          f"gap {gap:.3e} over the loss and {len(grads_n)} gradient leaves"
+          + (f"; none run twice {none_twice:.3e}" if none_twice is not None else ""),
+          flush=True)
+    assert bitwise or (none_twice and gap <= 1e-6), (gap, none_twice)
+    n_leaves = len(grads_n)
+    del params, grads_n, grads_f
+    torch.cuda.empty_cache()
+    return {"bitwise": bitwise, "max_rel_gap": gap, "none_twice_gap": none_twice,
+            "leaves": n_leaves}
+
+
+def phase_train_cpu_vs_cuda(card, device) -> dict:
+    """Phase 29 (d): the smoke configs from the same parameters and batches
+    on the CPU and on the card (the CLI's ``--smoke`` model: the mixers'
+    chunked paths under autograd), float32: the first step's gradient leaf
+    by leaf and its grad norm, then two train steps' losses and parameters."""
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import make_stream_for
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, global_norm, init_opt_state
+    from repro_torch.train.tree import leaves, leaves_with_paths
+
+    out = {}
+    for arch in TRAIN_SMOKE_ARCHS:
+        cfg = smoke_config(arch)
+        opts = ModelOptions(attn_impl="chunked", mixer_impl="chunked",
+                            activation_dtype="float32", remat="none")
+        tc = TrainConfig(optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+        stream = make_stream_for(cfg, 64, 4)
+        init = build_model(cfg, opts, device="cpu").init(torch.Generator().manual_seed(29))
+        runs = {}
+        for dev in ("cpu", device):
+            model = build_model(cfg, opts, device=dev)
+            params = _tree_to(init, dev)
+            # the first step's gradient, as the step computes it (one microbatch)
+            _, grads = _grads(model, params,
+                              {k: torch.as_tensor(v, device=dev)
+                               for k, v in stream.batch(0).items()})
+            state = init_opt_state(params)
+            step = make_train_step(model, tc)
+            losses, norms = [], []
+            for i in range(2):
+                params, state, m = step(params, state, stream.batch(i))
+                losses.append(m["loss"].item())
+                norms.append(m["grad_norm"].item())
+            assert abs(global_norm(grads).item() - norms[0]) <= TRAIN_CPU_REL * norms[0]
+            runs[str(dev)] = (losses, norms, [g.cpu() for g in grads],
+                              [t.cpu() for t in leaves(params)])
+        (lc, nc, gc, pc), (lg, ng, gg, pg) = runs["cpu"], runs[str(device)]
+        names = [k for k, _ in leaves_with_paths(init)]
+        grad_gaps = {k: _rel_norm(a, b) for k, a, b in zip(names, gg, gc, strict=True)}
+        worst = max(grad_gaps, key=grad_gaps.get)
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        norm_gap = max(abs(a - b) / abs(b) for a, b in zip(ng, nc))
+        params_gap = _rel_norm(torch.cat([t.flatten() for t in pg]),
+                               torch.cat([t.flatten() for t in pc]))
+        leaf_gap = max(_rel_norm(a, b) for a, b in zip(pg, pc))
+        out[arch] = {"losses_cpu": lc, "losses_card": lg, "loss_gap": loss_gap,
+                     "grad_norm_gap": norm_gap, "grad_leaf_gaps": grad_gaps,
+                     "params_gap": params_gap, "max_param_leaf_gap": leaf_gap}
+        print(f"phase 29 (d): smoke {cfg.name}, float32, CPU vs card: the first step's "
+              f"gradient over {len(names)} leaves, largest relative gap of one leaf "
+              f"{grad_gaps[worst]:.3e} ({worst}); grad norms {nc} / {ng}, gap {norm_gap:.3e}; "
+              f"two train steps' losses {lc} / {lg}, gap {loss_gap:.3e}; all the parameters "
+              f"after them {params_gap:.3e} (bar {TRAIN_CPU_REL:g}); largest of one parameter "
+              f"leaf {leaf_gap:.3e} (not held: Adam's first steps move a leaf with a tiny "
+              "gradient by +-lr on its sign)", flush=True)
+        assert max(grad_gaps[worst], norm_gap, loss_gap, params_gap) <= TRAIN_CPU_REL, (
+            arch, worst, grad_gaps[worst], norm_gap, loss_gap, params_gap)
+    return out
+
+
+def phase_serve_recurrent_bf16(flash, ssd_kernel, rglru_kernel, params, logits_f32, arch,
+                               card, device) -> dict:
+    """Phase 30: a recurrent model of phase 12 or 16 (its weights, its
+    prompt) with bf16 activations, kernels on, through ``prefill_fn``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+
+    batch_size, prompt = {SSM_ARCH: (SSM_BATCH, SSM_PROMPT),
+                          HYBRID_ARCH: (HYBRID_BATCH, HYBRID_PROMPT)}[arch]
+    cfg = get_config(arch)
+    kinds = cfg.layer_kinds()
+    model = build_model(cfg, ModelOptions(), device=device)  # the default: bf16, kernels on
+    plain = build_model(cfg, ModelOptions(attn_impl="ref", mixer_impl="chunked"), device=device)
+    assert model.opts.dtype == torch.bfloat16
+    rng = np.random.default_rng(0)  # phase 12's / 16's prompt
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch_size, prompt)),
+                                       device=device)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    flash.LAUNCHES = ssd_kernel.LAUNCHES = rglru_kernel.LAUNCHES = flash.ALIGN_COPIES = 0
+    t0 = time.perf_counter()
+    got, _ = model.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    launches = {"ssd": ssd_kernel.LAUNCHES, "rglru": rglru_kernel.LAUNCHES,
+                "flash": flash.LAUNCHES}
+    copies = flash.ALIGN_COPIES
+    want_launches = {"ssd": kinds.count("ssm"), "rglru": kinds.count("rglru"),
+                     "flash": kinds.count("attn")}
+    assert launches == want_launches, (launches, want_launches)
+    assert copies == 0, f"{copies} alignment copies on the model's path"
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    t0 = time.perf_counter()
+    model.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want, _ = plain.prefill_fn(params, batch)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all()) and got.shape == (batch_size, cfg.vocab_size)
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    kernel_to_f32 = (got - logits_f32).abs().max().item()
+    plain_to_f32 = (want - logits_f32).abs().max().item()
+    print(f"phase 30: {cfg.name} full width and depth, bf16 activations, batch {batch_size} x "
+          f"prompt {prompt} through prefill_fn on {card}: prefill {cold_s:.4f} s cold, "
+          f"{warm_s:.4f} s warm (plain bf16 {plain_s:.4f} s), peak memory {peak_gb:.2f} GB "
+          f"(the float32 weights included); launches {launches}, alignment copies {copies}; "
+          f"last logits max |err| kernels vs plain bf16 {err:.3e}, to the float32 logits of "
+          f"phase {12 if arch == SSM_ARCH else 16}: kernels {kernel_to_f32:.3e}, plain "
+          f"{plain_to_f32:.3e} (max |logit| {want.abs().max().item():.3f})", flush=True)
+    assert kernel_to_f32 <= 2 * plain_to_f32, "the kernels' logits left bf16's spread"
+    return {"arch": cfg.name, "activation_dtype": "bfloat16", "batch": batch_size,
+            "prompt_len": prompt, "prefill_s_cold": cold_s, "prefill_s_warm": warm_s,
+            "plain_prefill_s": plain_s, "peak_mem_gb": peak_gb, "launches": launches,
+            "align_copies": copies, "logits_max_abs_err_vs_plain": err,
+            "kernel_to_f32_logits": kernel_to_f32, "plain_to_f32_logits": plain_to_f32}
+
+
 def main() -> int:
     try:
         import torch
@@ -2575,13 +3179,22 @@ def main() -> int:
     print(f"phase 11: built {ssd_scan._SRC.name} in {ssd_scan.BUILD_SECONDS:.2f} s "
           "(in parallel with phase 1's build)", flush=True)
     ssd_err = phase_ssd_vs_plain(ssd_scan, chunked, ref, device)
-    ssm_serve = phase_serve_ssm(ssd_scan, flash_attention, card, device)
+    ssm_serve, params, logits_f32 = phase_serve_ssm(ssd_scan, flash_attention, card, device)
+    ssm_bf16 = phase_serve_recurrent_bf16(flash_attention, ssd_scan, rglru_scan, params,
+                                          logits_f32, SSM_ARCH, card, device)
+    del params, logits_f32
+    torch.cuda.empty_cache()
     ssm_cpu_gap = phase_serve_cpu_vs_cuda(device, SSM_ARCH, phase=13)
     ssd_timing = phase_ssd_timing(ssd_scan, chunked, card, device)
     print(f"phase 15: built {rglru_scan._SRC.name} in {rglru_scan.BUILD_SECONDS:.2f} s "
           "(in parallel with phase 1's build)", flush=True)
     rglru_err = phase_rglru_vs_plain(rglru_scan, chunked, ref, ops, device)
-    hybrid_serve = phase_serve_hybrid(rglru_scan, flash_attention, ssd_scan, card, device)
+    hybrid_serve, params, logits_f32 = phase_serve_hybrid(rglru_scan, flash_attention, ssd_scan,
+                                                          card, device)
+    hybrid_bf16 = phase_serve_recurrent_bf16(flash_attention, ssd_scan, rglru_scan, params,
+                                             logits_f32, HYBRID_ARCH, card, device)
+    del params, logits_f32
+    torch.cuda.empty_cache()
     hybrid_cpu_gap = phase_serve_cpu_vs_cuda(device, HYBRID_ARCH, phase=17)
     rglru_timing = phase_rglru_timing(rglru_scan, ref, card, device)
     wide_serve = phase_serve_wide(flash_attention, card, device)
@@ -2595,6 +3208,14 @@ def main() -> int:
                           trace_export, card, device)
     mc = phase_multiclass(alloc, lanes, sweeps, multiclass, arrivals, policies, card, device)
     cluster = phase_sched(alloc, lanes, sched, flowtime, policies, card, device)
+    t_phase = time.perf_counter()
+    vjp = phase_attention_vjp(chunked, ref, ops, card, device)
+    train = phase_train(flash_attention, ssd_scan, rglru_scan, chunked, card, device)
+    recovery = phase_train_recovery(card, device)
+    remat = phase_remat(card, device)
+    train_cpu = phase_train_cpu_vs_cuda(card, device)
+    train_s = time.perf_counter() - t_phase
+    print(f"phase 29: {train_s:.1f} s", flush=True)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -2647,6 +3268,8 @@ def main() -> int:
         "ctas_per_sm": f32["ctas_per_sm"],
         "ms_recurrentgemma": flash_timing["recurrentgemma"]["float32"]["ms"],
         "launches_bf16": bf16_serve["flash_launches"],
+        "launches_bf16_hybrid": hybrid_bf16["launches"]["flash"],
+        "launches_train": train["launches"]["flash"],
         "ms_bf16": bf16["ms"],
         "plain_ms_bf16": bf16["plain_ms"],
         "bound_ms_bf16": bf16["bound_ms"],
@@ -2657,6 +3280,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:29",
         "launches": ssm_serve["ssd_launches"],
+        "launches_bf16": ssm_bf16["launches"]["ssd"],
         "max_abs_err": ssd_err["float32"]["y"],
         "max_abs_err_bf16": ssd_err["bfloat16"]["y"],
         "max_abs_err_state": ssd_err["float32"]["state"],
@@ -2671,6 +3295,7 @@ def main() -> int:
         "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
         "replaces": "src/repro/kernels/rglru_scan.py:32",
         "launches": hybrid_serve["rglru_launches"],
+        "launches_bf16": hybrid_bf16["launches"]["rglru"],
         "max_abs_err": rglru_err["float32"]["y"],
         "max_abs_err_bf16": rglru_err["bfloat16"]["y"],
         "max_abs_err_state": rglru_err["float32"]["state"],
@@ -2717,6 +3342,14 @@ def main() -> int:
         "telemetry": tel,
         "multiclass": mc,
         "sched": cluster,
+        "ssm_bf16_serve": ssm_bf16,
+        "hybrid_bf16_serve": hybrid_bf16,
+        "attention_vjp": vjp,
+        "train": train,
+        "train_recovery": recovery,
+        "remat": remat,
+        "train_cpu_vs_cuda": train_cpu,
+        "train_phase_s": train_s,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

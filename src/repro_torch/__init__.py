@@ -23,11 +23,17 @@ The PyTorch/CUDA port of the JAX package ``repro``.  Its paths so far:
   epochs, per event or delegated to the event loop, the speedup
   estimator, whole-chip quantization and straggler detection (``sched/``),
   with the benchmarks' cross-checks against it and the decision-epoch
-  benchmark (``lanes.py``); ``sched/elastic.py`` waits for the training path;
+  benchmark (``lanes.py``); ``sched/elastic.py`` comes with the multi-device
+  slice;
 - serving the dense, ssm and hybrid families (batched prefill, greedy
   decode over KV, conv and state caches): ``configs/``, ``models/``,
   ``train/serve_step.py``, ``launch/serve.py``, with the flash, SSD and
-  RG-LRU kernels (``kernels/``).
+  RG-LRU kernels (``kernels/``);
+- training them on one device: the loss, the chunked attention's
+  hand-written backward (``kernels/chunked.py``; the kernels have no
+  backward), remat, AdamW, the train step, checkpoints and fault-tolerant
+  restart (``train/``), the synthetic stream (``data/``) and
+  ``launch/train.py``.
 
 Layout mirrors ``src/repro/``.  Every entry point takes ``device=`` and
 defaults to ``"cuda"``; without a card it raises instead of falling back

@@ -1,4 +1,4 @@
-"""GQA self-attention block: full sequence (prefill) through
+"""GQA self-attention block: full sequence (training and prefill) through
 ``kernels.ops.attention``, and single-token decode against a (possibly
 ring-buffered) KV cache.  Port of ``repro.models.attention``; cross
 attention comes with the encoder-decoder slice.
@@ -77,9 +77,11 @@ def apply_attn(
     impl: str = "auto",
     cache: dict | None = None,
     cache_length: int | None = None,  # tokens already in the cache
+    return_cache: bool = True,
 ):
     """Causal self-attention with RoPE.  Returns ``(out [B, S, D], cache)``.
 
+    - train: ``cache`` None and ``return_cache=False``; the cache is None;
     - prefill: ``cache`` None; the returned cache holds this call's K/V;
     - decode: ``cache`` given, ``S == 1``, ``cache_length`` tokens already
       stored; the new step is inserted in place.
@@ -93,7 +95,7 @@ def apply_attn(
 
     if cache is None:
         out = ops.attention(q, k, v, causal=True, window=window, impl=impl)
-        cache = {"k": k, "v": v}
+        cache = {"k": k, "v": v} if return_cache else None
     elif S == 1:
         _ring_insert(cache, k, v, cache_length)
         out = _decode_attend(q, cache, cache_length + 1, window=window)

@@ -1,8 +1,8 @@
 """How to execute a model, orthogonal to what the model is (``cfg``).
 
 Port of ``repro.models.common.ModelOptions``.  The port runs on one device,
-so there is no mesh, no ``ParallelConfig`` and no ``constrain_*``; it has no
-remat option either (the serving path keeps no activations for a backward).
+so there is no mesh, no ``ParallelConfig``, no ``constrain_*`` and no
+sequence sharding.
 """
 
 from __future__ import annotations
@@ -14,10 +14,17 @@ import torch
 
 @dataclass(frozen=True)
 class ModelOptions:
-    attn_impl: str = "auto"  # kernels.ops.attention impl: auto | ref | cuda
-    # kernels.ops.ssd and kernels.ops.rglru impl: auto | ref | chunked | cuda
+    # kernels.ops impls, attention and mixers alike: auto | ref | chunked | cuda
+    # (the kernels have no backward: training on the card asks for "chunked";
+    # under autograd "auto" takes it on the CPU and raises on the card)
+    attn_impl: str = "auto"
     mixer_impl: str = "auto"
+    remat: str = "full"  # full | none: activation checkpointing per block in training
     activation_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.remat not in ("full", "none"):
+            raise ValueError(f"remat must be 'full' or 'none', got {self.remat!r}")
 
     @property
     def dtype(self) -> torch.dtype:

@@ -1,4 +1,5 @@
-"""Parameters of the JAX package's decoder, as the port lays them out.
+"""Parameters (and optimizer state) of the JAX package's decoder, as the
+port lays them out.
 
 ``params_from_jax(tree, cfg)`` takes the tree that
 ``repro.models.build_model(cfg).init`` returns for a dense, ssm or hybrid
@@ -52,6 +53,9 @@ def params_from_jax(tree, cfg, *, device: str | torch.device = "cuda"):
                          f"{sorted(tree['stack'])}")
 
     def t(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":  # numpy has no bf16 of its own: through float32, exact
+            return torch.tensor(a.astype(np.float32), device=dev).to(torch.bfloat16)
         return torch.tensor(a, device=dev)
 
     def group(arrays, take, linear):
@@ -80,3 +84,16 @@ def params_from_jax(tree, cfg, *, device: str | torch.device = "cuda"):
     if "lm_head" in tree:
         params["lm_head"] = t(tree["lm_head"])
     return params
+
+
+def opt_state_from_jax(state, cfg, *, device: str | torch.device = "cuda"):
+    """The port's optimizer state from ``repro.train.optimizer``'s (leaves
+    as numpy arrays), on ``device``: the moments ``m`` and ``v`` and, where
+    it was kept, the float32 ``master`` are parameter-shaped trees and map
+    as :func:`params_from_jax` maps parameters (linear ones transposed);
+    ``step`` becomes a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    out = {name: params_from_jax(state[name], cfg, device=dev)
+           for name in ("m", "v", "master") if name in state}
+    out["step"] = torch.tensor(np.asarray(state["step"]), dtype=torch.int32, device=dev)
+    return out

@@ -3,12 +3,13 @@
 Returns a ``Model`` of plain functions:
 
   init(generator)                                  -> params (float32 masters)
+  loss_fn(params, batch)                           -> (loss, {"ce", "aux_loss"})
   prefill_fn(params, batch, max_len=None)          -> (last_logits [B, V], caches)
   decode_fn(params, tokens, caches, cache_length)  -> (logits [B, 1, V], caches)
 
 ``params`` is a dict of tensors laid out as ``models/convert.py`` documents.
-The training loss comes with the training slice; the other families raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The other families raise ``NotImplementedError`` naming their ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -38,8 +39,20 @@ class Model(NamedTuple):
     opts: ModelOptions
     device: torch.device
     init: Callable
+    loss_fn: Callable
     prefill_fn: Callable
     decode_fn: Callable
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
+    """Mean masked cross entropy.  logits ``[B, S, V]`` (any dtype, reduced
+    in float32), labels ``[B, S]``, mask ``[B, S]`` float32; the sum over
+    ``max(sum(mask), 1)``."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    ce = (lse - gold) * mask
+    return ce.sum() / torch.clamp_min(mask.sum(), 1.0)
 
 
 def _lm_head(cfg, params, x):
@@ -85,21 +98,32 @@ def _build_decoder_only(cfg: ModelConfig, opts: ModelOptions, device: torch.devi
             positions = torch.full((1,), cache_length, dtype=torch.int32, device=device)
         else:
             positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=device)
-        x, new_caches = stack_apply(
+        x, new_caches, aux = stack_apply(
             params["stack"], x, cfg=cfg, opts=opts, mode=mode, positions=positions,
             caches=caches, cache_length=cache_length, prefill_capacity=max_len,
         )
-        return rms_norm(x, params["final_norm"], cfg.norm_eps), new_caches
+        return rms_norm(x, params["final_norm"], cfg.norm_eps), new_caches, aux
+
+    def loss_fn(params, batch):
+        """``(loss, {"ce", "aux_loss"})`` of a batch of ``tokens`` and
+        ``labels`` ``[B, S]``: the cross entropy over every position plus
+        0.01 times the layers' auxiliary loss (zero for these families)."""
+        x, _, aux = forward(params, batch["tokens"], mode="train")
+        logits = _lm_head(cfg, params, x)
+        labels = torch.as_tensor(batch["labels"], device=device)
+        mask = torch.ones(labels.shape, dtype=torch.float32, device=device)
+        ce = cross_entropy(logits, labels, mask)
+        return ce + 0.01 * aux, {"ce": ce, "aux_loss": aux}
 
     def prefill_fn(params, batch, max_len=None):
-        x, caches = forward(params, batch["tokens"], mode="prefill", max_len=max_len)
+        x, caches, _ = forward(params, batch["tokens"], mode="prefill", max_len=max_len)
         return _lm_head(cfg, params, x[:, -1:, :])[:, 0, :], caches
 
     def decode_fn(params, tokens, caches, cache_length: int):
         """One token per row against caches that hold ``cache_length``
         tokens; the caches are updated in place and returned."""
-        x, caches = forward(params, tokens, mode="decode", caches=caches,
-                            cache_length=int(cache_length))
+        x, caches, _ = forward(params, tokens, mode="decode", caches=caches,
+                               cache_length=int(cache_length))
         return _lm_head(cfg, params, x), caches
 
-    return Model(cfg, opts, device, init, prefill_fn, decode_fn)
+    return Model(cfg, opts, device, init, loss_fn, prefill_fn, decode_fn)

@@ -62,10 +62,12 @@ def _gates(p, rec):
     return gate_x, gate_a
 
 
-def rg_apply(p, x, *, cfg, impl="auto", cache=None):
-    """x [B, S, D].  Prefill when ``cache`` is None (the whole sequence
-    through ``ops.rglru``), else one decode step (S == 1) through the
-    recurrence from the cached state.  Returns ``(out [B, S, D], cache)``."""
+def rg_apply(p, x, *, cfg, impl="auto", cache=None, return_cache=True):
+    """x [B, S, D].  The whole sequence through ``ops.rglru`` when ``cache``
+    is None (prefill; training with ``return_cache=False``, which builds no
+    cache and returns None for it), else one decode step (S == 1) through
+    the recurrence from the cached state.  Returns ``(out [B, S, D],
+    cache)``."""
     B, S, _ = x.shape
     K = RG_CONV
     rec_in = F.linear(x, p["w_rec"].to(x.dtype))
@@ -76,6 +78,9 @@ def rg_apply(p, x, *, cfg, impl="auto", cache=None):
         if conv_tail.shape[1] < K - 1:
             conv_tail = F.pad(conv_tail, (0, 0, K - 1 - conv_tail.shape[1], 0))
         rec = _causal_conv(rec_in, p["conv_w"], p["conv_b"])
+        if not return_cache:
+            h = ops.rglru(rec, *_gates(p, rec), p["a_param"], impl=impl)
+            return F.linear(h * gel, p["w_out"].to(x.dtype)), None
         h, h_last = ops.rglru(rec, *_gates(p, rec), p["a_param"], impl=impl, return_state=True)
         out = F.linear(h * gel, p["w_out"].to(x.dtype))
         # clone: a view of rec_in would keep all of it alive in the cache

@@ -80,10 +80,12 @@ def _finish(p, y_flat, z, cfg):
     return F.linear(y, p["out_proj"].to(y.dtype))
 
 
-def ssm_apply(p, x, *, cfg, impl="auto", cache=None):
-    """x [B, S, D].  Prefill when ``cache`` is None (the whole sequence
-    through ``ops.ssd``), else one decode step (S == 1) through the
-    recurrence from the cached state.  Returns ``(out [B, S, D], cache)``."""
+def ssm_apply(p, x, *, cfg, impl="auto", cache=None, return_cache=True):
+    """x [B, S, D].  The whole sequence through ``ops.ssd`` when ``cache``
+    is None (prefill; training with ``return_cache=False``, which builds no
+    cache and returns None for it), else one decode step (S == 1) through
+    the recurrence from the cached state.  Returns ``(out [B, S, D],
+    cache)``."""
     B, S, _ = x.shape
     K, di = cfg.ssm_conv, cfg.d_inner
     z, xbc, dt = _split_proj(p, x, cfg)
@@ -95,6 +97,9 @@ def ssm_apply(p, x, *, cfg, impl="auto", cache=None):
             conv_tail = F.pad(conv_tail, (0, 0, K - 1 - conv_tail.shape[1], 0))
         xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]).float()).to(x.dtype)
         x_ssm, dt, a, b_mat, c_mat = _ssm_inputs(p, xbc, dt, cfg)
+        if not return_cache:
+            y = ops.ssd(x_ssm, dt, a, b_mat, c_mat, d_skip, impl=impl)
+            return _finish(p, y.reshape(B, S, di), z, cfg), None
         y, state = ops.ssd(x_ssm, dt, a, b_mat, c_mat, d_skip, impl=impl, return_state=True)
         return _finish(p, y.reshape(B, S, di), z, cfg), {"conv": conv_tail.contiguous(),
                                                          "ssm": state}

@@ -15,12 +15,15 @@ where there are tail layers) and the scan is a loop.  Decode caches mirror
 it, with ``{"k", "v"}`` for attention (the window's ring buffer for a
 hybrid's local attention), ``{"conv", "ssm"}`` for the SSD block and
 ``{"conv", "h"}`` for the RG-LRU block (constant size: no resize).
+Training builds no cache, and with ``remat="full"`` recomputes each
+block's activations in the backward.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import apply_attn, attn_init, cache_capacity
 from repro_torch.models.common import ModelOptions
@@ -68,16 +71,21 @@ def stack_init(generator: torch.Generator, cfg, dtype=torch.float32):
 
 def _apply_sublayer(sp, x, kind, *, cfg, opts: ModelOptions, mode, positions, cache,
                     cache_length, prefill_capacity=None):
-    """One mixer (+ MLP) sublayer.  Returns ``(x, new_cache)``."""
+    """One mixer (+ MLP) sublayer.  Returns ``(x, new_cache)``; the cache
+    is None in training."""
     h = rms_norm(x, sp["norm"], cfg.norm_eps)
+    return_cache = mode != "train"
     if kind == "ssm":
-        out, new_cache = ssm_apply(sp["mix"], h, cfg=cfg, impl=opts.mixer_impl, cache=cache)
+        out, new_cache = ssm_apply(sp["mix"], h, cfg=cfg, impl=opts.mixer_impl, cache=cache,
+                                   return_cache=return_cache)
     elif kind == "rglru":
-        out, new_cache = rg_apply(sp["mix"], h, cfg=cfg, impl=opts.mixer_impl, cache=cache)
+        out, new_cache = rg_apply(sp["mix"], h, cfg=cfg, impl=opts.mixer_impl, cache=cache,
+                                  return_cache=return_cache)
     else:
         out, new_cache = apply_attn(
             sp["mix"], h, cfg=cfg, positions=positions, window=cfg.window,
             impl=opts.attn_impl, cache=cache, cache_length=cache_length,
+            return_cache=return_cache,
         )
         if mode == "prefill":
             new_cache = resize_kv_cache(new_cache, h.shape[1], prefill_capacity or h.shape[1],
@@ -123,19 +131,38 @@ def stack_apply(
     *,
     cfg,
     opts: ModelOptions,
-    mode: str,  # prefill | decode
+    mode: str,  # train | prefill | decode
     positions: torch.Tensor,
     caches=None,  # {"blocks": [...], "tail": {...}} (decode), or None
     cache_length: int | None = None,  # decode: tokens already in the caches
     prefill_capacity: int | None = None,  # total conversation length to hold
 ):
-    """Returns ``(x, new_caches)``."""
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode must be prefill or decode, got {mode!r} (training comes later)")
+    """Returns ``(x, new_caches, aux)``: ``new_caches`` is None in training,
+    and ``aux``, the sum of the layers' auxiliary losses, is a float32 zero
+    (only the MoE family has one).  In training with ``opts.remat ==
+    "full"`` each block, and the tail, runs under activation checkpointing
+    (non-reentrant: its activations are recomputed in the backward), as
+    ``jax.checkpoint`` wraps the JAX package's scanned block."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     pat = cfg.block_pattern
     _, tail = block_counts(cfg)
     kw = dict(cfg=cfg, opts=opts, mode=mode, positions=positions, cache_length=cache_length,
               prefill_capacity=prefill_capacity)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if mode == "train":
+        def block(bp, kinds, x):
+            return _block_apply(bp, x, kinds, caches=None, **kw)[0]
+
+        stages = [(bp, pat) for bp in params["blocks"]]
+        if tail:
+            stages.append((params["tail"], tail))
+        for bp, kinds in stages:
+            if opts.remat == "full":
+                x = checkpoint(block, bp, kinds, x, use_reentrant=False)
+            else:
+                x = block(bp, kinds, x)
+        return x, None, aux
     new_caches = {"blocks": []}
     for i, bp in enumerate(params["blocks"]):
         bc = caches["blocks"][i] if mode == "decode" else None
@@ -144,4 +171,4 @@ def stack_apply(
     if tail:
         tc = caches["tail"] if mode == "decode" else None
         x, new_caches["tail"] = _block_apply(params["tail"], x, tail, caches=tc, **kw)
-    return x, new_caches
+    return x, new_caches, aux

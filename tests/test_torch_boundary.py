@@ -52,7 +52,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "models.convert", "launch.serve", "train.serve_step", "core.superstep",
                  "configs.paper", "figures", "core.telemetry", "core.estimation",
                  "launch.trace_export", "core.multiclass", "sched.cluster",
-                 "sched.estimator", "sched.quantize", "sched.stragglers", "lanes"):
+                 "sched.estimator", "sched.quantize", "sched.stragglers", "lanes",
+                 "launch.train", "train.train_step", "train.optimizer", "train.checkpoint",
+                 "train.ft", "train.tree", "data.pipeline"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["bad"] == []
 
@@ -64,8 +66,8 @@ def _entry_points():
     from repro_torch.core.policies import hesrpt
     from repro_torch.core.estimation import simulate_scenario_estimated
     from repro_torch.core.multiclass import multiclass_sweep, simulate_multiclass
-    from repro_torch.launch import serve, trace_export
-    from repro_torch.models.convert import params_from_jax
+    from repro_torch.launch import serve, trace_export, train
+    from repro_torch.models.convert import opt_state_from_jax, params_from_jax
     from repro_torch.models.model import build_model
     from repro_torch.sched import ClusterScheduler
 
@@ -119,6 +121,10 @@ def _entry_points():
         "build_model_ssm": lambda: build_model(smoke_config("mamba2-130m")),
         "params_from_jax": lambda: params_from_jax({}, smoke_config("phi4-mini-3.8b")),
         "serve_main": lambda: serve.main(["--arch", "phi4-mini-3.8b", "--smoke"]),
+        "train_main": lambda: train.main(["--arch", "phi4-mini-3.8b", "--smoke", "--steps", "1"]),
+        "build_model_hybrid": lambda: build_model(smoke_config("recurrentgemma-9b")),
+        "opt_state_from_jax": lambda: opt_state_from_jax({"step": 0},
+                                                         smoke_config("phi4-mini-3.8b")),
     }
 
 

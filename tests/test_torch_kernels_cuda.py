@@ -663,3 +663,75 @@ def test_smoke_recurrentgemma_prefill_through_the_kernels_matches_chunked(cuda_d
     for c, c0 in zip(caches["blocks"], want_caches["blocks"]):
         for sub in ("sub0", "sub1"):
             torch.testing.assert_close(c[sub]["h"], c0[sub]["h"], **STATE_TOL)
+
+
+# -------------------------------------------------------------- training
+# The chunked attention's hand-written backward on the card (the kernels have
+# none): float32, against autograd through the plain version, at the bar of
+# tests/test_torch_chunked_attention.py (relative norm 2e-5); chip_smoke.py
+# phase 29 (a) runs the same check at the training shapes.
+@pytest.mark.cuda
+@pytest.mark.parametrize("b, hq, hkv, s, d, window", [
+    (2, 24, 8, 600, 128, 0), (1, 16, 1, 1500, 256, 512),
+])
+def test_chunked_attention_vjp_matches_plain_autograd_on_card(cuda_device, b, hq, hkv, s, d,
+                                                              window):
+    gen = torch.Generator(device=cuda_device).manual_seed(29)
+    q, do = (torch.randn((b, hq, s, d), generator=gen, device=cuda_device) for _ in range(2))
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=cuda_device) for _ in range(2))
+    runs = []
+    for fn in (chunked.attention, ref.attention):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, causal=True, window=window)
+        out.backward(do)
+        runs.append([out.detach()] + [t.grad for t in leaves])
+    for got, want in zip(*runs):
+        assert ((got - want).norm() / want.norm()).item() <= 2e-5
+    for impl in ("cuda", "auto"):  # no backward: the card never takes another route
+        with pytest.raises(RuntimeError, match="chunked"):
+            ops.attention(q.clone().requires_grad_(True), k, v, impl=impl)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "mamba2-130m", "recurrentgemma-9b"])
+def test_smoke_train_steps_on_card_match_the_cpu(cuda_device, arch):
+    """A smoke model (the mixers' chunked paths under autograd) on the card
+    and on the CPU from the same parameters and batches, float32: the first
+    step's gradient, each leaf by relative norm, its grad norm, and two train
+    steps' losses and parameters within 1e-5 relative (phase 29 (d))."""
+    from repro_torch.data.pipeline import make_stream_for
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.tree import leaves, tree_map
+
+    cfg = smoke_config(arch)
+    opts = ModelOptions(attn_impl="chunked", mixer_impl="chunked", activation_dtype="float32",
+                        remat="none")
+    tc = TrainConfig(optimizer=OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=4))
+    init = build_model(cfg, opts, device="cpu").init(torch.Generator().manual_seed(29))
+    stream = make_stream_for(cfg, 64, 4)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        model = build_model(cfg, opts, device=dev)
+        params = tree_map(lambda t: t.to(dev, copy=True), init)
+        alias = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        batch = {k: torch.as_tensor(v, device=dev) for k, v in stream.batch(0).items()}
+        grads = torch.autograd.grad(model.loss_fn(alias, batch)[0], leaves(alias))
+        state = init_opt_state(params)
+        step = make_train_step(model, tc)
+        losses, norms = [], []
+        for i in range(2):
+            params, state, metrics = step(params, state, stream.batch(i))
+            losses.append(metrics["loss"].item())
+            norms.append(metrics["grad_norm"].item())
+        runs.append((losses, norms, [g.cpu() for g in grads], [t.cpu() for t in leaves(params)]))
+    (lc, nc, gc, pc), (lg, ng, gg, pg) = runs
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    for a, b in zip(lg + ng, lc + nc):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for a, b in zip(gg, gc, strict=True):
+        assert rel(a, b) <= 1e-5
+    assert rel(torch.cat([t.flatten() for t in pg]), torch.cat([t.flatten() for t in pc])) <= 1e-5
