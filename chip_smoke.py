@@ -291,7 +291,33 @@ raises, and the exit code is not 0):
     ``prefill_fn``: the SSD, RG-LRU and flash launches equal the layer counts
     (24 / 0 / 0 and 0 / 26 / 12), no alignment copy, and the last logits lie
     within twice the distance from the phase's float32 logits that the same
-    bf16 prefill on the plain versions has.
+    bf16 prefill on the plain versions has;
+31. the moe, vlm and audio families at their published widths: (a) the
+    flash kernel against its plain version at the call shapes their
+    prefills give it (``FAMILY_FLASH_SHAPES``: whisper's non-causal encoder
+    [4, 8, 1500, 64], its cross attention 416 x 1500 and its decoder's 416
+    causal, internvl2's GQA group 7, qwen3-moe's group 16, mixtral's window
+    4096 at 4352), float32 and bf16 at phase 7's bars on the model's
+    transposed views, each timed beside the plain version and SDPA with its
+    bound; (b) mixtral-8x7b (2 of 32 layers, batch 4 x 4352 + 32: the
+    prompt 256 past the window), qwen3-moe-235b-a22b (2 of 94 layers, 4 x
+    1000 + 32), internvl2-1b (whole, 4 x 1024 + 32, the first 256
+    positions patch embeddings) and whisper-base (whole, 4 x 1500 frames,
+    a decoder prompt of 416 + 32) through ``generate``, float32, parameters
+    drawn on the card from a seed: the counts zeroed just before and read
+    just after, exactly 2, 2, 24 and 18 flash launches (whisper: 6 encoder,
+    6 decoder self- and 6 cross attention) and none of the other three
+    kernels, no alignment copy; the prefill's last logits against
+    ``attn_impl="ref"`` within 2e-4 on every row whose tokens both runs
+    route to the same experts in every layer (each MoE layer's ids
+    recorded by ``models.moe.recording_routes``; tokens routed apart, and
+    the smallest top-k margin, printed); prefill s, decode tok/s and peak
+    GB; (c) for the two MoE configs the prefill with
+    ``moe_impl="ragged_local"`` against dense, both timed, logits held as
+    in (b); (d) internvl2 and whisper with bf16 activations: the same
+    launches and the last logits within twice plain bf16's distance to the
+    float32 ones; (e) the smoke mixtral, qwen3-moe, internvl2 and whisper,
+    CPU against card, as (d) of phase 29.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -2986,11 +3012,12 @@ def phase_remat(card, device) -> dict:
             "leaves": n_leaves}
 
 
-def phase_train_cpu_vs_cuda(card, device) -> dict:
-    """Phase 29 (d): the smoke configs from the same parameters and batches
-    on the CPU and on the card (the CLI's ``--smoke`` model: the mixers'
-    chunked paths under autograd), float32: the first step's gradient leaf
-    by leaf and its grad norm, then two train steps' losses and parameters."""
+def phase_train_cpu_vs_cuda(card, device, archs=TRAIN_SMOKE_ARCHS, phase="29 (d)") -> dict:
+    """Phase 29 (d) and 31 (e): the smoke configs from the same parameters
+    and batches (the stream's patches or frames included) on the CPU and on
+    the card (the CLI's ``--smoke`` model: the mixers' chunked paths under
+    autograd), float32: the first step's gradient leaf by leaf and its grad
+    norm, then two train steps' losses and parameters."""
     import torch
 
     from repro_torch.configs import smoke_config
@@ -3002,7 +3029,7 @@ def phase_train_cpu_vs_cuda(card, device) -> dict:
     from repro_torch.train.tree import leaves, leaves_with_paths
 
     out = {}
-    for arch in TRAIN_SMOKE_ARCHS:
+    for arch in archs:
         cfg = smoke_config(arch)
         opts = ModelOptions(attn_impl="chunked", mixer_impl="chunked",
                             activation_dtype="float32", remat="none")
@@ -3039,7 +3066,7 @@ def phase_train_cpu_vs_cuda(card, device) -> dict:
         out[arch] = {"losses_cpu": lc, "losses_card": lg, "loss_gap": loss_gap,
                      "grad_norm_gap": norm_gap, "grad_leaf_gaps": grad_gaps,
                      "params_gap": params_gap, "max_param_leaf_gap": leaf_gap}
-        print(f"phase 29 (d): smoke {cfg.name}, float32, CPU vs card: the first step's "
+        print(f"phase {phase}: smoke {cfg.name}, float32, CPU vs card: the first step's "
               f"gradient over {len(names)} leaves, largest relative gap of one leaf "
               f"{grad_gaps[worst]:.3e} ({worst}); grad norms {nc} / {ng}, gap {norm_gap:.3e}; "
               f"two train steps' losses {lc} / {lg}, gap {loss_gap:.3e}; all the parameters "
@@ -3114,6 +3141,270 @@ def phase_serve_recurrent_bf16(flash, ssd_kernel, rglru_kernel, params, logits_f
             "plain_prefill_s": plain_s, "peak_mem_gb": peak_gb, "launches": launches,
             "align_copies": copies, "logits_max_abs_err_vs_plain": err,
             "kernel_to_f32_logits": kernel_to_f32, "plain_to_f32_logits": plain_to_f32}
+
+
+# Phase 31: the moe, vlm and audio families at their published widths.
+# (arch, layers kept (0: all), batch, prompt, generated tokens, flash
+# launches of one prefill).  mixtral: 2 of 32 layers (a layer is 5.81 GB in
+# float32, the model 187 GB), a prompt of 4352, 256 past the window of 4096,
+# so the prefill folds the ring cache and decode runs through the ring.
+# qwen3-moe: 2 of 94 layers (9.95 GB a layer, 4.98 GB of embedding and
+# head).  internvl2 and whisper whole: 24 layers; 6 encoder layers + 6
+# decoder layers, each of the latter with self- and cross attention, and a
+# decoder prompt of 416 + 32 = 448, whisper's decoder context.
+FAMILY_SERVE = (
+    ("mixtral-8x7b", 2, 4, 4352, 32, 2),
+    ("qwen3-moe-235b-a22b", 2, 4, 1000, 32, 2),
+    ("internvl2-1b", 0, 4, 1024, 32, 24),
+    ("whisper-base", 0, 4, 416, 32, 18),
+)
+FAMILY_ARCHS = tuple(row[0] for row in FAMILY_SERVE)
+FAMILY_BF16 = ("internvl2-1b", "whisper-base")
+# (b, hq, hkv, sq, skv, d, causal, window): the flash kernel's call shapes on
+# these prefills, none of which an earlier phase ran: non-causal, Sq != Skv,
+# GQA groups 7 and 16, a window of 4096 at 4352.
+FAMILY_FLASH_SHAPES = {
+    "whisper-encoder": (4, 8, 8, 1500, 1500, 64, False, 0),
+    "whisper-cross": (4, 8, 8, 416, 1500, 64, False, 0),
+    "whisper-decoder": (4, 8, 8, 416, 416, 64, True, 0),
+    "internvl2": (4, 14, 2, 1024, 1024, 64, True, 0),
+    "qwen3-moe": (4, 64, 4, 1000, 1000, 128, True, 0),
+    "mixtral": (4, 32, 8, 4352, 4352, 128, True, 4096),
+}
+
+
+def phase_family_flash(flash, ref, card, device) -> dict:
+    """Phase 31 (a): the flash kernel against its plain version at the new
+    call shapes, float32 (2e-5) and bf16 (5e-2, and phase 7's tighter
+    1e-2 + 1e-2 |want| and FLASH_BF16_REL), on the model's transposed views
+    (no alignment copy); then each timed beside the plain version and SDPA,
+    with its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=device).manual_seed(31)
+    out = {}
+    before = flash.LAUNCHES
+    flash.ALIGN_COPIES = 0
+    for name, (b, hq, hkv, sq, skv, d, causal, window) in FAMILY_FLASH_SHAPES.items():
+        out[name] = {}
+        mask = ref.attention_mask(sq, skv, causal=causal, window=window, device=device)
+        pairs = int(mask.sum())
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+
+            def view(h, s):  # [B, S, H, D] memory, as the model's projections
+                x = torch.randn((b, s, h, d), generator=gen, device=device)
+                return x.to(dt).transpose(1, 2)
+            q, k, v = view(hq, sq), view(hkv, skv), view(hkv, skv)
+            kw = dict(causal=causal, window=window)
+            got = flash.flash_attention(q, k, v, **kw)
+            want = ref.attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+            rec = {"shape": [b, hq, hkv, sq, skv, d], "causal": causal, "window": window,
+                   "max_abs_err": err}
+            if dtype == "bfloat16":
+                rec["rel"], rec["tight_used"] = _rel(got, want), _tol_used(got, want,
+                                                                           **FLASH_BF16_TIGHT)
+                assert rec["tight_used"] <= 1 and rec["rel"] <= FLASH_BF16_REL, (name, rec)
+            del got, want
+            ms = _time_ms(lambda: flash.flash_attention(q, k, v, **kw), 20)
+            plain_ms = _time_ms(lambda: ref.attention(q, k, v, **kw), 3)
+            sdpa_kw = (dict(attn_mask=mask) if window else dict(is_causal=True) if causal
+                       else {})
+            sdpa_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, enable_gqa=True, **sdpa_kw), 20)
+            # Least time: two products of 2 D flops for each allowed (query,
+            # key) pair a query head, at the input type's peak rate; or q, k,
+            # v read once and o written once.
+            n_ops = 4 * d * pairs * b * hq
+            n_bytes = (2 * b * hq * sq + 2 * b * hkv * skv) * d * q.element_size()
+            peak = PEAK_OPS_PER_S if dtype == "float32" else PEAK_BF16_OPS_PER_S
+            t_ops, t_bytes = n_ops / peak * 1e3, n_bytes / HBM_BYTES_PER_S * 1e3
+            rec.update(ms=ms, plain_ms=plain_ms, library_ms=sdpa_ms, bound_ms=max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes", ops=n_ops,
+                       bytes=n_bytes, tflops=n_ops / ms / 1e9)
+            out[name][dtype] = rec
+            print(f"phase 31 (a): flash {dtype} {name} [{b}, {hq}, {sq}, {d}] / [{b}, {hkv}, "
+                  f"{skv}, {d}] {'causal' if causal else 'non-causal'}"
+                  f"{f' window {window}' if window else ''} on {card}: max |err| vs plain "
+                  f"{err:.3e}" + (f" (||err|| / ||want|| {rec['rel']:.3e}, tight share "
+                                  f"{rec['tight_used']:.3f})" if dtype == "bfloat16" else "")
+                  + f"; kernel {ms:.4f} ms ({rec['tflops']:.2f} TFLOP/s), plain {plain_ms:.4f} "
+                  f"ms, SDPA {sdpa_ms:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']})", flush=True)
+            del q, k, v
+    assert flash.ALIGN_COPIES == 0, "the model's views were copied"
+    flash.LAUNCHES = before  # checks and timing are not the main path's launches
+    torch.cuda.empty_cache()
+    return out
+
+
+def _route_flips(routes_a, routes_b):
+    """Per layer, the tokens whose chosen experts (as sets) differ between
+    two runs; the rows ([B]) with any such token; the smallest top-k margin."""
+    import torch
+
+    flips, rows, margin = [], None, math.inf
+    for (ia, ma), (ib, mb) in zip(routes_a, routes_b, strict=True):
+        apart = (ia.sort(-1).values != ib.sort(-1).values).any(-1)  # [B, S]
+        flips.append(int(apart.sum()))
+        rows = apart.any(-1) if rows is None else rows | apart.any(-1)
+        margin = min(margin, float(torch.minimum(ma, mb).min()))
+    return flips, rows, margin
+
+
+def _held_logits(got, want, routes_got, routes_want, tol):
+    """Hold ``got`` against ``want`` on the rows routed alike in every layer
+    (a near-tie that moves a token to another expert is a jump, counted and
+    printed, never a looser bar); returns (max |err| over the held rows,
+    flips per layer, rows held, smallest margin)."""
+    import torch
+
+    flips, apart, margin = _route_flips(routes_got, routes_want)
+    held = ~apart if apart is not None else torch.ones(got.shape[0], dtype=torch.bool,
+                                                       device=got.device)
+    assert bool(held.any()), f"every row routed apart: {flips}"
+    torch.testing.assert_close(got[held], want[held], **tol)
+    return (got[held] - want[held]).abs().max().item(), flips, int(held.sum()), margin
+
+
+def _timed(fn):
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = fn()
+    torch.cuda.synchronize()
+    return r, time.perf_counter() - t0
+
+
+def phase_serve_family(flash, ssd_kernel, rglru_kernel, alloc, row, card, device) -> dict:
+    """Phase 31 (b)-(d) for one config of FAMILY_SERVE: served through
+    ``generate`` at its published widths, the launches counted from zero;
+    the prefill's last logits against ``attn_impl="ref"`` (routing compared
+    first); for MoE, ``moe_impl="ragged_local"`` against dense; for
+    internvl2 and whisper the bf16 prefill."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import uncounted_params
+    from repro_torch.launch.serve import generate, make_batch
+    from repro_torch.models import moe
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+
+    arch, layers, batch_size, prompt, gen_len, want_launches = row
+    full = get_config(arch)
+    cfg = full.scaled(n_layers=layers) if layers else full
+    f32 = dict(activation_dtype="float32")
+    model = build_model(cfg, ModelOptions(**f32), device=device)
+    plain = build_model(cfg, ModelOptions(attn_impl="ref", **f32), device=device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    params, init_s = _timed(lambda: model.init(torch.Generator(device=device).manual_seed(0)))
+    n_params = sum(t.numel() for t in _leaves(params))
+    assert n_params == cfg.param_count() + uncounted_params(cfg), (n_params, cfg.param_count())
+    batch = make_batch(cfg, batch_size, prompt, device)
+
+    timings = {}
+    torch.cuda.synchronize()
+    flash.LAUNCHES = flash.ALIGN_COPIES = ssd_kernel.LAUNCHES = rglru_kernel.LAUNCHES = 0
+    alloc.LAUNCHES = 0
+    ids = generate(model, params, batch, gen_len=gen_len, timings=timings)
+    torch.cuda.synchronize()
+    launches = {"flash": flash.LAUNCHES, "ssd": ssd_kernel.LAUNCHES,
+                "rglru": rglru_kernel.LAUNCHES, "alloc": alloc.LAUNCHES}
+    assert launches == {"flash": want_launches, "ssd": 0, "rglru": 0, "alloc": 0}, launches
+    assert flash.ALIGN_COPIES == 0, "the model's float32 views were copied"
+    assert ids.shape == (batch_size, gen_len) and int(ids.min()) >= 0
+    assert int(ids.max()) < cfg.vocab_size
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+
+    with moe.recording_routes() as routes:
+        (got, _), warm_s = _timed(lambda: model.prefill_fn(params, batch))
+    with moe.recording_routes() as plain_routes:
+        (want, _), plain_s = _timed(lambda: plain.prefill_fn(params, batch))
+    assert bool(torch.isfinite(got).all()) and got.shape == (batch_size, cfg.vocab_size)
+    err, flips, held, margin = _held_logits(got, want, routes, plain_routes, LOGIT_TOL)
+    decode_tps = batch_size * gen_len / timings["decode_s"]
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "full_layers": full.n_layers,
+           "params": n_params, "batch": batch_size, "prompt_len": prompt, "gen_len": gen_len,
+           "init_s": init_s, "prefill_s": timings["prefill_s"], "prefill_s_warm": warm_s,
+           "plain_prefill_s": plain_s, "decode_s": timings["decode_s"],
+           "decode_tok_s": decode_tps, "peak_mem_gb": peak_gb, "launches": launches,
+           "logits_max_abs_err_vs_plain": err, "sample_ids": ids[0, :16].tolist()}
+    if cfg.n_experts:
+        rec.update(route_flips_vs_plain=flips, rows_held=held, min_topk_margin=margin)
+    print(f"phase 31 (b): {cfg.name} at published widths, {cfg.n_layers} of {full.n_layers} "
+          f"layers ({n_params} parameters, init {init_s:.2f} s), float32, batch {batch_size} x "
+          f"prompt {prompt} + {gen_len} tokens on {card}: prefill {timings['prefill_s']:.4f} s "
+          f"cold, {warm_s:.4f} s warm (plain attention {plain_s:.4f} s), decode "
+          f"{timings['decode_s']:.4f} s ({decode_tps:.1f} tok/s), peak memory {peak_gb:.2f} GB; "
+          f"launches {launches}; last logits kernel vs plain max |err| {err:.3e} (max |logit| "
+          f"{want.abs().max().item():.3f})"
+          + (f"; tokens routed apart per layer {flips}, rows held {held} of {batch_size}, "
+             f"smallest top-k margin {margin:.3e}" if cfg.n_experts else ""), flush=True)
+    del want
+
+    if cfg.n_experts:  # (c) the dispatches against each other
+        ragged = build_model(cfg, ModelOptions(moe_impl="ragged_local", **f32), device=device)
+        ragged.prefill_fn(params, batch)  # warm
+        with moe.recording_routes() as ragged_routes:
+            (got_r, _), ragged_s = _timed(lambda: ragged.prefill_fn(params, batch))
+        err_r, flips_r, held_r, _ = _held_logits(got_r, got, ragged_routes, routes, LOGIT_TOL)
+        rec.update(ragged_prefill_s=ragged_s, dense_prefill_s=warm_s,
+                   ragged_vs_dense_max_abs_err=err_r, ragged_route_flips=flips_r,
+                   ragged_rows_held=held_r)
+        print(f"phase 31 (c): {cfg.name} prefill, moe_impl dense {warm_s:.4f} s, ragged_local "
+              f"{ragged_s:.4f} s ({warm_s / ragged_s:.2f}x; dense computes "
+              f"{cfg.n_experts // cfg.top_k}x the routed work); last logits ragged vs dense max "
+              f"|err| {err_r:.3e}, tokens routed apart per layer {flips_r}, rows held "
+              f"{held_r} of {batch_size}", flush=True)
+        del got_r
+
+    if arch in FAMILY_BF16:  # (d) bf16 activations, kernels on
+        bf = build_model(cfg, ModelOptions(), device=device)
+        bf_plain = build_model(cfg, ModelOptions(attn_impl="ref"), device=device)
+        flash.LAUNCHES = flash.ALIGN_COPIES = 0
+        (got_b, _), bf_cold = _timed(lambda: bf.prefill_fn(params, batch))
+        bf_launches, bf_copies = flash.LAUNCHES, flash.ALIGN_COPIES
+        assert bf_launches == want_launches and bf_copies == 0, (bf_launches, bf_copies)
+        _, bf_warm = _timed(lambda: bf.prefill_fn(params, batch))
+        want_b, _ = bf_plain.prefill_fn(params, batch)
+        assert got_b.dtype == want_b.dtype == torch.bfloat16
+        assert bool(torch.isfinite(got_b).all())
+        got_b, want_b = got_b.float(), want_b.float()
+        kernel_to_f32 = (got_b - got).abs().max().item()
+        plain_to_f32 = (want_b - got).abs().max().item()
+        rec.update(bf16_prefill_s_cold=bf_cold, bf16_prefill_s_warm=bf_warm,
+                   bf16_launches=bf_launches, bf16_kernel_to_f32=kernel_to_f32,
+                   bf16_plain_to_f32=plain_to_f32,
+                   bf16_vs_plain_max_abs_err=(got_b - want_b).abs().max().item())
+        print(f"phase 31 (d): {cfg.name} bf16 activations through prefill_fn on {card}: "
+              f"{bf_cold:.4f} s cold, {bf_warm:.4f} s warm; bf16 flash launches {bf_launches}, "
+              f"alignment copies {bf_copies}; last logits to the float32 ones: kernel "
+              f"{kernel_to_f32:.3e}, plain bf16 {plain_to_f32:.3e}", flush=True)
+        assert kernel_to_f32 <= 2 * plain_to_f32, "the kernel's logits left bf16's spread"
+    del params, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_families(flash, ref, ssd_kernel, rglru_kernel, alloc, card, device) -> dict:
+    """Phase 31: (a) the flash kernel at the families' call shapes; (b)-(d)
+    each FAMILY_SERVE config; (e) the smoke configs' train steps, CPU vs
+    card."""
+    t0 = time.perf_counter()
+    out = {"flash": phase_family_flash(flash, ref, card, device)}
+    out["serve"] = {row[0]: phase_serve_family(flash, ssd_kernel, rglru_kernel, alloc, row,
+                                               card, device) for row in FAMILY_SERVE}
+    out["train_cpu_vs_cuda"] = phase_train_cpu_vs_cuda(card, device, FAMILY_ARCHS, "31 (e)")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 31: {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 def main() -> int:
@@ -3216,6 +3507,7 @@ def main() -> int:
     train_cpu = phase_train_cpu_vs_cuda(card, device)
     train_s = time.perf_counter() - t_phase
     print(f"phase 29: {train_s:.1f} s", flush=True)
+    families = phase_families(flash_attention, ref, ssd_scan, rglru_scan, alloc, card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -3270,6 +3562,14 @@ def main() -> int:
         "launches_bf16": bf16_serve["flash_launches"],
         "launches_bf16_hybrid": hybrid_bf16["launches"]["flash"],
         "launches_train": train["launches"]["flash"],
+        "launches_families": {a: r["launches"]["flash"] for a, r in families["serve"].items()},
+        "launches_families_bf16": {a: r["bf16_launches"] for a, r in families["serve"].items()
+                                   if "bf16_launches" in r},
+        "family_shapes": {name: {dt: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                         "bound_by", "library_ms",
+                                                         "max_abs_err")}
+                                 for dt, r in recs.items()}
+                          for name, recs in families["flash"].items()},
         "ms_bf16": bf16["ms"],
         "plain_ms_bf16": bf16["plain_ms"],
         "bound_ms_bf16": bf16["bound_ms"],
@@ -3350,6 +3650,7 @@ def main() -> int:
         "remat": remat,
         "train_cpu_vs_cuda": train_cpu,
         "train_phase_s": train_s,
+        "families": families,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

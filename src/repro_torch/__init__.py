@@ -25,8 +25,9 @@ The PyTorch/CUDA port of the JAX package ``repro``.  Its paths so far:
   with the benchmarks' cross-checks against it and the decision-epoch
   benchmark (``lanes.py``); ``sched/elastic.py`` comes with the multi-device
   slice;
-- serving the dense, ssm and hybrid families (batched prefill, greedy
-  decode over KV, conv and state caches): ``configs/``, ``models/``,
+- serving every family of the registry, dense, moe, ssm, hybrid, vlm and
+  audio (batched prefill, greedy decode over KV, conv, state and
+  cross-attention caches): ``configs/``, ``models/``,
   ``train/serve_step.py``, ``launch/serve.py``, with the flash, SSD and
   RG-LRU kernels (``kernels/``);
 - training them on one device: the loss, the chunked attention's

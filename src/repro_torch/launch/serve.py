@@ -1,6 +1,7 @@
 """Serving entry point: batched prefill, then a greedy decode loop over the
-caches (KV caches for attention, a ring of ``window`` slots for local
-attention, conv and state caches for mamba2 and the RG-LRU).  Port of
+caches (KV caches for attention, a ring of ``window`` slots for local and
+sliding-window attention, conv and state caches for mamba2 and the RG-LRU,
+cross-attention K/V of the encoder states for whisper).  Port of
 ``repro.launch.serve``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
@@ -9,13 +10,22 @@ attention, conv and state caches for mamba2 and the RG-LRU).  Port of
         --batch 4 --prompt-len 30000 --gen-len 32         # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-9b \
         --batch 4 --prompt-len 4096 --gen-len 32          # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
+        --smoke --device cpu                               # the MoE path on the CPU
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-1b \
+        --batch 4 --prompt-len 1024 --gen-len 32          # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base \
+        --batch 4 --prompt-len 416 --gen-len 32           # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
         --smoke --device cpu                               # plain PyTorch on the CPU
 
 Parameters are random, drawn by the port's own ``init`` on the device from a
 seeded ``torch.Generator`` (the JAX package's threefry streams cannot be
 reproduced, and the repo has no published weights).  Activations are
-float32, as in the JAX entry point.
+float32, as in the JAX entry point.  A vlm's patch embeddings and an audio
+model's frames are drawn after the prompt from the same NumPy generator,
+standard normals times 0.02, as the JAX entry point draws them.  A MoE
+config's full depth does not fit one card (mixtral is 187 GB in float32).
 """
 
 from __future__ import annotations
@@ -67,6 +77,23 @@ def generate(model, params, batch, *, gen_len: int, timings: dict | None = None)
     return torch.cat(out, dim=1)
 
 
+def make_batch(cfg, batch: int, prompt_len: int, device, seed: int = 0) -> dict:
+    """The prompt ``tokens`` ``[batch, prompt_len]`` from a NumPy seed, and
+    after them a vlm's ``patch_embeds`` or an audio model's ``frames``."""
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size, (batch, prompt_len)),
+                                     device=device)}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = torch.as_tensor(
+            rng.standard_normal((batch, cfg.n_patches, cfg.d_model)).astype(np.float32),
+            device=device) * 0.02
+    if cfg.family == "audio":
+        out["frames"] = torch.as_tensor(
+            rng.standard_normal((batch, cfg.encoder_seq, cfg.d_model)).astype(np.float32),
+            device=device) * 0.02
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", required=True)
@@ -81,9 +108,7 @@ def main(argv=None):
     cfg = smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, ModelOptions(activation_dtype="float32"), device=device)
     params = model.init(torch.Generator(device=device).manual_seed(0))
-    rng = np.random.default_rng(0)
-    tokens = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
-    batch = {"tokens": torch.as_tensor(tokens, device=device)}
+    batch = make_batch(cfg, args.batch, args.prompt_len, device)
 
     timings = {}
     ids = generate(model, params, batch, gen_len=args.gen_len, timings=timings)

@@ -1,12 +1,14 @@
-"""GQA self-attention block: full sequence (training and prefill) through
-``kernels.ops.attention``, and single-token decode against a (possibly
-ring-buffered) KV cache.  Port of ``repro.models.attention``; cross
-attention comes with the encoder-decoder slice.
+"""GQA attention block: full sequence (training and prefill) through
+``kernels.ops.attention``, single-token decode against a (possibly
+ring-buffered) KV cache, and encoder-decoder cross attention.  Port of
+``repro.models.attention``.
 
 KV caches are dicts ``{"k": [B, Hkv, C, hd], "v": [B, Hkv, C, hd]}`` where
 ``C`` is the capacity.  For sliding-window archs ``C = window`` and the cache
 is a ring buffer.  RoPE is applied to K at insert time (absolute positions),
-so ring slots never need re-rotation.  Unlike the JAX package's functional
+so ring slots never need re-rotation.  A cross-attention cache holds the
+encoder states' K/V, projected once at the prefill and read by every decode
+step.  Unlike the JAX package's functional
 update, :func:`_ring_insert` writes the new step into the cache in place: a
 decode step then touches one slot instead of copying the cache.
 """
@@ -21,7 +23,9 @@ from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models.layers import rope, uniform_scale_init
 
 
-def attn_init(generator: torch.Generator, cfg, dtype=torch.float32):
+def attn_init(generator: torch.Generator, cfg, dtype=torch.float32, cross: bool = False):
+    """The projections (and, for self-attention with ``cfg.qkv_bias``, the
+    Q/K/V biases; cross attention has none)."""
     d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     p = {
         "wq": uniform_scale_init(generator, (hq * hd, d), dtype),
@@ -29,7 +33,7 @@ def attn_init(generator: torch.Generator, cfg, dtype=torch.float32):
         "wv": uniform_scale_init(generator, (hkv * hd, d), dtype),
         "wo": uniform_scale_init(generator, (d, hq * hd), dtype),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         dev = generator.device
         p["bq"] = torch.zeros(hq * hd, dtype=dtype, device=dev)
         p["bk"] = torch.zeros(hkv * hd, dtype=dtype, device=dev)
@@ -74,33 +78,57 @@ def apply_attn(
     cfg,
     positions: torch.Tensor,  # [S] absolute positions of the query tokens
     window: int = 0,
+    causal: bool = True,
+    use_rope: bool = True,
     impl: str = "auto",
     cache: dict | None = None,
     cache_length: int | None = None,  # tokens already in the cache
     return_cache: bool = True,
+    cross: bool = False,
+    kv_source: torch.Tensor | None = None,  # [B, Se, D] encoder states for cross attention
 ):
-    """Causal self-attention with RoPE.  Returns ``(out [B, S, D], cache)``.
+    """Self-attention (RoPE unless ``use_rope=False``, causal unless
+    ``causal=False``), or with ``cross=True`` attention from ``x`` to
+    ``kv_source`` (never causal, no RoPE).  Returns ``(out [B, S, D],
+    cache)``.
 
     - train: ``cache`` None and ``return_cache=False``; the cache is None;
-    - prefill: ``cache`` None; the returned cache holds this call's K/V;
+    - prefill: ``cache`` None; the returned cache holds this call's K/V
+      (for cross attention, ``kv_source``'s);
     - decode: ``cache`` given, ``S == 1``, ``cache_length`` tokens already
-      stored; the new step is inserted in place.
+      stored; the new step is inserted in place (cross attention reads its
+      cache as it is).
     """
     B, S, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rope_on = use_rope and not cross
 
-    q = rope(_project(p, x, "q", hq, hd), positions, cfg.rope_theta).transpose(1, 2)
-    k = rope(_project(p, x, "k", hkv, hd), positions, cfg.rope_theta).transpose(1, 2)
-    v = _project(p, x, "v", hkv, hd).transpose(1, 2)  # [B, Hkv, S, hd]
+    q = _project(p, x, "q", hq, hd)
+    if rope_on:
+        q = rope(q, positions, cfg.rope_theta)
+    q = q.transpose(1, 2)  # [B, Hq, S, hd]
 
-    if cache is None:
-        out = ops.attention(q, k, v, causal=True, window=window, impl=impl)
-        cache = {"k": k, "v": v} if return_cache else None
-    elif S == 1:
-        _ring_insert(cache, k, v, cache_length)
-        out = _decode_attend(q, cache, cache_length + 1, window=window)
+    if cross:
+        if cache is None:
+            cache = {"k": _project(p, kv_source, "k", hkv, hd).transpose(1, 2),
+                     "v": _project(p, kv_source, "v", hkv, hd).transpose(1, 2)}
+        out = ops.attention(q, cache["k"], cache["v"], causal=False, impl=impl)
+        if not return_cache:
+            cache = None
     else:
-        raise NotImplementedError("chunked append-prefill is not needed by the serving path")
+        k = _project(p, x, "k", hkv, hd)
+        if rope_on:
+            k = rope(k, positions, cfg.rope_theta)
+        k = k.transpose(1, 2)
+        v = _project(p, x, "v", hkv, hd).transpose(1, 2)  # [B, Hkv, S, hd]
+        if cache is None:
+            out = ops.attention(q, k, v, causal=causal, window=window, impl=impl)
+            cache = {"k": k, "v": v} if return_cache else None
+        elif S == 1:
+            _ring_insert(cache, k, v, cache_length)
+            out = _decode_attend(q, cache, cache_length + 1, window=window)
+        else:
+            raise NotImplementedError("chunked append-prefill is not needed by the serving path")
 
     out = out.transpose(1, 2).reshape(B, S, hq * hd)
     return F.linear(out, p["wo"].to(x.dtype)), cache

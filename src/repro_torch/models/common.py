@@ -11,6 +11,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.models import moe
+
 
 @dataclass(frozen=True)
 class ModelOptions:
@@ -19,12 +21,15 @@ class ModelOptions:
     # under autograd "auto" takes it on the CPU and raises on the card)
     attn_impl: str = "auto"
     mixer_impl: str = "auto"
+    moe_impl: str = "dense"  # dense | ragged_local (models/moe.py; ragged, dense_ep need a mesh)
     remat: str = "full"  # full | none: activation checkpointing per block in training
     activation_dtype: str = "bfloat16"
 
     def __post_init__(self):
         if self.remat not in ("full", "none"):
             raise ValueError(f"remat must be 'full' or 'none', got {self.remat!r}")
+        if self.moe_impl not in moe.IMPLS + moe.MESH_IMPLS:
+            raise ValueError(f"unknown moe_impl {self.moe_impl!r}")
 
     @property
     def dtype(self) -> torch.dtype:

@@ -1,5 +1,6 @@
-"""Shared neural-net primitives: initialisers, RMSNorm, RoPE, SwiGLU,
-embedding and logits.  Port of ``repro.models.layers``.
+"""Shared neural-net primitives: initialisers, RMSNorm, LayerNorm, RoPE,
+sinusoidal positions, the SwiGLU and GeLU MLPs, embedding and logits.  Port
+of ``repro.models.layers``.
 
 Plain functions over parameter dicts of tensors.  Linear weights are stored
 as PyTorch's ``nn.Linear`` does, ``[out, in]``, and applied with
@@ -39,6 +40,16 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     return (xf * torch.rsqrt(var + eps) * w.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5
+               ) -> torch.Tensor:
+    """LayerNorm reduced in float32 (mean and biased variance), scaled by
+    ``w`` and shifted by ``b``."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w.float() + b.float()).to(x.dtype)
+
+
 # ---------------------------------------------------------------------- RoPE
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding in float32, split-halves convention (not
@@ -50,6 +61,26 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings ``[n, d]`` in float32: the
+    sines of every position times ``exp(-i log(10000) / max(d/2 - 1, 1))``
+    in the first half, their cosines in the second (not interleaved)."""
+    pos = torch.arange(n, dtype=torch.float32, device=device)
+    return sinusoidal_at(pos, d)
+
+
+def sinusoidal_at(pos: torch.Tensor, d: int) -> torch.Tensor:
+    """:func:`sinusoidal_positions` at the float32 positions ``pos``
+    (``[...]``) -> ``[..., d]``."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=pos.device)
+    # the reference's float32 log, filled on the device: no host-to-device copy
+    log_base = torch.full((), 10000.0, dtype=torch.float32, device=pos.device).log()
+    rate = log_base / max(d // 2 - 1, 1)
+    inv = torch.exp(-dim * rate)
+    ang = pos.float()[..., None] * inv
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------- MLPs
@@ -66,6 +97,24 @@ def swiglu(p, x: torch.Tensor) -> torch.Tensor:
     u = F.linear(x, p["up"].to(x.dtype))
     h = F.silu(g.float()).to(x.dtype) * u
     return F.linear(h, p["down"].to(x.dtype))
+
+
+def gelu_mlp_init(generator: torch.Generator, d: int, f: int, dtype=torch.float32):
+    dev = generator.device
+    return {
+        "w1": uniform_scale_init(generator, (f, d), dtype),
+        "b1": torch.zeros(f, dtype=dtype, device=dev),
+        "w2": uniform_scale_init(generator, (d, f), dtype),
+        "b2": torch.zeros(d, dtype=dtype, device=dev),
+    }
+
+
+def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
+    """The two-matrix MLP with biases and the tanh GeLU in float32 (the
+    reference's ``jax.nn.gelu``, whose default is the tanh form)."""
+    h = F.linear(x, p["w1"].to(x.dtype), p["b1"].to(x.dtype))
+    h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
+    return F.linear(h, p["w2"].to(x.dtype), p["b2"].to(x.dtype))
 
 
 # ----------------------------------------------------------- embedding/logits

@@ -1,6 +1,6 @@
-"""``build_model(cfg, opts)``: the port's entry point to a model.  Port of
-``repro.models.model`` for the decoder-only dense, ssm and hybrid families.
-Returns a ``Model`` of plain functions:
+"""``build_model(cfg, opts)``: the port's entry point to a model, for every
+family of the registry.  Port of ``repro.models.model``.  Returns a
+``Model`` of plain functions:
 
   init(generator)                                  -> params (float32 masters)
   loss_fn(params, batch)                           -> (loss, {"ce", "aux_loss"})
@@ -8,8 +8,12 @@ Returns a ``Model`` of plain functions:
   decode_fn(params, tokens, caches, cache_length)  -> (logits [B, 1, V], caches)
 
 ``params`` is a dict of tensors laid out as ``models/convert.py`` documents.
-The other families raise ``NotImplementedError`` naming their ROADMAP.md
-item.
+A batch holds ``tokens`` (and ``labels`` for the loss), plus, for a vlm,
+``patch_embeds`` ``[B, n_patches, d_model]`` (spliced over the first token
+embeddings at training and prefill) and, for audio, ``frames`` ``[B,
+encoder_seq, d_model]`` (the encoder's input).  The loss is the cross
+entropy plus 0.01 times the MoE layers' load-balance loss (zero for the
+other families); a vlm's cross entropy leaves out the patch positions.
 """
 
 from __future__ import annotations
@@ -21,17 +25,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec
 from repro_torch.models.common import ModelOptions
 from repro_torch.models.layers import embed_init, embed_lookup, logits_from_embed, rms_norm
 from repro_torch.models.layers import uniform_scale_init
 from repro_torch.models.transformer import stack_apply, stack_init
-
-#: Where each family that is not ported yet stands in ROADMAP.md Queue A.
-UNPORTED_FAMILIES = {
-    "moe": "ROADMAP.md Queue A item 9 (the other model families)",
-    "vlm": "ROADMAP.md Queue A item 9 (the other model families)",
-    "audio": "ROADMAP.md Queue A item 9 (the other model families)",
-}
+from repro_torch.models.vlm import splice_patches, vlm_loss_mask
 
 
 class Model(NamedTuple):
@@ -64,10 +63,8 @@ def build_model(cfg: ModelConfig, opts: ModelOptions = ModelOptions(), *,
                 device: str | torch.device = "cuda") -> Model:
     """The model's functions on ``device`` (CUDA unless the caller asks for
     the CPU; without a card the default raises)."""
-    if cfg.family in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet: {UNPORTED_FAMILIES[cfg.family]}"
-        )
+    if cfg.family == "audio":
+        return _build_encdec(cfg, opts, resolve_device(device))
     return _build_decoder_only(cfg, opts, resolve_device(device))
 
 
@@ -91,9 +88,12 @@ def _build_decoder_only(cfg: ModelConfig, opts: ModelOptions, device: torch.devi
             )
         return params
 
-    def forward(params, tokens, *, mode, caches=None, cache_length=None, max_len=None):
+    def forward(params, tokens, *, mode, caches=None, cache_length=None, patch_embeds=None,
+                max_len=None):
         tokens = torch.as_tensor(tokens, device=device)
         x = embed_lookup(params["embed"], tokens, adt)
+        if patch_embeds is not None:
+            x = splice_patches(x, torch.as_tensor(patch_embeds, device=device))
         if mode == "decode":  # filled on the device: no host-to-device copy, no sync
             positions = torch.full((1,), cache_length, dtype=torch.int32, device=device)
         else:
@@ -106,17 +106,22 @@ def _build_decoder_only(cfg: ModelConfig, opts: ModelOptions, device: torch.devi
 
     def loss_fn(params, batch):
         """``(loss, {"ce", "aux_loss"})`` of a batch of ``tokens`` and
-        ``labels`` ``[B, S]``: the cross entropy over every position plus
-        0.01 times the layers' auxiliary loss (zero for these families)."""
-        x, _, aux = forward(params, batch["tokens"], mode="train")
+        ``labels`` ``[B, S]``: the cross entropy (for a vlm masked over the
+        patch positions) plus 0.01 times the layers' load-balance loss."""
+        x, _, aux = forward(params, batch["tokens"], mode="train",
+                            patch_embeds=batch.get("patch_embeds"))
         logits = _lm_head(cfg, params, x)
         labels = torch.as_tensor(batch["labels"], device=device)
-        mask = torch.ones(labels.shape, dtype=torch.float32, device=device)
+        if cfg.family == "vlm":
+            mask = vlm_loss_mask(cfg, labels)
+        else:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=device)
         ce = cross_entropy(logits, labels, mask)
         return ce + 0.01 * aux, {"ce": ce, "aux_loss": aux}
 
     def prefill_fn(params, batch, max_len=None):
-        x, caches, _ = forward(params, batch["tokens"], mode="prefill", max_len=max_len)
+        x, caches, _ = forward(params, batch["tokens"], mode="prefill",
+                               patch_embeds=batch.get("patch_embeds"), max_len=max_len)
         return _lm_head(cfg, params, x[:, -1:, :])[:, 0, :], caches
 
     def decode_fn(params, tokens, caches, cache_length: int):
@@ -125,5 +130,51 @@ def _build_decoder_only(cfg: ModelConfig, opts: ModelOptions, device: torch.devi
         x, caches, _ = forward(params, tokens, mode="decode", caches=caches,
                                cache_length=int(cache_length))
         return _lm_head(cfg, params, x), caches
+
+    return Model(cfg, opts, device, init, loss_fn, prefill_fn, decode_fn)
+
+
+def _build_encdec(cfg: ModelConfig, opts: ModelOptions, device: torch.device) -> Model:
+    adt = opts.dtype
+    pdt = getattr(torch, cfg.param_dtype)
+
+    def init(generator: torch.Generator):
+        """Random parameters from ``generator``, which must lie on the
+        model's device (the tensors are drawn there)."""
+        if generator.device.type != device.type:
+            raise ValueError(f"generator on {generator.device}, model on {device}")
+        return encdec.encdec_init(generator, cfg, pdt)
+
+    def encode(params, batch):
+        frames = torch.as_tensor(batch["frames"], device=device).to(adt)
+        return encdec.encode(params, frames, cfg=cfg, opts=opts)
+
+    def loss_fn(params, batch):
+        """``(loss, {"ce", "aux_loss"})``: the cross entropy over every
+        position of ``tokens`` given ``frames``; ``aux_loss`` is zero."""
+        x, _ = encdec.decode_stack(params, torch.as_tensor(batch["tokens"], device=device),
+                                   cfg=cfg, opts=opts, mode="train",
+                                   enc_out=encode(params, batch))
+        logits = logits_from_embed(params["embed"], x)
+        labels = torch.as_tensor(batch["labels"], device=device)
+        ce = cross_entropy(logits, labels,
+                           torch.ones(labels.shape, dtype=torch.float32, device=device))
+        return ce, {"ce": ce, "aux_loss": torch.zeros((), dtype=torch.float32, device=device)}
+
+    def prefill_fn(params, batch, max_len=None):
+        x, caches = encdec.decode_stack(
+            params, torch.as_tensor(batch["tokens"], device=device), cfg=cfg, opts=opts,
+            mode="prefill", enc_out=encode(params, batch), prefill_capacity=max_len,
+        )
+        return logits_from_embed(params["embed"], x[:, -1:, :])[:, 0, :], caches
+
+    def decode_fn(params, tokens, caches, cache_length: int):
+        """One token per row against caches that hold ``cache_length``
+        tokens; the self-attention caches are updated in place."""
+        x, caches = encdec.decode_stack(
+            params, torch.as_tensor(tokens, device=device), cfg=cfg, opts=opts, mode="decode",
+            caches=caches, cache_length=int(cache_length),
+        )
+        return logits_from_embed(params["embed"], x), caches
 
     return Model(cfg, opts, device, init, loss_fn, prefill_fn, decode_fn)

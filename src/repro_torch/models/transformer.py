@@ -1,12 +1,14 @@
-"""The decoder stack of the dense, ssm and hybrid families: a Python loop
-over blocks.  Port of ``repro.models.transformer``.
+"""The decoder stack of the dense, moe, ssm, hybrid and vlm families: a
+Python loop over blocks.  Port of ``repro.models.transformer``.
 
 A *block* is one repetition of the architecture's mixer pattern:
-``("attn",)`` for dense, ``("ssm",)`` for ssm, ``cfg.layer_pattern`` (e.g.
-``("rglru", "rglru", "attn")``) for hybrid.  Each of its sublayers is the
-mixer (attention, the Mamba2 SSD block or the RG-LRU block) behind an
-RMSNorm and a residual, then, where ``d_ff > 0``, a SwiGLU MLP behind its
-own RMSNorm and residual (mamba2 has none).  Layer counts not divisible by
+``("attn",)`` for dense, moe and vlm, ``("ssm",)`` for ssm,
+``cfg.layer_pattern`` (e.g. ``("rglru", "rglru", "attn")``) for hybrid.
+Each of its sublayers is the mixer (attention, the Mamba2 SSD block or the
+RG-LRU block) behind an RMSNorm and a residual, then, where ``d_ff > 0``, an
+MLP behind its own RMSNorm and residual (mamba2 has none): SwiGLU, or where
+``cfg.n_experts`` is set the MoE layer (``models/moe.py``), whose
+load-balance losses the stack sums.  Layer counts not divisible by
 the pattern get unstacked tail layers that repeat the pattern's prefix.  The
 JAX package stacks the blocks' parameters on a leading ``n_blocks`` axis and
 runs one ``lax.scan``; here the stack is ``{"blocks": [{"sub0": {...},
@@ -28,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models.attention import apply_attn, attn_init, cache_capacity
 from repro_torch.models.common import ModelOptions
 from repro_torch.models.layers import rms_norm, swiglu, swiglu_init
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rglru import rg_apply, rg_init
 from repro_torch.models.ssm import ssm_apply, ssm_init
 
@@ -52,7 +55,8 @@ def _sublayer_init(generator: torch.Generator, cfg, kind, dtype):
          "mix": _MIXER_INIT[kind](generator, cfg, dtype)}
     if _has_mlp(cfg):
         p["mlp_norm"] = torch.ones(cfg.d_model, dtype=dtype, device=dev)
-        p["mlp"] = swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype)
+        p["mlp"] = (moe_init(generator, cfg, dtype) if cfg.n_experts
+                    else swiglu_init(generator, cfg.d_model, cfg.d_ff, dtype))
     return p
 
 
@@ -71,8 +75,9 @@ def stack_init(generator: torch.Generator, cfg, dtype=torch.float32):
 
 def _apply_sublayer(sp, x, kind, *, cfg, opts: ModelOptions, mode, positions, cache,
                     cache_length, prefill_capacity=None):
-    """One mixer (+ MLP) sublayer.  Returns ``(x, new_cache)``; the cache
-    is None in training."""
+    """One mixer (+ MLP) sublayer.  Returns ``(x, new_cache, aux)``: the
+    cache is None in training, ``aux`` the MoE layer's load-balance loss
+    (None without one)."""
     h = rms_norm(x, sp["norm"], cfg.norm_eps)
     return_cache = mode != "train"
     if kind == "ssm":
@@ -91,9 +96,15 @@ def _apply_sublayer(sp, x, kind, *, cfg, opts: ModelOptions, mode, positions, ca
             new_cache = resize_kv_cache(new_cache, h.shape[1], prefill_capacity or h.shape[1],
                                         cfg, cfg.window)
     x = x + out
+    aux = None
     if _has_mlp(cfg):
-        x = x + swiglu(sp["mlp"], rms_norm(x, sp["mlp_norm"], cfg.norm_eps))
-    return x, new_cache
+        h = rms_norm(x, sp["mlp_norm"], cfg.norm_eps)
+        if cfg.n_experts:
+            out, aux = moe_apply(sp["mlp"], h, cfg, impl=opts.moe_impl)
+        else:
+            out = swiglu(sp["mlp"], h)
+        x = x + out
+    return x, new_cache, aux
 
 
 def resize_kv_cache(cache, used: int, target_len: int, cfg, window: int):
@@ -113,16 +124,20 @@ def resize_kv_cache(cache, used: int, target_len: int, cfg, window: int):
 
 def _block_apply(bp, x, kinds, *, cfg, opts, mode, positions, caches, cache_length,
                  prefill_capacity=None):
-    """The sublayers of one block in order.  Returns ``(x, new_caches)``."""
+    """The sublayers of one block in order.  Returns ``(x, new_caches,
+    aux)``, ``aux`` the sum of their load-balance losses, float32."""
     new_caches = {}
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(kinds):
         name = f"sub{i}"
         c = caches[name] if caches is not None else None
-        x, new_caches[name] = _apply_sublayer(
+        x, new_caches[name], aux_i = _apply_sublayer(
             bp[name], x, kind, cfg=cfg, opts=opts, mode=mode, positions=positions, cache=c,
             cache_length=cache_length, prefill_capacity=prefill_capacity,
         )
-    return x, new_caches
+        if aux_i is not None:
+            aux = aux + aux_i
+    return x, new_caches, aux
 
 
 def stack_apply(
@@ -138,11 +153,13 @@ def stack_apply(
     prefill_capacity: int | None = None,  # total conversation length to hold
 ):
     """Returns ``(x, new_caches, aux)``: ``new_caches`` is None in training,
-    and ``aux``, the sum of the layers' auxiliary losses, is a float32 zero
-    (only the MoE family has one).  In training with ``opts.remat ==
-    "full"`` each block, and the tail, runs under activation checkpointing
-    (non-reentrant: its activations are recomputed in the backward), as
-    ``jax.checkpoint`` wraps the JAX package's scanned block."""
+    and ``aux`` is the sum of the layers' load-balance losses in float32
+    (zero without MoE layers), as the reference's scan carries it.  In
+    training with ``opts.remat == "full"`` each block, and the tail, runs
+    under activation checkpointing (non-reentrant: its activations are
+    recomputed in the backward), as ``jax.checkpoint`` wraps the JAX
+    package's scanned block; the block returns its ``aux`` beside ``x``, so
+    the loss differentiates through it."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode must be train, prefill or decode, got {mode!r}")
     pat = cfg.block_pattern
@@ -152,23 +169,27 @@ def stack_apply(
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "train":
         def block(bp, kinds, x):
-            return _block_apply(bp, x, kinds, caches=None, **kw)[0]
+            x, _, aux_i = _block_apply(bp, x, kinds, caches=None, **kw)
+            return x, aux_i
 
         stages = [(bp, pat) for bp in params["blocks"]]
         if tail:
             stages.append((params["tail"], tail))
         for bp, kinds in stages:
             if opts.remat == "full":
-                x = checkpoint(block, bp, kinds, x, use_reentrant=False)
+                x, aux_i = checkpoint(block, bp, kinds, x, use_reentrant=False)
             else:
-                x = block(bp, kinds, x)
+                x, aux_i = block(bp, kinds, x)
+            aux = aux + aux_i
         return x, None, aux
     new_caches = {"blocks": []}
     for i, bp in enumerate(params["blocks"]):
         bc = caches["blocks"][i] if mode == "decode" else None
-        x, nc = _block_apply(bp, x, pat, caches=bc, **kw)
+        x, nc, aux_i = _block_apply(bp, x, pat, caches=bc, **kw)
         new_caches["blocks"].append(nc)
+        aux = aux + aux_i
     if tail:
         tc = caches["tail"] if mode == "decode" else None
-        x, new_caches["tail"] = _block_apply(params["tail"], x, tail, caches=tc, **kw)
+        x, new_caches["tail"], aux_i = _block_apply(params["tail"], x, tail, caches=tc, **kw)
+        aux = aux + aux_i
     return x, new_caches, aux

@@ -54,7 +54,9 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "launch.trace_export", "core.multiclass", "sched.cluster",
                  "sched.estimator", "sched.quantize", "sched.stragglers", "lanes",
                  "launch.train", "train.train_step", "train.optimizer", "train.checkpoint",
-                 "train.ft", "train.tree", "data.pipeline"):
+                 "train.ft", "train.tree", "data.pipeline", "models.moe", "models.vlm",
+                 "models.encdec", "configs.shapes", "configs.mixtral_8x7b",
+                 "configs.qwen3_moe_235b", "configs.internvl2_1b", "configs.whisper_base"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["bad"] == []
 
@@ -123,6 +125,11 @@ def _entry_points():
         "serve_main": lambda: serve.main(["--arch", "phi4-mini-3.8b", "--smoke"]),
         "train_main": lambda: train.main(["--arch", "phi4-mini-3.8b", "--smoke", "--steps", "1"]),
         "build_model_hybrid": lambda: build_model(smoke_config("recurrentgemma-9b")),
+        "build_model_moe": lambda: build_model(smoke_config("mixtral-8x7b")),
+        "build_model_vlm": lambda: build_model(smoke_config("internvl2-1b")),
+        "build_model_audio": lambda: build_model(smoke_config("whisper-base")),
+        "params_from_jax_audio": lambda: params_from_jax({}, smoke_config("whisper-base")),
+        "serve_main_audio": lambda: serve.main(["--arch", "whisper-base", "--smoke"]),
         "opt_state_from_jax": lambda: opt_state_from_jax({"step": 0},
                                                          smoke_config("phi4-mini-3.8b")),
     }

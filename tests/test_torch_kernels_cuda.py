@@ -13,7 +13,10 @@
   ``kernels.ref.linear_recurrence`` (the same rounded steps: bit for bit)
   and the log-depth ``kernels.chunked.linear_scan`` on the same a and g, y
   at the same tolerances and the state within 1e-3, and ``ops.rglru``
-  against ``kernels.chunked.rglru`` in float32.
+  against ``kernels.chunked.rglru`` in float32;
+- the smoke models' prefills through the flash kernel against plain
+  attention (logits 2e-4), the moe, vlm and audio ones included (routing
+  equal, the launches one per attention call).
 
 Needs an NVIDIA card and nvcc (the kernels have no CPU mode), so every test
 is marked ``cuda`` and skips where ``torch.cuda.is_available()`` is False.
@@ -433,6 +436,43 @@ def test_smoke_model_prefill_through_the_kernel_matches_plain_attention(cuda_dev
     got, _ = kernel.prefill_fn(params, {"tokens": toks})
     assert flash.LAUNCHES == before + cfg.n_layers
     want, _ = plain.prefill_fn(params, {"tokens": toks})
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+# (arch, flash launches of one prefill): a MoE layer's attention, the vlm's
+# 14 / 2 heads (GQA group 7 at full width), whisper's encoder (non-causal),
+# decoder self-attention and cross attention (Sq != Skv) in each layer.
+FAMILY_LAUNCHES = (("mixtral-8x7b", 2), ("qwen3-moe-235b-a22b", 2), ("internvl2-1b", 2),
+                   ("whisper-base", 6))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch, launches", FAMILY_LAUNCHES)
+@pytest.mark.parametrize("moe_impl", ["dense", "ragged_local"])
+def test_smoke_family_prefill_through_the_kernel_matches_plain_attention(cuda_device, arch,
+                                                                         launches, moe_impl):
+    """Phase 31 (b) of chip_smoke.py at the smoke size: the moe, vlm and
+    audio prefills launch flash once per attention call and give the plain
+    path's logits, routing the same tokens to the same experts."""
+    from repro_torch.launch.serve import make_batch
+    from repro_torch.models import moe
+
+    cfg = smoke_config(arch)
+    if moe_impl != "dense" and not cfg.n_experts:
+        pytest.skip("no MoE layer")
+    opts = dict(activation_dtype="float32", moe_impl=moe_impl)
+    kernel = build_model(cfg, ModelOptions(**opts), device=cuda_device)
+    plain = build_model(cfg, ModelOptions(attn_impl="ref", **opts), device=cuda_device)
+    params = kernel.init(torch.Generator(device=cuda_device).manual_seed(0))
+    batch = make_batch(cfg, 2, 40, cuda_device)
+    before = flash.LAUNCHES
+    with moe.recording_routes() as routes:
+        got, _ = kernel.prefill_fn(params, batch)
+    assert flash.LAUNCHES == before + launches
+    with moe.recording_routes() as plain_routes:
+        want, _ = plain.prefill_fn(params, batch)
+    for (a, _), (b, _) in zip(routes, plain_routes, strict=True):
+        assert torch.equal(a, b)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 

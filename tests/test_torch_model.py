@@ -1,9 +1,13 @@
-"""The port's dense decoder against the JAX package, at the smoke size.
+"""The port's models against the JAX package, at the smoke size.
 
 The smoke-size ``phi4-mini-3.8b`` (2 layers, width 64, 4 query / 2 KV heads
-of dim 16, vocab 256) is built in both packages on the same parameters: the
-JAX model's ``init`` draws them, ``convert.params_from_jax`` carries them
-over.  The JAX model runs with ``attn_impl="ref"`` and with ``"interpret"``
+of dim 16, vocab 256), and of the other families mixtral-8x7b and
+qwen3-moe-235b-a22b (moe: 4 experts, top-2; mixtral with a window of 16),
+internvl2-1b (vlm: 4 patches spliced over the first token embeddings) and
+whisper-base (audio: 2 + 2 layers over 8 frames), are built in both packages
+on the same parameters: the JAX model's ``init`` draws them,
+``convert.params_from_jax`` carries them over.  The JAX model runs with
+``attn_impl="ref"`` and with ``"interpret"``
 (its Pallas flash kernel executed in Python); the port runs on the CPU,
 where attention takes its plain version.  Tokens come from a numpy seed.
 
@@ -13,8 +17,8 @@ in float32 and differ only in summation order and in the ulps of
 ``pow``/``exp``/``rsqrt`` between XLA-CPU and PyTorch; a missed transpose
 or a wrong RoPE convention moves the logits by O(1e-2) or more.
 
-Also here: the port's configs and layers against the JAX package's, the
-initialisers' distributions, and the families that raise.
+Also here: the port's configs and layers against the JAX package's and the
+initialisers' distributions.
 """
 
 import dataclasses
@@ -44,15 +48,21 @@ from repro_torch.models.model import build_model  # noqa: E402
 TOL = dict(rtol=2e-4, atol=2e-4)
 ARCH = "phi4-mini-3.8b"
 B, S, GEN = 2, 20, 4  # prompt S; decode GEN steps past it
+#: The moe, vlm and audio configs, beside phi4-mini in the whole-model tests.
+FAMILY_ARCHS = ("mixtral-8x7b", "qwen3-moe-235b-a22b", "internvl2-1b", "whisper-base")
+#: (arch, attn_impl) cases: phi4-mini's keep their ids, "ref" and "interpret".
+CASES = [pytest.param(ARCH, impl, id=impl) for impl in ("ref", "interpret")] + [
+    pytest.param(arch, impl, id=f"{arch}-{impl}")
+    for arch in FAMILY_ARCHS for impl in ("ref", "interpret")]
 
 
 @functools.lru_cache(maxsize=None)
-def _models(attn_impl):
-    cfg_j = jconfigs.smoke_config(ARCH)
+def _models(attn_impl, arch=ARCH):
+    cfg_j = jconfigs.smoke_config(arch)
     jm = jax_build_model(cfg_j, JaxOptions(activation_dtype="float32", remat="none",
                                            attn_impl=attn_impl))
     params_j = jm.init(jax.random.PRNGKey(0))
-    cfg_t = tconfigs.smoke_config(ARCH)
+    cfg_t = tconfigs.smoke_config(arch)
     tm = build_model(cfg_t, ModelOptions(activation_dtype="float32"), device="cpu")
     params_t = params_from_jax(jax.tree.map(np.asarray, params_j), cfg_t, device="cpu")
     return jm, params_j, tm, params_t
@@ -60,6 +70,27 @@ def _models(attn_impl):
 
 def _tokens(cfg, b, s, seed=1):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def _batches(cfg, toks, seed=1):
+    """``{"tokens"}`` and, for a vlm or audio config, its patches or frames
+    (numpy normals times 0.05), as JAX arrays and as tensors."""
+    batch = {"tokens": toks}
+    rng = np.random.default_rng(seed + 100)
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.standard_normal((toks.shape[0], cfg.n_patches, cfg.d_model))
+    if cfg.family == "audio":
+        batch["frames"] = rng.standard_normal((toks.shape[0], cfg.encoder_seq, cfg.d_model))
+    batch = {k: v if k == "tokens" else (v * 0.05).astype(np.float32) for k, v in batch.items()}
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()})
+
+
+def _cache_pairs(cfg, ct, cj):
+    """(port tensor, JAX array) of every K/V cache leaf, layer by layer."""
+    kinds = ("self", "cross") if cfg.family == "audio" else ("sub0",)
+    return [(block[kind][name], cj["blocks"][kind][name][i])
+            for i, block in enumerate(ct["blocks"]) for kind in kinds for name in ("k", "v")]
 
 
 def _close(got, want):
@@ -85,13 +116,6 @@ def test_phi4_mini_parameter_count():
     params = model.init(torch.Generator().manual_seed(0))
     n = sum(t.numel() for t in jax.tree.leaves(params, is_leaf=torch.is_tensor))
     assert n == small.param_count()
-
-
-@pytest.mark.parametrize("family", ["moe", "vlm", "audio"])
-def test_unported_families_raise_naming_the_roadmap(family):
-    cfg = tconfigs.smoke_config(ARCH).scaled(family=family, layer_pattern=("attn",))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue A item"):
-        build_model(cfg, device="cpu")
 
 
 # ------------------------------------------------------------------- layers
@@ -134,18 +158,21 @@ def test_initialisers_draw_the_jax_distributions():
 
 
 # ------------------------------------------------------------- whole model
-@pytest.mark.parametrize("attn_impl", ["ref", "interpret"])
-def test_prefill_logits_and_caches_match_the_jax_model(attn_impl):
-    jm, params_j, tm, params_t = _models(attn_impl)
-    toks = _tokens(tm.cfg, B, S)
-    lj, cj = jm.prefill_fn(params_j, {"tokens": jnp.asarray(toks)}, max_len=S + GEN)
-    lt, ct = tm.prefill_fn(params_t, {"tokens": torch.from_numpy(toks)}, max_len=S + GEN)
-    assert lt.shape == (B, tm.cfg.vocab_size)
+@pytest.mark.parametrize("arch, attn_impl", CASES)
+def test_prefill_logits_and_caches_match_the_jax_model(arch, attn_impl):
+    jm, params_j, tm, params_t = _models(attn_impl, arch)
+    cfg = tm.cfg
+    bj, bt = _batches(cfg, _tokens(cfg, B, S))
+    lj, cj = jm.prefill_fn(params_j, bj, max_len=S + GEN)
+    lt, ct = tm.prefill_fn(params_t, bt, max_len=S + GEN)
+    assert lt.shape == (B, cfg.vocab_size)
     _close(lt, lj)
-    for i, block in enumerate(ct["blocks"]):
-        assert block["sub0"]["k"].shape == (B, tm.cfg.n_kv_heads, S + GEN, tm.cfg.head_dim)
-        for name in ("k", "v"):
-            _close(block["sub0"][name], cj["blocks"]["sub0"][name][i])
+    capacity = min(S + GEN, cfg.window) if cfg.window else S + GEN
+    self_kind = "self" if cfg.family == "audio" else "sub0"
+    for block in ct["blocks"]:
+        assert block[self_kind]["k"].shape == (B, cfg.n_kv_heads, capacity, cfg.head_dim)
+    for got, want in _cache_pairs(cfg, ct, cj):
+        _close(got, want)
 
 
 @functools.lru_cache(maxsize=None)
@@ -178,16 +205,17 @@ def test_bf16_prefill_logits_match_the_jax_model(attn_impl):
     np.testing.assert_allclose(lt.double().numpy(), np.asarray(lj, np.float64), rtol=0, atol=1e-2)
 
 
-@pytest.mark.parametrize("attn_impl", ["ref", "interpret"])
-def test_teacher_forced_decode_matches_the_jax_model(attn_impl):
+@pytest.mark.parametrize("arch, attn_impl", CASES)
+def test_teacher_forced_decode_matches_the_jax_model(arch, attn_impl):
     """Prefill S - 3 tokens, then decode the next GEN + 3 given tokens, past
-    the prefill length: the logits of every step agree."""
-    jm, params_j, tm, params_t = _models(attn_impl)
+    the prefill length (and, for mixtral, past its window of 16): the logits
+    of every step agree."""
+    jm, params_j, tm, params_t = _models(attn_impl, arch)
     toks = _tokens(tm.cfg, B, S + GEN, seed=2)
     p0 = S - 3
-    lj, cj = jm.prefill_fn(params_j, {"tokens": jnp.asarray(toks[:, :p0])}, max_len=S + GEN)
-    lt, ct = tm.prefill_fn(params_t, {"tokens": torch.from_numpy(toks[:, :p0])},
-                           max_len=S + GEN)
+    bj, bt = _batches(tm.cfg, toks[:, :p0], seed=2)
+    lj, cj = jm.prefill_fn(params_j, bj, max_len=S + GEN)
+    lt, ct = tm.prefill_fn(params_t, bt, max_len=S + GEN)
     _close(lt, lj)
     decode_j = jax.jit(jm.decode_fn)
     for t in range(p0, S + GEN):
@@ -206,6 +234,17 @@ def test_generate_gives_the_jax_models_greedy_ids():
                           timings=timings)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert timings["prefill_s"] > 0 and timings["decode_s"] > 0
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_generate_gives_the_jax_models_greedy_ids_for_the_other_families(arch):
+    """As the test above, for the moe, vlm and audio configs (the prompt's
+    patches or frames in the batch)."""
+    jm, params_j, tm, params_t = _models("ref", arch)
+    bj, bt = _batches(tm.cfg, _tokens(tm.cfg, B, S, seed=3), seed=3)
+    want = jax_generate(jm, params_j, bj, gen_len=6)
+    got = tserve.generate(tm, params_t, bt, gen_len=6)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_serve_main_runs_on_the_cpu(capsys):
