@@ -318,6 +318,22 @@ raises, and the exit code is not 0):
     launches and the last logits within twice plain bf16's distance to the
     float32 ones; (e) the smoke mixtral, qwen3-moe, internvl2 and whisper,
     CPU against card, as (d) of phase 29.
+32. the mesh paths on a 1-rank ``nccl`` group started on a ``HashStore``
+    (no network) and its ``(1, 1)`` ``("data", "model")`` mesh: (a) phase 3's
+    fused lane through ``run_sweep(shard=True)`` on the seed axis, then the
+    rate axis: exactly 2000 alloc launches each (counted from zero) and the
+    stats equal to phase 3's bit for bit; (b) phi4-mini at its published
+    widths with ``MESH_LAYERS`` (2) of 32 layers, built and stepped as
+    ``launch/train.py`` does (``train_options``, ``make_step``,
+    ``shard_state``, ``shard_batch``: bf16, remat, the step donated), its
+    parameters and moments DTensors on the mesh, ``MESH_STEPS`` (3) steps on
+    batches of 2 x 1024 from the stream, against the plain step from the
+    same init: the losses, grad norms and every parameter bit for bit; ms a
+    step each way and the peak GB; (c) at smoke size, ``ragged`` on the mesh
+    against ``ragged_local`` (smoke qwen3-moe) bit for bit, and the smoke
+    phi4-mini's state as DTensors saved by ``checkpoint.save`` and restored
+    into zeroed DTensors bit for bit (no full-width checkpoint: phase 29
+    writes 34.1 GB of the call's 45 GiB); then the group is destroyed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -3407,6 +3423,180 @@ def phase_families(flash, ref, ssd_kernel, rglru_kernel, alloc, card, device) ->
     return out
 
 
+MESH_LAYERS, MESH_STEPS = 2, 3  # phase 32 (b): phi4-mini's depth cut, steps
+
+
+def _mesh_sweeps(alloc, sweeps, fused, card, device) -> dict:
+    """Phase 32 (a): phase 3's fused lane through ``run_sweep(shard=True)``
+    on the 1-rank group, on the seed axis and then the rate axis."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for axis in sweeps.SHARD_AXES:
+        torch.cuda.synchronize()
+        alloc.LAUNCHES = 0
+        res = sweeps.run_sweep(fused.spec, shard=True, shard_axis=axis, device=device)
+        torch.cuda.synchronize()
+        launches = alloc.LAUNCHES
+        same = all(np.array_equal(res.stats[name][m], fused.stats[name][m])
+                   for name in fused.stats for m in fused.stats[name])
+        print(f"phase 32 (a): fused lane sharded over {axis} on the 1-rank group: {launches} "
+              f"alloc launches, == phase 3's fused lane bit for bit: {same}, wall "
+              f"{res.wall_s:.3f} s (phase 3: {fused.wall_s:.3f} s), sharded {res.sharded}",
+              flush=True)
+        want = 2 * fused.spec.n_jobs
+        assert launches == want, f"sharded fused lane launched {launches} times, not {want}"
+        assert same and res.sharded and res.record()["sharded"], axis
+        out[axis] = {"launches": launches, "equal": same, "wall_s": res.wall_s}
+    return out
+
+
+def _mesh_train(card, device, mesh) -> dict:
+    """Phase 32 (b): phi4-mini at its published widths, ``MESH_LAYERS``
+    layers, built and stepped as ``launch/train.py`` does it (bf16, remat,
+    the step donated), its parameters and moments DTensors on the ``(1, 1)``
+    mesh, against the plain step from the same init: losses, grad norms and
+    every parameter bit for bit."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_stream_for
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import init_opt_state
+
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=MESH_LAYERS)
+    stream = make_stream_for(cfg, TRAIN_SEQ, TRAIN_BATCH)
+    runs = {}
+    for way in ("plain", "mesh"):
+        model = build_model(cfg, tlaunch.train_options(False, mesh if way == "mesh" else None),
+                            device=device)
+        step_fn = tlaunch.make_step(model, steps=MESH_STEPS)
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        opt_state = init_opt_state(params)
+        if way == "mesh":
+            params, opt_state = tlaunch.shard_state(params, opt_state, cfg, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        log, ms = [], []
+        for step in range(MESH_STEPS):
+            batch = {k: torch.as_tensor(v, device=device) for k, v in stream.batch(step).items()}
+            if way == "mesh":
+                batch = tlaunch.shard_batch(batch, mesh)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, m = step_fn(params, opt_state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            log.append((m["loss"], m["grad_norm"]))
+        leaf = _leaves(params)[0]
+        assert (way == "mesh") == isinstance(leaf, DTensor), way
+        runs[way] = {"log": log, "ms": ms, "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9,
+                     "params": [t.to_local() if isinstance(t, DTensor) else t
+                                for t in _leaves(params)],
+                     "placements": sorted({str(tuple(t.placements)) for t in _leaves(params)
+                                           if isinstance(t, DTensor)})}
+        del params, opt_state, model, step_fn
+        torch.cuda.empty_cache()
+    plain, sharded = runs["plain"], runs["mesh"]
+    losses_eq = all(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+                    for a, b in zip(plain["log"], sharded["log"], strict=True))
+    params_eq = all(torch.equal(a, b) for a, b in zip(plain["params"], sharded["params"],
+                                                      strict=True))
+    worst = max(_rel_norm(b, a) for a, b in zip(plain["params"], sharded["params"]))
+    for way, run in runs.items():
+        print(f"phase 32 (b): {cfg.name} {MESH_LAYERS} of 32 layers, bf16, remat, batch "
+              f"{TRAIN_BATCH} x {TRAIN_SEQ}, {way}: losses "
+              f"{[round(l.item(), 6) for l, _ in run['log']]}, ms a step "
+              f"{[round(t, 1) for t in run['ms']]}, peak {run['peak_gb']:.2f} GB on {card}",
+              flush=True)
+    print(f"phase 32 (b): the mesh step (placements {sharded['placements']}) == the plain "
+          f"step: losses and grad norms {losses_eq}, {len(plain['params'])} parameters "
+          f"{params_eq} (largest relative gap {worst:.3e})", flush=True)
+    assert losses_eq and params_eq, (losses_eq, params_eq, worst)
+    return {"layers": MESH_LAYERS, "steps": MESH_STEPS,
+            "losses": [l.item() for l, _ in plain["log"]],
+            "grad_norms": [g.item() for _, g in plain["log"]],
+            "ms": {w: r["ms"] for w, r in runs.items()},
+            "step_ms": {w: sorted(r["ms"][1:])[len(r["ms"][1:]) // 2] for w, r in runs.items()},
+            "peak_gb": {w: r["peak_gb"] for w, r in runs.items()},
+            "bitwise": losses_eq and params_eq}
+
+
+def _mesh_smoke(card, device, mesh) -> dict:
+    """Phase 32 (c): ``ragged`` on the 1-rank mesh against ``ragged_local``
+    (smoke qwen3-moe) bit for bit, and a DTensor checkpoint of the smoke
+    phi4-mini's state saved and restored bit for bit."""
+    import tempfile
+
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.models import moe
+    from repro_torch.models.common import ParallelConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import init_opt_state
+    from repro_torch.train.tree import tree_map
+
+    cfg = smoke_config("qwen3-moe-235b-a22b")
+    gen = torch.Generator(device=device).manual_seed(5)
+    p = moe.moe_init(gen, cfg)
+    x = torch.randn(8, 16, cfg.d_model, generator=gen, device=device)
+    par = ParallelConfig(mesh, ("data",), "model")
+    y, aux = moe.moe_apply(p, x, cfg, impl="ragged", parallel=par)
+    y_l, aux_l = moe.moe_apply(p, x, cfg, impl="ragged_local")
+    moe_eq = torch.equal(y.full_tensor(), y_l) and torch.equal(aux.full_tensor(), aux_l)
+
+    pcfg = smoke_config(TRAIN_ARCH)
+    params = build_model(pcfg, device=device).init(torch.Generator(device=device).manual_seed(0))
+    opt_state = init_opt_state(params)
+    opt_state["m"] = tree_map(lambda t: torch.randn_like(t), opt_state["m"])
+    state = dict(zip(("params", "opt_state"),
+                     tlaunch.shard_state(params, opt_state, pcfg, mesh)))
+    target = tree_map(lambda t: DTensor.from_local(torch.zeros_like(t.to_local()), mesh,
+                                                   t.placements), state)
+    with tempfile.TemporaryDirectory() as d:
+        checkpoint.save(d, state, step=3)
+        checkpoint.restore(d, target)
+        step = checkpoint.load_manifest(d)["step"]
+    ckpt_eq = all(torch.equal(a.to_local(), b.to_local())
+                  for a, b in zip(_leaves(state), _leaves(target), strict=True))
+    print(f"phase 32 (c): ragged on the 1-rank mesh == ragged_local bit for bit: {moe_eq}; the "
+          f"smoke {TRAIN_ARCH} state as DTensors ({len(_leaves(state))} leaves) saved and "
+          f"restored bit for bit: {ckpt_eq} (manifest step {step}); on {card}", flush=True)
+    assert moe_eq and ckpt_eq and step == 3, (moe_eq, ckpt_eq, step)
+    return {"ragged_equal": moe_eq, "checkpoint_equal": ckpt_eq}
+
+
+def phase_mesh(alloc, sweeps, fused, card, device) -> dict:
+    """Phase 32: the mesh paths on a 1-rank ``nccl`` group (a ``HashStore``:
+    no network) and its ``(1, 1)`` ``("data", "model")`` mesh."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as mesh_lib
+
+    t0 = time.perf_counter()
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = mesh_lib.make_mesh((1, 1), ("data", "model"), device_type="cuda")
+        out = {"sweeps": _mesh_sweeps(alloc, sweeps, fused, card, device),
+               "train": _mesh_train(card, device, mesh),
+               "smoke": _mesh_smoke(card, device, mesh)}
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 32: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3508,6 +3698,7 @@ def main() -> int:
     train_s = time.perf_counter() - t_phase
     print(f"phase 29: {train_s:.1f} s", flush=True)
     families = phase_families(flash_attention, ref, ssd_scan, rglru_scan, alloc, card, device)
+    mesh = phase_mesh(alloc, sweeps, dict(results)["quantized-fused"], card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -3651,6 +3842,7 @@ def main() -> int:
         "train_cpu_vs_cuda": train_cpu,
         "train_phase_s": train_s,
         "families": families,
+        "mesh": mesh,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -43,11 +43,15 @@ with each job's true exponent.
 
 ``run_sweep(chunk_seeds=)`` (or ``max_jobs_in_flight=``) runs the seeds in
 sequential chunks on the same per-seed generators, with the same results
-bit for bit.  Every run appends its compact record to :data:`RUN_LOG`,
-which :func:`write_bench_json` flushes (never to the JAX package's
+bit for bit.  ``run_sweep(shard=True)`` splits one grid axis over the ranks
+of the default process group (``shard_axis="seeds"``, or ``"rates"`` for
+wide load grids with few seeds): each rank draws its own seeds' tapes on
+its own device at every rate (the per-seed generators make a part's draw
+exactly the whole draw's), runs its part, and the ranks gather the parts in rank order, so
+every rank returns the whole result, equal to the unsharded run bit for
+bit.  Every run appends its compact record to :data:`RUN_LOG`, which
+:func:`write_bench_json` flushes (never to the JAX package's
 ``BENCH_sweeps.json``).
-
-Not ported yet (ROADMAP.md Queue A, item 10): sharding.
 """
 
 from __future__ import annotations
@@ -61,6 +65,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import engine
 from repro_torch.core.analysis import per_class_mean, seed_axis_stats
@@ -398,6 +403,7 @@ class SweepResult(NamedTuple):
     device_count: int
     device: torch.device
     chunk_seeds: int | None = None
+    sharded: bool = False
 
     def cell_means(self, metric: str | None = None) -> dict:
         """``{rate: {policy: mean-over-seeds}}``; a per-class metric keeps
@@ -427,7 +433,7 @@ class SweepResult(NamedTuple):
                     "spec": dict(self.spec), "cells": cells, "n_seeds": None,
                     "total_jobs": None, "wall_s": self.wall_s, "compile_s": 0.0,
                     "backend": self.backend, "device_count": self.device_count,
-                    "chunk_seeds": self.chunk_seeds, "sharded": False}
+                    "chunk_seeds": self.chunk_seeds, "sharded": self.sharded}
         spec = self.spec._asdict()
         for key in ("scenario_kw", "arm_kw", "stream"):
             spec[key] = [list(kv) for kv in spec[key]]
@@ -447,7 +453,7 @@ class SweepResult(NamedTuple):
             "backend": self.backend,
             "device_count": self.device_count,
             "chunk_seeds": self.chunk_seeds,
-            "sharded": False,
+            "sharded": self.sharded,
         }
 
 
@@ -668,9 +674,103 @@ def write_bench_json(path=BENCH_JSON) -> str:
     return str(path)
 
 
+#: The grid axes :func:`run_sweep` can split over ranks.
+SHARD_AXES = ("seeds", "rates")
+
+
+def _rank_and_world() -> tuple[int, int]:
+    """This rank and the default process group's size; (0, 1) without one."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+class ShardPlan(NamedTuple):
+    """One rank's part of a sharded sweep: its spec (its rates), the seed
+    and rate indices of the whole grid it runs, the axis its stats join the
+    others' on, and its seed-chunk size (None: one chunk)."""
+
+    spec: Sweep
+    seeds: list
+    rates: list
+    axis: int
+    chunk: int | None
+
+
+def shard_plan(spec: Sweep, chunk: int | None, *, rank: int = 0, n: int = 1,
+               shard_axis: str = "seeds") -> ShardPlan:
+    """Rank ``rank`` of ``n``'s part of ``spec``'s grid (``n == 1``: the
+    whole grid).  ``"seeds"``: the seeds padded to a multiple of ``n`` by
+    repeating seed 0, a contiguous ``1/n`` each, chunked within it (a chunk
+    as large as the part is one chunk).  ``"rates"``: the rates padded with
+    ``rates[0]``, a contiguous ``1/n`` each over every seed."""
+    if shard_axis not in SHARD_AXES:
+        raise ValueError(f"shard_axis must be 'seeds' or 'rates', not {shard_axis!r}")
+    S, R = spec.n_seeds, len(spec.rates)
+    if shard_axis == "rates":
+        per = -(-R // n)
+        rates = [i if i < R else 0 for i in range(rank * per, (rank + 1) * per)]
+        if chunk is not None and chunk >= S:
+            chunk = None
+        return ShardPlan(spec._replace(rates=tuple(spec.rates[i] for i in rates)),
+                         list(range(S)), rates, 0, chunk)
+    per = -(-S // n)
+    if chunk is not None and chunk >= per:
+        chunk = None
+    seeds = [i if i < S else 0 for i in range(rank * per, (rank + 1) * per)]
+    return ShardPlan(spec, seeds, list(range(R)), 1, chunk)
+
+
+def merge_parts(spec: Sweep, parts: list, axis: int) -> dict:
+    """The ranks' stats, in rank order, joined on ``axis`` with the padding
+    dropped."""
+    R, S = len(spec.rates), spec.n_seeds
+    return {name: {m: np.concatenate([part[name][m] for part in parts], axis)[:R, :S]
+                   for m in spec.out_names()}
+            for name in spec.policies}
+
+
+def _rate_rows(scn: Scenario, rows: list) -> Scenario:
+    """``scn``'s tapes ``[R, S, ...]`` at the rate rows ``rows``."""
+    idx = torch.as_tensor(rows, device=scn.x0.device)
+
+    def take(t):
+        return None if t is None else t.index_select(0, idx)
+
+    drift = scn.p_drift
+    if drift is not None:  # scalar regimes are shared by every row
+        values = take(drift.values) if engine._per_job_rows(drift) else drift.values
+        drift = PDrift(take(drift.times), values)
+    return scn._replace(x0=take(scn.x0), arrival_times=take(scn.arrival_times), p_drift=drift,
+                        size_factors=take(scn.size_factors), p_hat=take(scn.p_hat),
+                        class_ids=take(scn.class_ids), p_job=take(scn.p_job))
+
+
+def _run_part(spec: Sweep, plan: ShardPlan, dev) -> dict:
+    """``plan``'s stats: its seeds' tapes drawn on ``dev`` at every rate of
+    ``spec``, a chunk at a time, and its rates' rows taken (a draw at fewer
+    rates need not round alike: on the card a cumulative sum over ``[R, M]``
+    rows depends on ``R``)."""
+    seeds = plan.seeds
+    step = plan.chunk or len(seeds)
+    parts = []
+    for s0 in range(0, len(seeds), step):
+        scn = draw_scenario(spec, seeds=seeds[s0:s0 + step], device=dev)
+        if plan.rates != list(range(len(spec.rates))):
+            scn = _rate_rows(scn, plan.rates)
+        parts.append(simulate_cells(  # .cpu() synchronizes
+            plan.spec, scn.x0, scn.arrival_times, p_drift=scn.p_drift,
+            size_factors=scn.size_factors, p_hat=scn.p_hat, class_ids=scn.class_ids,
+            p_job=scn.p_job, device=dev,
+        ))
+    return {name: {m: np.concatenate([part[name][m] for part in parts], 1)
+                   for m in spec.out_names()}
+            for name in spec.policies}
+
+
 def run_sweep(
     spec: Sweep, *, chunk_seeds: int | None = None, max_jobs_in_flight: int | None = None,
-    device="cuda",
+    shard: bool = False, shard_axis: str = "seeds", device="cuda",
 ) -> SweepResult:
     """Execute a :class:`Sweep` on ``device``; the wall time covers the
     tapes' draw and every policy's batched run, synchronized.
@@ -678,30 +778,29 @@ def run_sweep(
     ``chunk_seeds`` / ``max_jobs_in_flight`` run the seeds in sequential
     chunks (a chunk of one size or more than the seeds is one chunk, as in
     the JAX sweep), each drawing its seeds' own tapes: the results are the
-    unchunked ones bit for bit.  The run's record goes to :data:`RUN_LOG`.
+    unchunked ones bit for bit.
+
+    ``shard=True`` splits ``shard_axis`` over the ranks of the default
+    process group (:func:`shard_plan`; every rank calls ``run_sweep``, and
+    without a group it is the one-device run).  The parts are gathered in
+    rank order (``all_gather_object``), so every rank returns the whole
+    result.  The run's record goes to :data:`RUN_LOG`.
     """
+    if shard_axis not in SHARD_AXES:
+        raise ValueError(f"shard_axis must be 'seeds' or 'rates', not {shard_axis!r}")
     dev = resolve_device(device)
     on_cuda = dev.type == "cuda"
-    chunk = resolve_chunk(spec, chunk_seeds, max_jobs_in_flight)
-    if chunk is not None and chunk >= spec.n_seeds:
-        chunk = None
-    step = chunk or spec.n_seeds
+    rank, n = _rank_and_world() if shard else (0, 1)
+    plan = shard_plan(spec, resolve_chunk(spec, chunk_seeds, max_jobs_in_flight), rank=rank,
+                      n=n, shard_axis=shard_axis if shard else "seeds")
     if on_cuda:
         torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
-    parts = []
-    for s0 in range(0, spec.n_seeds, step):
-        scn = draw_scenario(spec, seeds=range(s0, min(s0 + step, spec.n_seeds)), device=dev)
-        parts.append(simulate_cells(  # .cpu() synchronizes
-            spec, scn.x0, scn.arrival_times, p_drift=scn.p_drift,
-            size_factors=scn.size_factors, p_hat=scn.p_hat, class_ids=scn.class_ids,
-            p_job=scn.p_job, device=dev,
-        ))
-    stats = {
-        name: {m: np.concatenate([part[name][m] for part in parts], 1)
-               for m in spec.out_names()}
-        for name in spec.policies
-    }
+    parts = [_run_part(spec, plan, dev)]
+    if shard and dist.is_available() and dist.is_initialized():
+        local, parts = parts[0], [None] * n
+        dist.all_gather_object(parts, local)
+    stats = merge_parts(spec, parts, plan.axis)
     wall_s = time.perf_counter() - t0
     result = SweepResult(
         spec=spec,
@@ -710,7 +809,8 @@ def run_sweep(
         backend=dev.type,
         device_count=torch.cuda.device_count() if on_cuda else 1,
         device=dev,
-        chunk_seeds=chunk,
+        chunk_seeds=plan.chunk,
+        sharded=shard,
     )
     log_record(result.record())
     return result
@@ -723,6 +823,8 @@ __all__ = [
     "RUN_LOG",
     "RUN_LOG_MAX",
     "SCALAR_METRICS",
+    "SHARD_AXES",
+    "ShardPlan",
     "STREAM_KEYS",
     "STREAM_METRICS",
     "Sweep",
@@ -730,9 +832,11 @@ __all__ = [
     "bench_records",
     "draw_scenario",
     "log_record",
+    "merge_parts",
     "provenance",
     "resolve_chunk",
     "run_sweep",
+    "shard_plan",
     "simulate_cells",
     "write_bench_json",
 ]

@@ -25,6 +25,13 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def is_dtensor(t) -> bool:
+    """Whether ``t`` is a DTensor: a tensor placed on a device mesh."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def as_tensor(a, device: torch.device, dtype: torch.dtype = DTYPE) -> torch.Tensor:
     """``a`` (array-like or tensor) as a ``dtype`` tensor on ``device``."""
     return torch.as_tensor(a, dtype=dtype, device=device)

@@ -28,6 +28,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import apply_attn, attn_init
+from repro_torch.models.common import constrain_batch
 from repro_torch.models.layers import (
     embed_init,
     embed_lookup,
@@ -90,6 +91,7 @@ def encode(params, frames: torch.Tensor, *, cfg, opts) -> torch.Tensor:
                                       device=frames.device).to(frames.dtype)
     zero_pos = torch.zeros(frames.shape[1], dtype=torch.int32, device=frames.device)
     for bp in params["enc_blocks"]:
+        x = constrain_batch(x, opts.parallel)
         out, _ = apply_attn(bp["attn"], _ln(x, bp["norm"]), cfg=cfg, positions=zero_pos,
                             causal=False, use_rope=False, impl=opts.attn_impl,
                             return_cache=False)
@@ -103,6 +105,7 @@ def _dec_block(bp, x, *, cfg, opts, mode, positions, enc_out, cache, cache_lengt
     """One decoder block.  Returns ``(x, {"self", "cross"})``, the caches
     None in training."""
     want = mode != "train"
+    x = constrain_batch(x, opts.parallel)
     out, sc = apply_attn(
         bp["self_attn"], _ln(x, bp["norm"]), cfg=cfg, positions=positions, use_rope=False,
         impl=opts.attn_impl, cache=None if cache is None else cache["self"],

@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import is_dtensor
+
 
 # ---------------------------------------------------------------- init utils
 def uniform_scale_init(
@@ -118,10 +120,26 @@ def gelu_mlp(p, x: torch.Tensor) -> torch.Tensor:
 
 
 # ----------------------------------------------------------- embedding/logits
+def replicated(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor gathered whole onto every rank of its mesh (its gradient
+    goes back to the shards); any other tensor as it is."""
+    from torch.distributed.tensor import Replicate
+
+    if is_dtensor(t) and any(not p.is_replicate() for p in t.placements):
+        return t.redistribute(t.device_mesh, [Replicate()] * t.device_mesh.ndim)
+    return t
+
+
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return F.embedding(tokens, table).to(dtype)
+    """The rows of ``table`` at ``tokens``.  A sharded DTensor table is
+    gathered whole first: DTensor's vocab-sharded gather fails on a table
+    sharded over two mesh dims with the tokens over the data axes."""
+    return F.embedding(tokens, replicated(table)).to(dtype)
 
 
 def logits_from_embed(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``x @ table.T``: logits over the vocabulary."""
-    return F.linear(x, table.to(x.dtype))
+    """``x @ table.T``: logits over the vocabulary.  A sharded DTensor table
+    is gathered whole first, so the logits keep x's placements with the
+    vocabulary whole (DTensor's gather for the cross entropy fails on
+    vocab-sharded logits)."""
+    return F.linear(x, replicated(table).to(x.dtype))

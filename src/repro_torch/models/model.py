@@ -26,7 +26,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec
-from repro_torch.models.common import ModelOptions
+from repro_torch.models.common import ModelOptions, constrain_batch
 from repro_torch.models.layers import embed_init, embed_lookup, logits_from_embed, rms_norm
 from repro_torch.models.layers import uniform_scale_init
 from repro_torch.models.transformer import stack_apply, stack_init
@@ -94,6 +94,7 @@ def _build_decoder_only(cfg: ModelConfig, opts: ModelOptions, device: torch.devi
         x = embed_lookup(params["embed"], tokens, adt)
         if patch_embeds is not None:
             x = splice_patches(x, torch.as_tensor(patch_embeds, device=device))
+        x = constrain_batch(x, opts.parallel)
         if mode == "decode":  # filled on the device: no host-to-device copy, no sync
             positions = torch.full((1,), cache_length, dtype=torch.int32, device=device)
         else:

@@ -28,7 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.attention import apply_attn, attn_init, cache_capacity
-from repro_torch.models.common import ModelOptions
+from repro_torch.models.common import ModelOptions, constrain_batch, constrain_seq
 from repro_torch.models.layers import rms_norm, swiglu, swiglu_init
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rglru import rg_apply, rg_init
@@ -100,7 +100,7 @@ def _apply_sublayer(sp, x, kind, *, cfg, opts: ModelOptions, mode, positions, ca
     if _has_mlp(cfg):
         h = rms_norm(x, sp["mlp_norm"], cfg.norm_eps)
         if cfg.n_experts:
-            out, aux = moe_apply(sp["mlp"], h, cfg, impl=opts.moe_impl)
+            out, aux = moe_apply(sp["mlp"], h, cfg, impl=opts.moe_impl, parallel=opts.parallel)
         else:
             out = swiglu(sp["mlp"], h)
         x = x + out
@@ -128,6 +128,12 @@ def _block_apply(bp, x, kinds, *, cfg, opts, mode, positions, caches, cache_leng
     aux)``, ``aux`` the sum of their load-balance losses, float32."""
     new_caches = {}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if opts.seq_shard and mode == "train":
+        # Block inputs are what remat saves: sharding them over the model
+        # axis (sequence parallelism) divides saved-activation memory by TP.
+        x = constrain_seq(x, opts.parallel)
+    else:
+        x = constrain_batch(x, opts.parallel)
     for i, kind in enumerate(kinds):
         name = f"sub{i}"
         c = caches[name] if caches is not None else None
@@ -135,6 +141,7 @@ def _block_apply(bp, x, kinds, *, cfg, opts, mode, positions, caches, cache_leng
             bp[name], x, kind, cfg=cfg, opts=opts, mode=mode, positions=positions, cache=c,
             cache_length=cache_length, prefill_capacity=prefill_capacity,
         )
+        x = constrain_batch(x, opts.parallel)
         if aux_i is not None:
             aux = aux + aux_i
     return x, new_caches, aux

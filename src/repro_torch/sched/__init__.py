@@ -2,7 +2,7 @@
 decision epochs, whole-chip quantization and slice snapping, online
 p-estimation and straggler detection.  Port of ``repro.sched``;
 ``sched/elastic.py``, which drives training jobs, waits for ROADMAP.md
-Queue A items 8 and 10."""
+Queue A item 10c."""
 
 from repro_torch.sched.cluster import ClusterScheduler, Job
 from repro_torch.sched.estimator import SpeedupEstimator, blended_p, pooled_p_hat

@@ -28,7 +28,7 @@ a kernel: the rules run without ``fused=``, as the reference's do.
 The reference delegates only under ``jax_enable_x64``; the port always runs
 float64 (``device.DTYPE``), so that clause is gone (ROADMAP.md Queue C).
 ``sched/elastic.py``, which drives training jobs through
-``report_progress``, waits for ROADMAP.md Queue A items 8 and 10.
+``report_progress``, waits for ROADMAP.md Queue A item 10c.
 """
 
 from __future__ import annotations

@@ -7,6 +7,11 @@ dtype where it uses them, so gradients arrive in float32).  The moments are
 float32 and shaped like the parameters.  The state is a dict ``{"m", "v",
 "step"}`` (and ``"master"`` with ``keep_master``), ``step`` a 0-d int32
 tensor on the parameters' device.
+
+On a mesh the leaves are DTensors and the same code runs on them: each
+leaf's sum of squares is over the whole tensor (DTensor reduces its
+shards), so :func:`global_norm` is the whole tree's norm, and the in-place
+update writes each rank's shards, keeping every leaf's placements.
 """
 
 from __future__ import annotations

@@ -12,15 +12,25 @@ count, and the loss returned is their mean.  The step's two halves run
 under ``torch.profiler.record_function`` ranges, ``train_step.loss_and_grad``
 and ``train_step.apply_updates``, which a profiler trace reads (free when no
 profiler runs).
+
+Under a mesh the parameters, optimizer state and batch are DTensors
+(``launch/sharding.py::distribute``).  The step then runs under
+``implicit_replication()`` (the tensors the model builds itself join as
+replicated), each gradient is redistributed to its parameter's placements
+(a partial sum becomes the parameter's shards), so the moments and the
+in-place AdamW keep every leaf's placements, and the metrics come back as
+plain tensors, whole on every rank.
 """
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 
 import torch
 from torch.profiler import record_function
 
+from repro_torch.device import is_dtensor
 from repro_torch.train.optimizer import OptimizerConfig, apply_updates, init_opt_state
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 from repro_torch.train.tree import leaves, tree_map
@@ -40,15 +50,41 @@ class TrainConfig:
 
 
 def _split_micro(batch: dict, n: int) -> list[dict]:
-    """``n`` microbatches of ``batch``, each ``1/n`` of its first axis."""
+    """``n`` microbatches of ``batch``, each ``1/n`` of its first axis.  A
+    DTensor is gathered, split, and each microbatch placed as the batch was
+    (DTensor cannot split a dim sharded over more ranks than the split's
+    outer size)."""
     def r(x):
         b = x.shape[0]
         if b % n:
             raise ValueError(f"global batch {b} not divisible by {n} microbatches")
+        if is_dtensor(x):
+            from torch.distributed.tensor import Replicate
+
+            whole = x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+            parts = whole.reshape(n, b // n, *x.shape[1:])
+            return [parts[i].redistribute(x.device_mesh, x.placements) for i in range(n)]
         return x.reshape(n, b // n, *x.shape[1:])
 
     split = {k: r(v) for k, v in batch.items()}
     return [{k: v[i] for k, v in split.items()} for i in range(n)]
+
+
+def _on_mesh(tree) -> bool:
+    """Whether ``tree``'s leaves are DTensors."""
+    return any(is_dtensor(t) for t in leaves(tree))
+
+
+def _plain(t):
+    """A DTensor's whole value as a plain tensor (a collective); else ``t``."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _like_param(g, p):
+    """The gradient ``g`` placed as its parameter ``p``."""
+    if is_dtensor(p) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def make_train_step(model, tc: TrainConfig, *, donate: bool = False):
@@ -69,9 +105,9 @@ def make_train_step(model, tc: TrainConfig, *, donate: bool = False):
     def value_and_grad(params, mb):
         alias = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss, metrics = loss_with_cast(alias, mb)
-        grads = torch.autograd.grad(loss, leaves(alias), allow_unused=True,
-                                    materialize_grads=True)
-        it = iter(grads)
+        flat = leaves(alias)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+        it = iter(_like_param(g, p) for g, p in zip(grads, flat))
         return loss.detach(), metrics, tree_map(lambda _: next(it), alias)
 
     def loss_and_grad(params, batch):
@@ -92,13 +128,19 @@ def make_train_step(model, tc: TrainConfig, *, donate: bool = False):
         return loss, metrics, grads
 
     def train_step(params, opt_state, batch):
-        batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
-        with record_function("train_step.loss_and_grad"):
-            loss, metrics, grads = loss_and_grad(params, batch)
-        with record_function("train_step.apply_updates"):
-            params, opt_state, opt_metrics = apply_updates(params, grads, opt_state,
-                                                           tc.optimizer, inplace=donate)
-        return params, opt_state, {"loss": loss, **metrics, **opt_metrics}
+        batch = {k: v if is_dtensor(v) else torch.as_tensor(v, device=model.device)
+                 for k, v in batch.items()}
+        mesh = _on_mesh(params)
+        if mesh:
+            from torch.distributed.tensor.experimental import implicit_replication
+        with implicit_replication() if mesh else nullcontext():
+            with record_function("train_step.loss_and_grad"):
+                loss, metrics, grads = loss_and_grad(params, batch)
+            with record_function("train_step.apply_updates"):
+                params, opt_state, opt_metrics = apply_updates(params, grads, opt_state,
+                                                               tc.optimizer, inplace=donate)
+        metrics = {"loss": loss, **metrics, **opt_metrics}
+        return params, opt_state, {k: _plain(v) for k, v in metrics.items()}
 
     return train_step
 

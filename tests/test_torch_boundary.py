@@ -56,7 +56,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "launch.train", "train.train_step", "train.optimizer", "train.checkpoint",
                  "train.ft", "train.tree", "data.pipeline", "models.moe", "models.vlm",
                  "models.encdec", "configs.shapes", "configs.mixtral_8x7b",
-                 "configs.qwen3_moe_235b", "configs.internvl2_1b", "configs.whisper_base"):
+                 "configs.qwen3_moe_235b", "configs.internvl2_1b", "configs.whisper_base",
+                 "launch.mesh", "launch.sharding"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["bad"] == []
 
