@@ -334,6 +334,24 @@ raises, and the exit code is not 0):
     phi4-mini's state as DTensors saved by ``checkpoint.save`` and restored
     into zeroed DTensors bit for bit (no full-width checkpoint: phase 29
     writes 34.1 GB of the call's 45 GiB); then the group is destroyed.
+33. gradient compression and the elastic cluster (``phase_elastic``), no
+    kernel launch (the four counts zeroed just before and read just after:
+    all 0): first the reference test's three jobs (sizes 24, 12, 6; p 0.5;
+    j1 int8) through ``ElasticClusterDriver`` on the CPU with no group,
+    then a 1-rank ``nccl`` group on a ``HashStore``: (a) the int8, topk and
+    plain reducers on the smoke phi4-mini's gradient tree, card (the job
+    mesh's ``"data"`` group) against CPU (no group), payloads, means and
+    errors bit for bit; phi4-mini at phase 29's width, depth and options
+    (16 of 32 layers, bf16, remat), ``COMP_STEPS`` (3) int8 data-parallel
+    steps through ``sched/elastic.py``'s step: ms a step, the reducer's
+    share, peak GB, ``|err| <= scale / 2`` (up to float32 rounding,
+    ``INT8_HALF_SCALE_SLACK``); the plain and topk reducers
+    timed leaf by leaf on one more gradient, topk keeping at least k (or
+    every nonzero entry, where a leaf has fewer) and ``kept + err == g``
+    exactly; (b) the three jobs on the card: the
+    1-device row (t 0, 6, 18; total flow 66; no resize) and every step's
+    loss within 1e-5 of the CPU run's, the int8 payloads apart counted;
+    then the group is destroyed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -3597,6 +3615,298 @@ def phase_mesh(alloc, sweeps, fused, card, device) -> dict:
     return out
 
 
+# Phase 33: the reference test's elastic jobs (sizes, p) and the full-width
+# int8 data-parallel steps.
+ELASTIC_SIZES, ELASTIC_P, COMP_STEPS = (24, 12, 6), 0.5, 3
+# |err| <= scale / 2 up to float32 rounding: g / scale is rounded before
+# round-to-integer (|g / scale| <= 127, so 127 * 2^-24 of a unit), and the
+# scale is max |g| times float32(1 / 127) rounded (a clipped |q| = 127 may
+# sit 254 * 2^-24 of a unit from max |g| / scale): |err| / (scale / 2) <=
+# 1 + 508 * 2^-24 < 1 + 2^-15.
+INT8_HALF_SCALE_SLACK = 1 + 2.0**-15
+
+
+def _payload_spy(compression):
+    """Record every int8 payload the reducers draw, on the CPU; returns the
+    list and the function that puts ``_quant_int8`` back."""
+    quant = compression._quant_int8
+    rec = []
+
+    def spy(g):
+        q, scale = quant(g)
+        rec.append(q.cpu())
+        return q, scale
+
+    compression._quant_int8 = spy
+    return rec, lambda: setattr(compression, "_quant_int8", quant)
+
+
+def _compression_smoke(card, device, group) -> dict:
+    """Phase 33 (a): the int8, topk and plain reducers on the smoke
+    phi4-mini's gradient tree (computed on the CPU, with a seeded error
+    state), on the card over the 1-rank group and on the CPU with no group:
+    the int8 payloads, outputs and errors bit for bit."""
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import make_stream_for
+    from repro_torch.models.model import build_model
+    from repro_torch.sched.elastic import JOB_OPTIONS
+    from repro_torch.train import compression
+
+    cfg = smoke_config(TRAIN_ARCH)
+    model = build_model(cfg, JOB_OPTIONS, device="cpu")
+    params = model.init(torch.Generator().manual_seed(33))
+    batch = {k: torch.as_tensor(v) for k, v in make_stream_for(cfg, 32, 4).batch(0).items()}
+    _, grads = _grads(model, params, batch)
+    gen = torch.Generator().manual_seed(34)
+    err = [torch.randn(g.shape, generator=gen) * 0.01 for g in grads]
+    out = {}
+    for scheme in ("int8", "topk", "none"):
+        runs = {}
+        for dev, grp in (("cpu", None), (device, group)):
+            rec, restore = _payload_spy(compression)
+            try:
+                mean, new_e = compression.make_grad_reducer(scheme, grp)(
+                    [g.to(dev, copy=True) for g in grads], [e.to(dev, copy=True) for e in err])
+            finally:
+                restore()
+            runs[str(dev)] = ([t.cpu() for t in mean], [t.cpu() for t in new_e], rec)
+        (mc, ec, qc), (mg, eg, qg) = runs["cpu"], runs[str(device)]
+        means_eq, errs_eq = all(map(torch.equal, mc, mg)), all(map(torch.equal, ec, eg))
+        payloads_eq = len(qc) == len(qg) and all(map(torch.equal, qc, qg))
+        print(f"phase 33 (a): {scheme} reducer on the smoke {cfg.name}'s {len(grads)} gradient "
+              f"leaves, card (1-rank nccl group) vs CPU (no group): means bit for bit "
+              f"{means_eq}, errors {errs_eq}, {len(qg)} int8 payloads {payloads_eq}; on {card}",
+              flush=True)
+        assert means_eq and errs_eq and payloads_eq, (scheme, means_eq, errs_eq, payloads_eq)
+        out[scheme] = {"means_equal": means_eq, "errors_equal": errs_eq,
+                       "payloads": len(qg), "payloads_equal": payloads_eq}
+    return out
+
+
+def _compression_full(card, device, group) -> dict:
+    """Phase 33 (a): phi4-mini at its published widths with phase 29's depth
+    and options (16 of 32 layers, bf16 activations, remat), ``COMP_STEPS``
+    data-parallel int8 steps through ``sched/elastic.py``'s step on the
+    1-rank group: ms a step, the reducer's ms and share, the peak GB, and
+    ``|err| <= scale / 2`` leaf by leaf at the first step (up to float32
+    rounding: ``INT8_HALF_SCALE_SLACK``); then the plain
+    and the topk reducers timed leaf by leaf on one more gradient, topk held
+    to ``k`` kept (every nonzero entry where a leaf has fewer than ``k``)
+    and ``kept + err == g`` exactly on every leaf."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_stream_for
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+    from repro_torch.sched.elastic import make_elastic_step
+    from repro_torch.train import compression
+    from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+    from repro_torch.train.tree import leaves
+
+    full = get_config(TRAIN_ARCH)
+    cfg = full.scaled(n_layers=TRAIN_LAYERS)
+    model = build_model(cfg, ModelOptions(attn_impl="chunked", mixer_impl="chunked",
+                                          activation_dtype="bfloat16", remat="full"),
+                        device=device)
+    stream = make_stream_for(cfg, TRAIN_SEQ, TRAIN_BATCH)
+
+    def batches(step):
+        return {k: torch.as_tensor(v, device=device) for k, v in stream.batch(step).items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    opt, err = init_opt_state(params), compression.init_error_state(params)
+    reduce = compression.make_grad_reducer("int8", group)
+    reduce_ms, half_ratio = [], []
+
+    def timed(grads, errs):
+        scales = None
+        if not reduce_ms:  # the first step: each leaf's scale, for the bound on |err|
+            scales = [torch.clamp_min(torch.amax(torch.abs(g.float() + e)), 1e-12)
+                      * compression.recip32(127) for g, e in zip(leaves(grads), leaves(errs))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reduce(grads, errs)
+        torch.cuda.synchronize()
+        reduce_ms.append((time.perf_counter() - t0) * 1e3)
+        if scales is not None:
+            half_ratio.append(max((torch.amax(torch.abs(e)) / (s / 2)).item()
+                                  for e, s in zip(leaves(out[1]), scales)))
+        return out
+
+    step = make_elastic_step(model, OptimizerConfig(lr=1e-3, warmup_steps=5,
+                                                    total_steps=COMP_STEPS, clip_norm=1.0),
+                             timed, group)
+    step_ms, losses = [], []
+    for i in range(COMP_STEPS):
+        batch = batches(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, err, loss = step(params, opt, err, batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    step_med = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    red_med = sorted(reduce_ms[1:])[len(reduce_ms[1:]) // 2]
+    n_params = sum(t.numel() for t in leaves(params))
+
+    # One more gradient: the plain reducer, then topk, leaf by leaf.
+    _, grads = _grads(model, params, batches(COMP_STEPS))
+    plain_ms = topk_ms = 0.0
+    kept_ok = exact = True
+    for g, e in zip(grads, leaves(err)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compression.plain_psum([g], group)
+        torch.cuda.synchronize()
+        plain_ms += (time.perf_counter() - t0) * 1e3
+        whole = g.float() + e
+        k = max(1, int(g.numel() * 0.1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kept, new_e = compression.compress_psum_topk([g], [e], group)
+        torch.cuda.synchronize()
+        topk_ms += (time.perf_counter() - t0) * 1e3
+        # at least k kept; a leaf with fewer than k nonzero entries (the
+        # embedding's rows of tokens not in the batch are 0) has threshold 0
+        # and keeps them all
+        nz = int(torch.count_nonzero(kept[0]))
+        kept_ok &= nz >= k or nz == int(torch.count_nonzero(whole))
+        exact &= torch.equal(kept[0] + new_e[0], whole)
+        del whole, kept, new_e
+    topk_peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    n_leaves = len(grads)
+    del params, opt, err, grads, model, step
+    torch.cuda.empty_cache()
+    print(f"phase 33 (a): {cfg.name} at published widths, {cfg.n_layers} of {full.n_layers} "
+          f"layers ({n_params} parameters, {n_leaves} leaves), bf16 activations, remat, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {COMP_STEPS} int8 data-parallel steps on the 1-rank group "
+          f"on {card}: losses {[round(x, 6) for x in losses]}, ms a step "
+          f"{[round(t, 1) for t in step_ms]}, the int8 reducer {[round(t, 1) for t in reduce_ms]} "
+          f"ms (median after the first {red_med:.1f} of {step_med:.1f} ms, share "
+          f"{red_med / step_med:.4f}); peak {peak_gb:.2f} GB; |err| / (scale / 2) at most "
+          f"{half_ratio[0]:.7f} over the leaves (bar {INT8_HALF_SCALE_SLACK:.7f}); on one more "
+          f"gradient, leaf by leaf: plain "
+          f"{plain_ms:.1f} ms, topk {topk_ms:.1f} ms (peak {topk_peak_gb:.2f} GB), at least k "
+          f"kept on every leaf {kept_ok}, kept + err == g exactly {exact}", flush=True)
+    assert all(math.isfinite(x) for x in losses), losses
+    assert abs(losses[0] - math.log(cfg.vocab_size)) <= 1.0, losses
+    assert half_ratio[0] <= INT8_HALF_SCALE_SLACK and kept_ok and exact, (
+        half_ratio, kept_ok, exact)
+    return {"layers": cfg.n_layers, "params": n_params, "steps": COMP_STEPS, "losses": losses,
+            "step_ms": step_ms, "reduce_ms": reduce_ms, "step_ms_median": step_med,
+            "reduce_ms_median": red_med, "reduce_share": red_med / step_med,
+            "peak_gb": peak_gb, "err_over_half_scale": half_ratio[0], "plain_ms": plain_ms,
+            "topk_ms": topk_ms, "topk_peak_gb": topk_peak_gb}
+
+
+def _elastic_jobs(cfg):
+    from repro_torch.sched.elastic import ElasticJobConfig
+
+    return [ElasticJobConfig(f"j{i}", cfg, total_steps=s, p=ELASTIC_P, seed=i,
+                             compression="int8" if i == 1 else None)
+            for i, s in enumerate(ELASTIC_SIZES)]
+
+
+def _elastic_run(device, init) -> tuple:
+    """The reference test's three jobs on the chip pool ``[0]`` (the 1-rank
+    group, or one device with none), from ``init``'s parameters: the
+    driver's result, its wall and every int8 payload."""
+    import tempfile
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.sched.elastic import ElasticClusterDriver
+    from repro_torch.train import compression
+    from repro_torch.train.tree import tree_map
+
+    rec, restore = _payload_spy(compression)
+    try:
+        with tempfile.TemporaryDirectory() as ckpt:
+            t0 = time.perf_counter()
+            res = ElasticClusterDriver(
+                _elastic_jobs(smoke_config(TRAIN_ARCH)), [0], ckpt_root=ckpt,
+                params={jid: tree_map(lambda t: t.to(device, copy=True), tree)
+                        for jid, tree in init.items()},  # a job updates its tree in place
+                device=device).run()
+            wall = time.perf_counter() - t0
+    finally:
+        restore()
+    return res, wall, rec
+
+
+def phase_elastic(flash, ssd_kernel, rglru_kernel, alloc, card, device) -> dict:
+    """Phase 33: gradient compression and the elastic cluster on a 1-rank
+    ``nccl`` group (a ``HashStore``: no network).  (a) the reducers card vs
+    CPU, then the full-width int8 data-parallel step (``_compression_smoke``,
+    ``_compression_full``); (b) ``ElasticClusterDriver`` end to end on the
+    1-rank world, against the same run on the CPU with no group (run first,
+    before the group starts): the 1-device row of the reference test (t 0,
+    6, 18; total flow 66; no resize) and the losses within
+    ``TRAIN_CPU_REL``.  No kernel launches: the training path has no kernel
+    (none has a backward) and the scheduler's allocate runs unfused."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import build_model
+    from repro_torch.sched.elastic import JOB_OPTIONS
+
+    t0 = time.perf_counter()
+    flash.LAUNCHES = ssd_kernel.LAUNCHES = rglru_kernel.LAUNCHES = alloc.LAUNCHES = 0
+    cfg = smoke_config(TRAIN_ARCH)
+    init = {f"j{i}": build_model(cfg, JOB_OPTIONS, device="cpu").init(
+        torch.Generator().manual_seed(i)) for i in range(len(ELASTIC_SIZES))}
+    cpu_res, cpu_wall, cpu_q = _elastic_run(torch.device("cpu"), init)
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        from repro_torch.launch import mesh as mesh_lib
+
+        group = mesh_lib.make_job_mesh((0,), device_type="cuda").get_group("data")
+        out = {"reducers": _compression_smoke(card, device, group),
+               "full": _compression_full(card, device, group)}
+        res, wall, card_q = _elastic_run(device, init)
+    finally:
+        dist.destroy_process_group()
+    launches = {"flash": flash.LAUNCHES, "ssd": ssd_kernel.LAUNCHES,
+                "rglru": rglru_kernel.LAUNCHES, "alloc": alloc.LAUNCHES}
+    log = [(a["t"], a["alloc"]) for a in res["allocations"]]
+    want_log = [(0.0, {"j0": 0, "j1": 0, "j2": 1}), (6.0, {"j0": 0, "j1": 1}),
+                (18.0, {"j0": 1})]
+    gaps = {jid: max(abs(a - b) / abs(b) for a, b in zip(res["losses"][jid],
+                                                         cpu_res["losses"][jid], strict=True))
+            for jid in res["losses"]}
+    flips = sum(int((a != b).sum()) for a, b in zip(card_q, cpu_q, strict=True))
+    print(f"phase 33 (b): ElasticClusterDriver, the reference test's jobs (sizes "
+          f"{list(ELASTIC_SIZES)}, p {ELASTIC_P}, j1 int8) on the 1-rank world on {card}: log "
+          f"{log}, total flow {res['total_flow_time']} (CPU {cpu_res['total_flow_time']}), "
+          f"resizes {res['resizes']}; losses first -> last "
+          f"{ {j: (round(v[0], 6), round(v[-1], 6)) for j, v in res['losses'].items()} }, "
+          f"relative gap to the CPU run at every step {gaps} (bar {TRAIN_CPU_REL:g}); "
+          f"{len(card_q)} int8 payloads, {flips} elements apart from the CPU's; wall {wall:.2f} "
+          f"s (CPU {cpu_wall:.2f} s); kernel launches {launches}", flush=True)
+    assert log == want_log and [(a["t"], a["alloc"]) for a in cpu_res["allocations"]] == log
+    assert res["total_flow_time"] == cpu_res["total_flow_time"] == 66.0
+    assert res["resizes"] == {"j0": 0, "j1": 0, "j2": 0}
+    assert max(gaps.values()) <= TRAIN_CPU_REL, gaps
+    assert all(v[-1] < v[0] for v in res["losses"].values()), res["losses"]
+    assert launches == {"flash": 0, "ssd": 0, "rglru": 0, "alloc": 0}, launches
+    out.update(driver={"log": log, "total_flow_time": res["total_flow_time"],
+                       "resizes": res["resizes"], "losses": res["losses"],
+                       "cpu_losses": cpu_res["losses"], "loss_gaps": gaps,
+                       "payloads": len(card_q), "payload_flips": flips, "wall_s": wall,
+                       "cpu_wall_s": cpu_wall},
+               launches=launches, seconds=time.perf_counter() - t0)
+    print(f"phase 33: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -3699,6 +4009,7 @@ def main() -> int:
     print(f"phase 29: {train_s:.1f} s", flush=True)
     families = phase_families(flash_attention, ref, ssd_scan, rglru_scan, alloc, card, device)
     mesh = phase_mesh(alloc, sweeps, dict(results)["quantized-fused"], card, device)
+    elastic = phase_elastic(flash_attention, ssd_scan, rglru_scan, alloc, card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -3721,6 +4032,7 @@ def main() -> int:
         "pool_width_cases": stream["pool_cases"],
         "launches_probe": tel["launches"]["fused_probe"],
         "launches_stream_probe": tel["launches"]["stream_fused_probe"],
+        "launches_elastic": elastic["launches"]["alloc"],
         "ms_fig4": fig["alloc_ms"],
         "plain_ms_fig4": fig["alloc_plain_ms"],
         "bound_ms_fig4": fig["alloc_bound_ms"],
@@ -3753,6 +4065,7 @@ def main() -> int:
         "launches_bf16": bf16_serve["flash_launches"],
         "launches_bf16_hybrid": hybrid_bf16["launches"]["flash"],
         "launches_train": train["launches"]["flash"],
+        "launches_elastic": elastic["launches"]["flash"],
         "launches_families": {a: r["launches"]["flash"] for a, r in families["serve"].items()},
         "launches_families_bf16": {a: r["bf16_launches"] for a, r in families["serve"].items()
                                    if "bf16_launches" in r},
@@ -3772,6 +4085,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd_scan.py:29",
         "launches": ssm_serve["ssd_launches"],
         "launches_bf16": ssm_bf16["launches"]["ssd"],
+        "launches_elastic": elastic["launches"]["ssd"],
         "max_abs_err": ssd_err["float32"]["y"],
         "max_abs_err_bf16": ssd_err["bfloat16"]["y"],
         "max_abs_err_state": ssd_err["float32"]["state"],
@@ -3787,6 +4101,7 @@ def main() -> int:
         "replaces": "src/repro/kernels/rglru_scan.py:32",
         "launches": hybrid_serve["rglru_launches"],
         "launches_bf16": hybrid_bf16["launches"]["rglru"],
+        "launches_elastic": elastic["launches"]["rglru"],
         "max_abs_err": rglru_err["float32"]["y"],
         "max_abs_err_bf16": rglru_err["bfloat16"]["y"],
         "max_abs_err_state": rglru_err["float32"]["state"],
@@ -3843,6 +4158,7 @@ def main() -> int:
         "train_phase_s": train_s,
         "families": families,
         "mesh": mesh,
+        "elastic": elastic,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

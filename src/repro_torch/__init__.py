@@ -23,8 +23,7 @@ The PyTorch/CUDA port of the JAX package ``repro``.  Its paths so far:
   epochs, per event or delegated to the event loop, the speedup
   estimator, whole-chip quantization and straggler detection (``sched/``),
   with the benchmarks' cross-checks against it and the decision-epoch
-  benchmark (``lanes.py``); ``sched/elastic.py`` comes with the multi-device
-  slice;
+  benchmark (``lanes.py``);
 - serving every family of the registry, dense, moe, ssm, hybrid, vlm and
   audio (batched prefill, greedy decode over KV, conv, state and
   cross-attention caches): ``configs/``, ``models/``,
@@ -34,7 +33,13 @@ The PyTorch/CUDA port of the JAX package ``repro``.  Its paths so far:
   hand-written backward (``kernels/chunked.py``; the kernels have no
   backward), remat, AdamW, the train step, checkpoints and fault-tolerant
   restart (``train/``), the synthetic stream (``data/``) and
-  ``launch/train.py``.
+  ``launch/train.py``;
+- the mesh: device meshes, the logical-axis shardings, the sharded train
+  step and checkpoints across mesh shapes (``launch/mesh.py``,
+  ``launch/sharding.py``);
+- the paper end to end: training jobs with gradient compression
+  (``train/compression.py``) resized by the heSRPT ``ClusterScheduler`` at
+  every departure (``sched/elastic.py``, ``launch/cluster_train.py``).
 
 Layout mirrors ``src/repro/``.  Every entry point takes ``device=`` and
 defaults to ``"cuda"``; without a card it raises instead of falling back

@@ -17,6 +17,8 @@ and ``gloo`` on the CPU (:data:`BACKENDS`).
 from __future__ import annotations
 
 import os
+import subprocess
+import time
 
 import torch
 import torch.distributed as dist
@@ -42,6 +44,44 @@ def start_group(device_type: str = "cuda", *, init_method: str | None = None) ->
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank)) % torch.cuda.device_count())
     dist.init_process_group(BACKENDS[device_type], init_method=init_method, rank=rank,
                             world_size=world)
+
+
+def spawn_ranks(cmd: list, n: int, d, *, timeout: float, env: dict | None = None) -> list[str]:
+    """Run ``cmd`` as ranks ``0..n-1`` of one world on the CPU: ``n``
+    subprocesses on one thread each (``OMP_NUM_THREADS=1``), with ``RANK``,
+    ``LOCAL_RANK`` and ``WORLD_SIZE`` set and ``env`` added, each writing to
+    ``d/out{r}`` and ``d/err{r}``.  The rendezvous is the caller's (a file
+    store under ``d`` needs no port).  Returns each rank's stdout.  A rank
+    that fails ends the others; it, or ``timeout`` seconds passing, raises
+    ``RuntimeError`` with the failed ranks' stderr tails."""
+    procs = []
+    try:
+        for r in range(n):
+            rank_env = {**os.environ, **(env or {}), "RANK": str(r), "LOCAL_RANK": str(r),
+                        "WORLD_SIZE": str(n), "OMP_NUM_THREADS": "1"}
+            with open(f"{d}/out{r}", "w") as out, open(f"{d}/err{r}", "w") as err:
+                procs.append(subprocess.Popen(cmd, env=rank_env, stdout=out, stderr=err))
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < timeout:
+            rcs = [p.poll() for p in procs]
+            if all(rc is not None for rc in rcs) or any(rc not in (None, 0) for rc in rcs):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    outs, bad = [], []
+    for r, p in enumerate(procs):
+        with open(f"{d}/out{r}") as out:
+            outs.append(out.read())
+        if p.returncode:
+            with open(f"{d}/err{r}") as err:
+                bad.append(f"rank {r} exited {p.returncode}:\n{err.read()[-4000:]}")
+    if bad:
+        raise RuntimeError(f"{len(bad)} of {n} ranks failed\n" + "\n".join(bad))
+    return outs
 
 
 def _require_group(n: int | None = None) -> None:

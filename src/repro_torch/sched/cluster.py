@@ -27,8 +27,8 @@ a kernel: the rules run without ``fused=``, as the reference's do.
 
 The reference delegates only under ``jax_enable_x64``; the port always runs
 float64 (``device.DTYPE``), so that clause is gone (ROADMAP.md Queue C).
-``sched/elastic.py``, which drives training jobs through
-``report_progress``, waits for ROADMAP.md Queue A item 10c.
+``sched/elastic.py`` drives training jobs through ``allocations`` and
+``report_progress``.
 """
 
 from __future__ import annotations

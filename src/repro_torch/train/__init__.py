@@ -1,7 +1,7 @@
 """Training substrate of the port: the optimizer, the train and serve steps
-(on one device or a mesh), checkpoints across mesh shapes and fault-tolerant
-recovery.  Port of ``repro.train`` (gradient compression comes with
-ROADMAP.md Queue A item 10c)."""
+(on one device or a mesh), checkpoints across mesh shapes, fault-tolerant
+recovery and gradient compression with error feedback
+(``train/compression.py``).  Port of ``repro.train``."""
 
 from repro_torch.train.optimizer import OptimizerConfig, apply_updates, init_opt_state
 from repro_torch.train.train_step import (

@@ -57,7 +57,8 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "train.ft", "train.tree", "data.pipeline", "models.moe", "models.vlm",
                  "models.encdec", "configs.shapes", "configs.mixtral_8x7b",
                  "configs.qwen3_moe_235b", "configs.internvl2_1b", "configs.whisper_base",
-                 "launch.mesh", "launch.sharding"):
+                 "launch.mesh", "launch.sharding", "train.compression", "sched.elastic",
+                 "launch.cluster_train"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["bad"] == []
 
@@ -69,10 +70,10 @@ def _entry_points():
     from repro_torch.core.policies import hesrpt
     from repro_torch.core.estimation import simulate_scenario_estimated
     from repro_torch.core.multiclass import multiclass_sweep, simulate_multiclass
-    from repro_torch.launch import serve, trace_export, train
+    from repro_torch.launch import cluster_train, serve, trace_export, train
     from repro_torch.models.convert import opt_state_from_jax, params_from_jax
     from repro_torch.models.model import build_model
-    from repro_torch.sched import ClusterScheduler
+    from repro_torch.sched import ClusterScheduler, ElasticClusterDriver, ElasticJobConfig
 
     spec = sweeps.Sweep.create(("hesrpt",), (1.0,), n_jobs=4, n_seeds=1)
     stream_spec = sweeps.Sweep.create(("hesrpt",), (1.0,), n_jobs=4, n_seeds=1,
@@ -83,6 +84,9 @@ def _entry_points():
                                   n_jobs=4, n_seeds=1, classes=((0.3, 1.0), (0.7, 1.0)))
     return {
         "ClusterScheduler": lambda: ClusterScheduler(16),
+        "ElasticClusterDriver": lambda: ElasticClusterDriver(
+            [ElasticJobConfig("j0", smoke_config("phi4-mini-3.8b"), total_steps=1)]),
+        "cluster_train_main": lambda: cluster_train.main(["--sizes", "2"]),
         "sched_scale": lambda: lanes.sched_scale(ms=(10,), repeats=1),
         "simulate_multiclass": lambda: simulate_multiclass(
             scenarios.Scenario(torch.tensor(x), torch.tensor(a), class_ids=torch.tensor([0, 1]),

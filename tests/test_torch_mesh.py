@@ -29,7 +29,6 @@ import functools
 import os
 import subprocess
 import sys
-import textwrap
 import time
 from pathlib import Path
 
@@ -57,60 +56,14 @@ from repro_torch.models.convert import params_from_jax  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.train import optimizer, train_step  # noqa: E402
 from repro_torch.train.tree import leaves_with_paths  # noqa: E402
+from torch_ranks import SPAWN_TIMEOUT, run_ranks  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "src"
-SPAWN_TIMEOUT = 120
 STEP_REL, GRAD_REL, MOE_TOL, AUX_TOL, CLI_TOL = 1e-5, 1e-4, 2e-4, 1e-6, 1e-5
 SCALE = dict(d_model=64, d_ff=128, n_heads=4, n_kv_heads=2, head_dim=16)  # the JAX test's
 OCFG = dict(lr=1e-3, warmup_steps=1, total_steps=10)
 SWEEP_RATES = (1.0, 4.0, 8.0)
-
-_PRELUDE = """
-import faulthandler, os, sys
-faulthandler.dump_traceback_later({dump}, exit=True)
-sys.path.insert(0, {src!r})
-import torch
-torch.set_num_threads(1)
-import torch.distributed as dist
-RANK, WORLD = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-D = os.environ["MESH_TEST_DIR"]
-dist.init_process_group("gloo", init_method="file://" + D + "/store", rank=RANK,
-                        world_size=WORLD)
-"""
-
-
-def run_ranks(body: str, n: int, d: Path) -> list[str]:
-    """``body`` on ``n`` ranks, each a fresh interpreter with the default
-    group started; returns each rank's stdout.  Every rank must exit 0
-    within ``SPAWN_TIMEOUT`` seconds; one that fails ends the others."""
-    script = (textwrap.dedent(_PRELUDE).format(dump=SPAWN_TIMEOUT - 5, src=str(SRC))
-              + textwrap.dedent(body))
-    procs = []
-    for r in range(n):
-        env = {**os.environ, "RANK": str(r), "WORLD_SIZE": str(n), "MESH_TEST_DIR": str(d),
-               "OMP_NUM_THREADS": "1", "PYTHONPATH": str(SRC)}
-        out, err = open(d / f"out{r}", "w+"), open(d / f"err{r}", "w+")
-        procs.append((subprocess.Popen([sys.executable, "-c", script], env=env, cwd=d,
-                                       stdout=out, stderr=err), out, err))
-    t0 = time.monotonic()
-    while time.monotonic() - t0 < SPAWN_TIMEOUT:
-        rcs = [p.poll() for p, _, _ in procs]
-        if all(rc is not None for rc in rcs) or any(rc not in (None, 0) for rc in rcs):
-            break
-        time.sleep(0.05)
-    outs, bad = [], []
-    for r, (p, out, err) in enumerate(procs):
-        if p.poll() is None:
-            p.kill()
-        p.wait()
-        out.seek(0)
-        err.seek(0)
-        outs.append(out.read())
-        if p.returncode:
-            bad.append(f"rank {r} rc {p.returncode}:\n{err.read()[-4000:]}")
-    assert not bad, "\n".join(bad)
-    return outs
 
 
 def _np(x) -> np.ndarray:
@@ -620,6 +573,30 @@ def test_a_mesh_needs_a_started_group():
     stand_in = types.SimpleNamespace(shape={"pod": 2, "data": 16, "model": 16})
     assert lm.axis_sizes(stand_in) == {"pod": 2, "data": 16, "model": 16}
     assert lm.data_axes_of(stand_in) == ("pod", "data") and lm.model_axis_of(stand_in) == "model"
+
+
+@pytest.mark.parametrize("failing,timeout", [(1, 60.0), (None, 1.0)])
+def test_spawn_ranks_ends_every_rank_when_one_fails(tmp_path, failing, timeout):
+    """``spawn_ranks`` hands each rank its ``RANK``, ``WORLD_SIZE`` and one
+    thread and returns their stdout; a rank that fails, or a timeout, ends
+    the others at once and raises with the failed ranks' stderr tails."""
+    from repro_torch.launch import mesh as lm
+
+    ok = "import os; print(*(os.environ[k] for k in ('RANK', 'WORLD_SIZE', 'OMP_NUM_THREADS')))"
+    assert lm.spawn_ranks([sys.executable, "-c", ok], 3, tmp_path, timeout=60.0) == [
+        f"{r} 3 1\n" for r in range(3)]
+    hang = ("import os, sys, time\n"
+            f"if os.environ['RANK'] == '{failing}': sys.exit('rank gave up')\n"
+            "time.sleep(600)")
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError) as e:
+        lm.spawn_ranks([sys.executable, "-c", hang], 3, tmp_path, timeout=timeout)
+    assert time.monotonic() - t0 < 30
+    if failing is None:
+        assert "3 of 3 ranks failed" in str(e.value)
+    else:
+        assert "rank 1 exited 1:\nrank gave up" in str(e.value)
+        assert "rank 0 exited -9" in str(e.value) and "rank 2 exited -9" in str(e.value)
 
 
 def _cli_losses(text: str) -> list[float]:
