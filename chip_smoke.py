@@ -179,8 +179,8 @@ raises, and the exit code is not 0):
     (rates 1, 2, 4, 8, 1000 jobs, 10 seeds, 64 slots; heSRPT, SRPT, EQUI on
     the carried-rank stream): wall and windowed mean flows; (d) horizon
     scaling: ``run_stream_source(poisson_source)`` at 32 slots (rate 4, 4
-    servers, p 0.5) over ``STREAM_HORIZONS`` events (16,000 and 64,000 are
-    cut for the time limit): us an event and peak device bytes above the baseline,
+    servers, p 0.5) over ``STREAM_HORIZONS`` events (4,000, 16,000 and
+    64,000 are cut for the time limit): us an event and peak device bytes above the baseline,
     which must not grow with the horizon, beside ``engine.run`` on E/2 jobs;
     (e) the long horizon: at least 50 x 32 jobs through 32 slots, never
     more than 32 in flight, deferrals printed; (f) the smoke stream lanes on
@@ -260,12 +260,12 @@ raises, and the exit code is not 0):
     dk and dv within 2e-5 in relative norm, and fwd + bwd timed beside the
     plain version's; ``ops.attention`` with ``impl="cuda"`` or ``"auto"`` on
     a tensor that requires grad raises; (b) phi4-mini at its published widths with the depth cut
-    from 32 to 16 layers (2.84e9 float32 parameters drawn on the card from a
+    from 32 to 8 layers (2.03e9 float32 parameters drawn on the card from a
     seed), built as ``launch/train.py`` builds it without ``--smoke`` (bf16
     activations, ``remat="full"``, AdamW with 10 warmup steps), batch 2 x
     1024 from ``make_stream_for``, 8 steps on ``run_with_recovery``'s
     schedule with a checkpoint before step 4 and a failure at step 6 (the
-    step donated: the optimizer updates in place; the one 34 GB state is
+    step donated: the optimizer updates in place; the one 24 GB state is
     written to disk by ``checkpoint.save`` and read back in place by
     ``checkpoint.restore``; ``run_with_recovery`` itself would also write the
     step-0 and final states, more than the 45 GiB of disk writes a run of
@@ -333,7 +333,7 @@ raises, and the exit code is not 0):
     against ``ragged_local`` (smoke qwen3-moe) bit for bit, and the smoke
     phi4-mini's state as DTensors saved by ``checkpoint.save`` and restored
     into zeroed DTensors bit for bit (no full-width checkpoint: phase 29
-    writes 34.1 GB of the call's 45 GiB); then the group is destroyed.
+    writes 24.4 GB of the call's 45 GiB); then the group is destroyed.
 33. gradient compression and the elastic cluster (``phase_elastic``), no
     kernel launch (the four counts zeroed just before and read just after:
     all 0): first the reference test's three jobs (sizes 24, 12, 6; p 0.5;
@@ -341,8 +341,8 @@ raises, and the exit code is not 0):
     then a 1-rank ``nccl`` group on a ``HashStore``: (a) the int8, topk and
     plain reducers on the smoke phi4-mini's gradient tree, card (the job
     mesh's ``"data"`` group) against CPU (no group), payloads, means and
-    errors bit for bit; phi4-mini at phase 29's width, depth and options
-    (16 of 32 layers, bf16, remat), ``COMP_STEPS`` (3) int8 data-parallel
+    errors bit for bit; phi4-mini at phase 29's width and options
+    (``COMP_LAYERS``, 16 of 32 layers, bf16, remat), ``COMP_STEPS`` (3) int8 data-parallel
     steps through ``sched/elastic.py``'s step: ms a step, the reducer's
     share, peak GB, ``|err| <= scale / 2`` (up to float32 rounding,
     ``INT8_HALF_SCALE_SLACK``); the plain and topk reducers
@@ -351,7 +351,22 @@ raises, and the exit code is not 0):
     exactly; (b) the three jobs on the card: the
     1-device row (t 0, 6, 18; total flow 66; no resize) and every step's
     loss within 1e-5 of the CPU run's, the int8 payloads apart counted;
-    then the group is destroyed.
+    then the group is destroyed;
+34. the dry-run contract and its tooling (``phase_dryrun``), no kernel
+    launch (the four counts zeroed just before and read just after: all
+    0): (a) ``python -m repro_torch.launch.dryrun`` on ``DRYRUN_CELL``
+    (phi4-mini-3.8b x decode_32k on the single-pod mesh: a fake world of 256
+    ranks in a process of its own, fake tensors, no card): status ``ok``,
+    the analyzer's flops equal to ``FlopCounterMode``'s; flops a device,
+    bytes, collective bytes, temp GB, "fits 80G" and its seconds printed;
+    (b) phi4-mini at its published widths, ``ROOFLINE_LAYERS`` (2) of 32
+    layers, bf16, remat, one 2 x 1024 train step under the trace mode and
+    ``FlopCounterMode`` on the card's tensors: the two flop counts equal,
+    the trace's peak of the step's own bytes beside
+    ``torch.cuda.max_memory_allocated()``; then ``ROOFLINE_STEPS`` (3) steps
+    without the modes, timed, beside ``roofline.model_flops`` (6 N D), the
+    three roofline terms at the H100 figures and the roofline fraction (no
+    bar is set on them).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -420,10 +435,11 @@ RGLRU_TOL = FLASH_TOL
 # Phase 25's horizon scaling. benchmarks/streaming.py's full tier also runs
 # 64,000 events: cut here for the script's time limit (on an H100 at 700 W
 # that horizon alone took 107 s, 1.67 ms an event step of host launches,
-# with the same peak device bytes as the three below). The finite-tape
+# with the same peak device bytes as the three below). 4,000 events (~11 s
+# with the finite-tape comparator) went for phase 34's time. The finite-tape
 # comparator runs at every horizon kept.
-STREAM_HORIZONS = (1_000, 4_000)
-STREAM_HORIZONS_CUT = (16_000, 64_000)
+STREAM_HORIZONS = (1_000, 2_000)
+STREAM_HORIZONS_CUT = (4_000, 16_000, 64_000)
 # The widths the alloc kernel takes in the streaming loop: a pool of slots,
 # padded to at least 32 entries.
 POOL_WIDTHS = (1, 12, 24, 64, 256)
@@ -2620,12 +2636,14 @@ def phase_sched(alloc, lanes, sched, flowtime, policies, card, device) -> dict:
 
 
 # Phase 29: the training path.  phi4-mini at its published widths, depth cut
-# from 32 to 16 layers: its float32 masters, gradients and two moments take
-# 16 B a parameter, 71.2 GB at all 32 layers (4.45e9 parameters) and 45.4 GB
-# at 16 (2.84e9), which leaves room on an 80 GB card for the logits and the
-# optimizer's temporaries.  Batch 2 x 1024 from the synthetic stream; 8 steps
-# through run_with_recovery, a checkpoint every 4, a failure at step 6.
-TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "phi4-mini-3.8b", 16, 2, 1024
+# from 32 to 8 layers: its float32 masters, gradients and two moments take
+# 16 B a parameter, 71.2 GB at all 32 layers (4.45e9 parameters) and 32.5 GB
+# at 8 (2.03e9).  The cut was 16 layers (45.4 GB) until the dry run's phase
+# 34 came: its 34.1 GB checkpoint took ~112 s to save and restore, 24.4 GB
+# at 8 layers.  Batch 2 x 1024 from the
+# synthetic stream; 8 steps through run_with_recovery, a checkpoint every 4,
+# a failure at step 6.
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "phi4-mini-3.8b", 8, 2, 1024
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 4, 6
 # (b, hq, hkv, s, d, window), causal: the attention of phase 29 (b)'s step
 # (phi4-mini) and recurrentgemma's local attention at phase 16's prompt.
@@ -3616,8 +3634,9 @@ def phase_mesh(alloc, sweeps, fused, card, device) -> dict:
 
 
 # Phase 33: the reference test's elastic jobs (sizes, p) and the full-width
-# int8 data-parallel steps.
-ELASTIC_SIZES, ELASTIC_P, COMP_STEPS = (24, 12, 6), 0.5, 3
+# int8 data-parallel steps, at 16 of phi4-mini's 32 layers (2.84e9 float32
+# parameters: one gradient tree and one error tree beside the state).
+ELASTIC_SIZES, ELASTIC_P, COMP_STEPS, COMP_LAYERS = (24, 12, 6), 0.5, 3, 16
 # |err| <= scale / 2 up to float32 rounding: g / scale is rounded before
 # round-to-integer (|g / scale| <= 127, so 127 * 2^-24 of a unit), and the
 # scale is max |g| times float32(1 / 127) rounded (a clipped |q| = 127 may
@@ -3686,8 +3705,8 @@ def _compression_smoke(card, device, group) -> dict:
 
 
 def _compression_full(card, device, group) -> dict:
-    """Phase 33 (a): phi4-mini at its published widths with phase 29's depth
-    and options (16 of 32 layers, bf16 activations, remat), ``COMP_STEPS``
+    """Phase 33 (a): phi4-mini at its published widths with phase 29's
+    options (16 of 32 layers, bf16 activations, remat), ``COMP_STEPS``
     data-parallel int8 steps through ``sched/elastic.py``'s step on the
     1-rank group: ms a step, the reducer's ms and share, the peak GB, and
     ``|err| <= scale / 2`` leaf by leaf at the first step (up to float32
@@ -3707,7 +3726,7 @@ def _compression_full(card, device, group) -> dict:
     from repro_torch.train.tree import leaves
 
     full = get_config(TRAIN_ARCH)
-    cfg = full.scaled(n_layers=TRAIN_LAYERS)
+    cfg = full.scaled(n_layers=COMP_LAYERS)
     model = build_model(cfg, ModelOptions(attn_impl="chunked", mixer_impl="chunked",
                                           activation_dtype="bfloat16", remat="full"),
                         device=device)
@@ -3907,6 +3926,168 @@ def phase_elastic(flash, ssd_kernel, rglru_kernel, alloc, card, device) -> dict:
     return out
 
 
+# Phase 34: the dry run (launch/dryrun.py) on one full-width cell, and the
+# trace analyzer (launch/trace_analysis.py) on a real card step of phi4-mini
+# cut to ROOFLINE_LAYERS layers, bf16, remat, 2 x 1024, timed ROOFLINE_STEPS
+# times without the trace.
+DRYRUN_CELL = ("phi4-mini-3.8b", "decode_32k", "single")
+DRYRUN_TIMEOUT_S = 300
+ROOFLINE_LAYERS, ROOFLINE_STEPS = 2, 3
+
+
+def _dryrun_cell(card) -> dict:
+    """Phase 34 (a): ``python -m repro_torch.launch.dryrun`` on one cell in a
+    process of its own (the dry run starts a fake world of 256 ranks, which
+    is process-global): status ``ok``, the analyzer's flops equal to
+    ``FlopCounterMode``'s, and the record's per-device totals printed."""
+    import os
+    import tempfile
+
+    arch, shape, mesh = DRYRUN_CELL
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out:
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--mesh", mesh, "--out", out],
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT, capture_output=True,
+            text=True, timeout=DRYRUN_TIMEOUT_S)
+        assert run.returncode == 0, run.stderr[-3000:]
+        rec = json.loads((Path(out) / f"{arch}__{shape}__pod16x16__baseline.json").read_text())
+    wall = time.perf_counter() - t0
+    assert rec["status"] == "ok", rec.get("error", rec)
+    assert rec["cost"]["flops"] == rec["cost"]["flop_counter_flops"] > 0, rec["cost"]
+    from repro_torch.launch import roofline
+
+    temp_gb = rec["memory"]["temp_size_in_bytes"] / 1e9
+    arg_gb = rec["memory"]["argument_size_in_bytes"] / 1e9
+    coll = sum(rec["collectives"]["bytes"].values())
+    print(f"phase 34 (a): dry run {arch} x {shape} x {rec['mesh']} ({rec['n_devices']} fake ranks, "
+          f"torch {rec['torch']}): status {rec['status']}, "
+          f"{rec['cost']['flops']:.4e} flops a device (FlopCounterMode "
+          f"{rec['cost']['flop_counter_flops']:.4e}), {rec['cost']['bytes accessed']:.4e} bytes, "
+          f"{coll:.4e} collective bytes {rec['collectives']['counts']}, temp {temp_gb:.2f} GB, "
+          f"arguments {arg_gb:.2f} GB, fits 80G (temp + arguments) "
+          f"{temp_gb + arg_gb < roofline.HBM_GB}; traced in {rec['trace_s']} s "
+          f"({rec['trace_ops']} ops), {wall:.1f} s with the process (the host of {card})",
+          flush=True)
+    return {"record": {k: rec[k] for k in ("arch", "shape", "mesh", "status", "n_devices",
+                                            "torch", "cost", "memory",
+                                            "collectives", "build_s", "trace_s", "trace_ops")},
+            "wall_s": wall}
+
+
+def _roofline_step(card, device) -> dict:
+    """Phase 34 (b): one train step of phi4-mini at full width, cut to
+    ``ROOFLINE_LAYERS`` layers (bf16, remat, the chunked attention; the
+    step donated), under the trace mode and ``FlopCounterMode`` on the
+    card's tensors: the two flop counts equal, the trace's peak of the
+    step's own bytes beside ``torch.cuda.max_memory_allocated()``; then
+    ``ROOFLINE_STEPS`` steps without the modes, timed, beside the roofline
+    terms at the H100 figures."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data.pipeline import make_stream_for
+    from repro_torch.launch import roofline
+    from repro_torch.launch import trace_analysis as ta
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train.optimizer import init_opt_state
+
+    cfg = get_config(TRAIN_ARCH).scaled(n_layers=ROOFLINE_LAYERS)
+    model = build_model(cfg, ModelOptions(attn_impl="chunked", mixer_impl="chunked",
+                                          activation_dtype="bfloat16", remat="full"),
+                        device=device)
+    step_fn = make_train_step(model, TrainConfig(), donate=True)
+    stream = make_stream_for(cfg, TRAIN_SEQ, TRAIN_BATCH)
+
+    def batch(step):
+        return {k: torch.as_tensor(v, device=device) for k, v in stream.batch(step).items()}
+
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    opt_state = init_opt_state(params)
+    first = batch(0)
+    arg_bytes = sum(t.untyped_storage().nbytes() for t in _leaves([params, opt_state, first]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    base = torch.cuda.memory_allocated(device)
+    with FlopCounterMode(display=False) as counter:
+        with ta.TraceMode() as mode:
+            params, opt_state, m = step_fn(params, opt_state, first)
+            loss = m["loss"].item()
+    torch.cuda.synchronize()
+    max_alloc = torch.cuda.max_memory_allocated(device)
+    deep = ta.analyze_trace(mode.trace)
+    n_ops = sum(1 for r in mode.trace if "op" in r)
+    del mode
+    assert deep["flops"] == counter.get_total_flops() > 0, (deep["flops"],
+                                                            counter.get_total_flops())
+    assert math.isfinite(loss)
+    step_s = []
+    for i in range(ROOFLINE_STEPS):
+        b = batch(1 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    del params, opt_state, b, first
+    torch.cuda.empty_cache()
+    measured = sorted(step_s)[len(step_s) // 2]
+    shape = ShapeConfig("phase34", TRAIN_SEQ, TRAIN_BATCH, "train")
+    mf = roofline.model_flops(cfg, shape)
+    terms = {"compute": roofline.compute_seconds(deep), "memory": deep["bytes"] / roofline.HBM_BW,
+             "collective": sum(deep["collective_bytes"].values()) / roofline.LINK_BW}
+    useful = mf / roofline.PEAK_FLOPS
+    out = {"layers": cfg.n_layers, "params": cfg.param_count(), "model_flops": mf,
+           "trace_flops": deep["flops"], "flop_counter_flops": counter.get_total_flops(),
+           "flops_by_dtype": deep["flops_by_dtype"], "bytes": deep["bytes"],
+           "trace_ops": n_ops, "terms_s": terms, "dominant": max(terms, key=terms.get),
+           "step_ms": [t * 1e3 for t in step_s], "measured_ms": measured * 1e3,
+           "roofline_fraction": useful / max(terms.values()),
+           "measured_fraction": useful / measured, "useful_ratio": mf / deep["flops"],
+           "peak_live_bytes": deep["peak_live_bytes"], "argument_bytes": arg_bytes,
+           "allocated_before_bytes": base, "max_memory_allocated": max_alloc}
+    print(f"phase 34 (b): {cfg.name} at published widths, {cfg.n_layers} of 32 layers "
+          f"({out['params']} parameters), bf16, remat, batch {TRAIN_BATCH} x {TRAIN_SEQ} on "
+          f"{card}: trace {n_ops} ops, flops {deep['flops']:.6e} == FlopCounterMode "
+          f"{counter.get_total_flops():.6e} (by dtype {deep['flops_by_dtype']}), bytes "
+          f"{deep['bytes']:.4e}; peak of the step's own bytes {deep['peak_live_bytes'] / 1e9:.2f}"
+          f" GB + arguments {arg_bytes / 1e9:.2f} GB = "
+          f"{(deep['peak_live_bytes'] + arg_bytes) / 1e9:.2f} GB, "
+          f"torch.cuda.max_memory_allocated {max_alloc / 1e9:.2f} GB "
+          f"({base / 1e9:.2f} GB allocated before the step)", flush=True)
+    print(f"phase 34 (b): model_flops 6 N D = {mf:.6e}; roofline terms at 989 / 67 TFLOP/s, "
+          f"3.35 TB/s, 450 GB/s: compute {terms['compute'] * 1e3:.2f} ms, memory "
+          f"{terms['memory'] * 1e3:.2f} ms, collective {terms['collective'] * 1e3:.2f} ms "
+          f"({out['dominant']}); steps {[round(t * 1e3, 1) for t in step_s]} ms, median "
+          f"{measured * 1e3:.1f} ms; useful time at 989 TFLOP/s {useful * 1e3:.2f} ms: roofline "
+          f"fraction {out['roofline_fraction']:.4f} of the dominant term, "
+          f"{out['measured_fraction']:.4f} of the measured step; model / trace flops "
+          f"{out['useful_ratio']:.4f}; on {card}", flush=True)
+    return out
+
+
+def phase_dryrun(flash, ssd_kernel, rglru_kernel, alloc, card, device) -> dict:
+    """Phase 34: the dry-run contract and its tooling: (a) one full-width
+    cell of the dry run, (b) the analyzer and the roofline on a real card
+    step.  No kernel launch: the four counts are zeroed just before and
+    read just after."""
+    t0 = time.perf_counter()
+    flash.LAUNCHES = ssd_kernel.LAUNCHES = rglru_kernel.LAUNCHES = alloc.LAUNCHES = 0
+    cell = _dryrun_cell(card)
+    step = _roofline_step(card, device)
+    launches = {"flash": flash.LAUNCHES, "ssd": ssd_kernel.LAUNCHES,
+                "rglru": rglru_kernel.LAUNCHES, "alloc": alloc.LAUNCHES}
+    print(f"phase 34: kernel launches {launches}", flush=True)
+    assert launches == {"flash": 0, "ssd": 0, "rglru": 0, "alloc": 0}, launches
+    out = {"cell": cell, "step": step, "launches": launches, "seconds": time.perf_counter() - t0}
+    print(f"phase 34: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4010,6 +4191,7 @@ def main() -> int:
     families = phase_families(flash_attention, ref, ssd_scan, rglru_scan, alloc, card, device)
     mesh = phase_mesh(alloc, sweeps, dict(results)["quantized-fused"], card, device)
     elastic = phase_elastic(flash_attention, ssd_scan, rglru_scan, alloc, card, device)
+    dry = phase_dryrun(flash_attention, ssd_scan, rglru_scan, alloc, card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -4033,6 +4215,7 @@ def main() -> int:
         "launches_probe": tel["launches"]["fused_probe"],
         "launches_stream_probe": tel["launches"]["stream_fused_probe"],
         "launches_elastic": elastic["launches"]["alloc"],
+        "launches_dryrun": dry["launches"]["alloc"],
         "ms_fig4": fig["alloc_ms"],
         "plain_ms_fig4": fig["alloc_plain_ms"],
         "bound_ms_fig4": fig["alloc_bound_ms"],
@@ -4066,6 +4249,7 @@ def main() -> int:
         "launches_bf16_hybrid": hybrid_bf16["launches"]["flash"],
         "launches_train": train["launches"]["flash"],
         "launches_elastic": elastic["launches"]["flash"],
+        "launches_dryrun": dry["launches"]["flash"],
         "launches_families": {a: r["launches"]["flash"] for a, r in families["serve"].items()},
         "launches_families_bf16": {a: r["bf16_launches"] for a, r in families["serve"].items()
                                    if "bf16_launches" in r},
@@ -4086,6 +4270,7 @@ def main() -> int:
         "launches": ssm_serve["ssd_launches"],
         "launches_bf16": ssm_bf16["launches"]["ssd"],
         "launches_elastic": elastic["launches"]["ssd"],
+        "launches_dryrun": dry["launches"]["ssd"],
         "max_abs_err": ssd_err["float32"]["y"],
         "max_abs_err_bf16": ssd_err["bfloat16"]["y"],
         "max_abs_err_state": ssd_err["float32"]["state"],
@@ -4102,6 +4287,7 @@ def main() -> int:
         "launches": hybrid_serve["rglru_launches"],
         "launches_bf16": hybrid_bf16["launches"]["rglru"],
         "launches_elastic": elastic["launches"]["rglru"],
+        "launches_dryrun": dry["launches"]["rglru"],
         "max_abs_err": rglru_err["float32"]["y"],
         "max_abs_err_bf16": rglru_err["bfloat16"]["y"],
         "max_abs_err_state": rglru_err["float32"]["state"],
@@ -4159,6 +4345,7 @@ def main() -> int:
         "families": families,
         "mesh": mesh,
         "elastic": elastic,
+        "dryrun": dry,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -23,7 +23,6 @@ finish in minutes).
 
 from __future__ import annotations
 
-import math
 
 import torch
 import torch.nn.functional as F
@@ -31,7 +30,7 @@ import torch.nn.functional as F
 from repro_torch.device import is_dtensor
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import NEG_INF
-from repro_torch.launch.mesh import axis_sizes, data_axes_of, model_axis_of
+from repro_torch.models.common import rank_by_rank, split_last
 from repro_torch.models.layers import rope, uniform_scale_init
 
 
@@ -77,32 +76,16 @@ def _slot_positions(capacity: int, length: int, device) -> torch.Tensor:
 
 
 def _attend(q, k, v, **kw):
-    """``ops.attention`` on tensors, or on DTensors rank by rank: the batch
-    over the mesh's data axes and the heads over its model axis where they
-    divide, replicated otherwise."""
-    from torch.distributed.tensor import Replicate, Shard
-    from torch.distributed.tensor.experimental import local_map
-
-    if not is_dtensor(q):
-        return ops.attention(q, k, v, **kw)
-    mesh = q.device_mesh
-    sizes, data_axes, model_axis = axis_sizes(mesh), data_axes_of(mesh), model_axis_of(mesh)
-    n_data = math.prod(sizes[a] for a in data_axes)
-    n_model = sizes.get(model_axis, 1)
-    batch = Shard(0) if q.shape[0] % n_data == 0 else Replicate()
-    heads = Shard(1) if q.shape[1] % n_model == 0 and k.shape[1] % n_model == 0 else Replicate()
-    pl = tuple(batch if name in data_axes else heads if name == model_axis else Replicate()
-               for name in mesh.mesh_dim_names)
-    fn = local_map(lambda q, k, v: ops.attention(q, k, v, **kw), out_placements=list(pl),
-                   in_placements=(pl, pl, pl), device_mesh=mesh, redistribute_inputs=True)
-    return fn(q, k, v)
+    """``ops.attention``; on DTensors ``[B, H, S, hd]`` rank by rank, the
+    batch and the heads split where they divide (``common.rank_by_rank``)."""
+    return rank_by_rank(lambda q, k, v: ops.attention(q, k, v, **kw), (q, k, v),
+                        ((0, 1),) * 3, ((0, 1),))
 
 
 def _project(p, x, name, heads, hd):
     b = p.get("b" + name)
     out = F.linear(x, p["w" + name].to(x.dtype), None if b is None else b.to(x.dtype))
-    B, S, _ = out.shape
-    return out.reshape(B, S, heads, hd)
+    return split_last(out, (heads, hd))
 
 
 def apply_attn(
@@ -178,7 +161,11 @@ def _ring_insert(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor, t: int) 
 
 def _decode_attend(q, cache, t: int, *, window: int):
     """Single-query attention over a ring cache holding ``t`` tokens.
-    q ``[B, Hq, 1, hd]``."""
+    q ``[B, Hq, 1, hd]``.  On DTensors rank by rank, as :func:`_attend`."""
+    if is_dtensor(q):
+        return rank_by_rank(lambda q, k, v: _decode_attend(q, {"k": k, "v": v}, t,
+                                                           window=window),
+                            (q, cache["k"], cache["v"]), ((0, 1),) * 3, ((0, 1),))
     B, Hq, _, hd = q.shape
     Hkv, C = cache["k"].shape[1], cache["k"].shape[2]
     group = Hq // Hkv

@@ -4,9 +4,10 @@ the parallelism handle models receive.  Port of ``repro.models.common``.
 Under a mesh the parameters, optimizer state and batch are DTensors
 (``launch/sharding.py::distribute``) and the model's functions run on them
 as they are: DTensor propagates each op's sharding, as GSPMD does for the
-reference's ``jit``, except where a ``local_map`` runs the attention and
-the MoE dispatches rank by rank and the embedding table is gathered whole
-(``attention._attend``, ``moe``, ``layers.replicated``).
+reference's ``jit``, except where a ``local_map`` runs the attention, the
+SSD and RG-LRU scans and the MoE dispatches rank by rank and the embedding
+table is gathered whole (:func:`rank_by_rank`, ``moe``,
+``layers.replicated``).
 :func:`constrain_batch` and :func:`constrain_seq` are
 the reference's ``with_sharding_constraint`` calls, ``redistribute``s of a
 DTensor activation with the same divisibility fallbacks; on a plain tensor,
@@ -19,13 +20,14 @@ its gradient under ``torch.distributed.tensor.experimental
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any
 
 import torch
 
 from repro_torch.device import is_dtensor
-from repro_torch.launch.mesh import axis_names, axis_sizes
+from repro_torch.launch.mesh import axis_names, axis_sizes, data_axes_of, model_axis_of
 from repro_torch.models import moe
 
 
@@ -114,3 +116,86 @@ def constrain_batch(x, parallel: ParallelConfig | None):
     if n <= 1 or x.shape[0] % n:
         return x
     return x.redistribute(parallel.mesh, parallel.placements(Shard(0)))
+
+
+def split_last(x: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """Reshape the last dim of ``x`` into ``shape`` (``[..., H * P]`` ->
+    ``[..., H, P]``).  A DTensor whose last dim is sharded over a mesh axis
+    that does not divide ``shape[0]`` is gathered on that axis first:
+    DTensor cannot split a dim sharded unevenly (24 heads over a 16-wide
+    model axis), where GSPMD reshards on its own."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import Replicate
+
+        sizes = x.device_mesh.shape
+        pl = [Replicate() if p.is_shard(x.ndim - 1) and shape[0] % sizes[i] else p
+              for i, p in enumerate(x.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x.reshape(*x.shape[:-1], *shape)
+
+
+class _SumGrad(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over ``groups``: an
+    arg that :func:`rank_by_rank` hands whole to ranks that each work on a
+    part (their batch rows, their heads) gets from each only that part's
+    share of its gradient."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed import _functional_collectives as fc
+
+        for group in ctx.groups:
+            grad = fc.all_reduce(grad, "sum", group)
+        return grad, None
+
+
+def rank_by_rank(fn, args: tuple, dims: tuple, out_dims: tuple):
+    """``fn(*args)``, on DTensors as a ``local_map`` rank by rank.  ``dims``
+    gives each arg's ``(batch_dim, head_dim)`` and ``out_dims`` each
+    output's (either may be None; a None arg passes as it is): the batch
+    dims over the mesh's data axes where they divide, the head dims over its
+    model axis where every one divides, every other dim whole on every rank.
+    An arg whole over an axis that splits the work has its gradient summed
+    over that axis.  On plain tensors ``fn(*args)``."""
+    lead = next(a for a in args if a is not None)
+    if not is_dtensor(lead):
+        return fn(*args)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = lead.device_mesh
+    sizes, data_axes, model_axis = axis_sizes(mesh), data_axes_of(mesh), model_axis_of(mesh)
+    n_data = math.prod(sizes[a] for a in data_axes)
+    n_model = sizes.get(model_axis, 1)
+    given = [(a, d) for a, d in zip(args, dims, strict=True) if a is not None]
+    rows = all(a.shape[b] % n_data == 0 for a, (b, _) in given if b is not None)
+    heads = all(a.shape[h] % n_model == 0 for a, (_, h) in given if h is not None)
+    split = {name for name in axis_names(mesh)
+             if sizes[name] > 1 and ((rows and name in data_axes)
+                                     or (heads and name == model_axis))}
+
+    def place(batch_dim, head_dim):
+        return tuple(
+            Shard(batch_dim) if rows and batch_dim is not None and name in data_axes
+            else Shard(head_dim) if heads and head_dim is not None and name == model_axis
+            else Replicate() for name in axis_names(mesh))
+
+    in_pl = tuple(None if a is None else place(*d) for a, d in zip(args, dims, strict=True))
+    sums = tuple(() if pl is None else
+                 tuple(mesh.get_group(name) for name, p in zip(axis_names(mesh), pl, strict=True)
+                       if name in split and not p.is_shard())
+                 for pl in in_pl)
+
+    def local(*local_args):
+        return fn(*(_SumGrad.apply(a, g) if g and a.requires_grad else a
+                    for a, g in zip(local_args, sums, strict=True)))
+
+    out_pl = tuple(place(*d) for d in out_dims)
+    return local_map(local, out_placements=out_pl if len(out_pl) > 1 else list(out_pl[0]),
+                     in_placements=in_pl, device_mesh=mesh, redistribute_inputs=True)(*args)

@@ -95,8 +95,9 @@ def encode(params, frames: torch.Tensor, *, cfg, opts) -> torch.Tensor:
         out, _ = apply_attn(bp["attn"], _ln(x, bp["norm"]), cfg=cfg, positions=zero_pos,
                             causal=False, use_rope=False, impl=opts.attn_impl,
                             return_cache=False)
-        x = x + out
-        x = x + gelu_mlp(bp["mlp"], _ln(x, bp["mlp_norm"]))
+        # as stack_apply's, after each sublayer
+        x = constrain_batch(x + out, opts.parallel)
+        x = constrain_batch(x + gelu_mlp(bp["mlp"], _ln(x, bp["mlp_norm"])), opts.parallel)
     return _ln(x, params["enc_final"])
 
 
@@ -119,8 +120,9 @@ def _dec_block(bp, x, *, cfg, opts, mode, positions, enc_out, cache, cache_lengt
         kv_source=enc_out, impl=opts.attn_impl, cache=None if cache is None else cache["cross"],
         return_cache=want,
     )
-    x = x + out
-    x = x + gelu_mlp(bp["mlp"], _ln(x, bp["mlp_norm"]))
+    # as stack_apply's, after each sublayer
+    x = constrain_batch(x + out, opts.parallel)
+    x = constrain_batch(x + gelu_mlp(bp["mlp"], _ln(x, bp["mlp_norm"])), opts.parallel)
     return x, ({"self": sc, "cross": cc} if want else None)
 
 
@@ -162,3 +164,16 @@ def decode_stack(params, tokens: torch.Tensor, *, cfg, opts, mode, enc_out=None,
         x, nc = _dec_block(bp, x, enc_out=enc_out, cache=bc, **kw)
         new_caches["blocks"].append(nc)
     return _ln(x, params["dec_final"]), new_caches
+
+
+def encdec_cache_specs(cfg, batch: int, seq_len: int, dtype) -> dict:
+    """The decode caches of a ``seq_len``-token conversation as meta
+    tensors, in the layout ``decode_stack`` returns: a ``{"self", "cross"}``
+    pair a decoder block, the cross pair over the encoder's states."""
+    def kv(capacity):
+        shape = (batch, cfg.n_kv_heads, capacity, cfg.head_dim)
+        return {"k": torch.empty(shape, dtype=dtype, device="meta"),
+                "v": torch.empty(shape, dtype=dtype, device="meta")}
+
+    return {"blocks": [{"self": kv(seq_len), "cross": kv(cfg.encoder_seq)}
+                       for _ in range(cfg.n_layers)]}

@@ -6,6 +6,14 @@ family of the registry.  Port of ``repro.models.model``.  Returns a
   loss_fn(params, batch)                           -> (loss, {"ce", "aux_loss"})
   prefill_fn(params, batch, max_len=None)          -> (last_logits [B, V], caches)
   decode_fn(params, tokens, caches, cache_length)  -> (logits [B, 1, V], caches)
+  input_specs(shape)                               -> {name: meta tensor}
+  cache_specs(shape)                               -> caches of meta tensors
+
+``input_specs`` / ``cache_specs`` are the dry-run contract: stand-ins for
+every input of a cell of the shape grid (``configs/shapes.py``), tensors on
+the meta device (a shape and a dtype, no storage) that ``launch/dryrun.py``
+turns into fake tensors.  The caches are in the port's own layout, the one
+``prefill_fn`` returns and ``decode_fn`` takes.
 
 ``params`` is a dict of tensors laid out as ``models/convert.py`` documents.
 A batch holds ``tokens`` (and ``labels`` for the loss), plus, for a vlm,
@@ -24,13 +32,14 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.shapes import ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec
 from repro_torch.models.common import ModelOptions, constrain_batch
 from repro_torch.models.layers import embed_init, embed_lookup, logits_from_embed, rms_norm
 from repro_torch.models.layers import uniform_scale_init
-from repro_torch.models.transformer import stack_apply, stack_init
-from repro_torch.models.vlm import splice_patches, vlm_loss_mask
+from repro_torch.models.transformer import stack_apply, stack_cache_specs, stack_init
+from repro_torch.models.vlm import patch_embed_spec, splice_patches, vlm_loss_mask
 
 
 class Model(NamedTuple):
@@ -41,6 +50,18 @@ class Model(NamedTuple):
     loss_fn: Callable
     prefill_fn: Callable
     decode_fn: Callable
+    input_specs: Callable
+    cache_specs: Callable
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _decode_inputs(shape: ShapeConfig) -> dict:
+    """One new token a row against a cache of ``shape.seq_len``."""
+    return {"tokens": _meta((shape.global_batch, 1), torch.int32),
+            "cache_length": _meta((), torch.int32)}
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor):
@@ -132,7 +153,22 @@ def _build_decoder_only(cfg: ModelConfig, opts: ModelOptions, device: torch.devi
                                cache_length=int(cache_length))
         return _lm_head(cfg, params, x), caches
 
-    return Model(cfg, opts, device, init, loss_fn, prefill_fn, decode_fn)
+    def input_specs(shape: ShapeConfig) -> dict:
+        if shape.kind == "decode":
+            return _decode_inputs(shape)
+        b = shape.global_batch
+        specs = {"tokens": _meta((b, shape.seq_len), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = _meta((b, shape.seq_len), torch.int32)
+        if cfg.family == "vlm":
+            specs["patch_embeds"] = patch_embed_spec(cfg, b, adt)
+        return specs
+
+    def cache_specs(shape: ShapeConfig) -> dict:
+        return stack_cache_specs(cfg, shape.global_batch, shape.seq_len, adt)
+
+    return Model(cfg, opts, device, init, loss_fn, prefill_fn, decode_fn, input_specs,
+                 cache_specs)
 
 
 def _build_encdec(cfg: ModelConfig, opts: ModelOptions, device: torch.device) -> Model:
@@ -178,4 +214,18 @@ def _build_encdec(cfg: ModelConfig, opts: ModelOptions, device: torch.device) ->
         )
         return logits_from_embed(params["embed"], x), caches
 
-    return Model(cfg, opts, device, init, loss_fn, prefill_fn, decode_fn)
+    def input_specs(shape: ShapeConfig) -> dict:
+        if shape.kind == "decode":
+            return _decode_inputs(shape)
+        b = shape.global_batch
+        specs = {"frames": _meta((b, cfg.encoder_seq, cfg.d_model), adt),
+                 "tokens": _meta((b, shape.seq_len), torch.int32)}
+        if shape.kind == "train":
+            specs["labels"] = _meta((b, shape.seq_len), torch.int32)
+        return specs
+
+    def cache_specs(shape: ShapeConfig) -> dict:
+        return encdec.encdec_cache_specs(cfg, shape.global_batch, shape.seq_len, adt)
+
+    return Model(cfg, opts, device, init, loss_fn, prefill_fn, decode_fn, input_specs,
+                 cache_specs)

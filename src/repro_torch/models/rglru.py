@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
+from repro_torch.models.common import rank_by_rank
 from repro_torch.models.layers import uniform_scale_init
 from repro_torch.models.ssm import _causal_conv
 
@@ -62,6 +63,18 @@ def _gates(p, rec):
     return gate_x, gate_a
 
 
+def _scan(rec, gate_x, gate_a, a_param, *, impl, return_state):
+    """``ops.rglru``; under a mesh rank by rank (``common.rank_by_rank``),
+    each rank its batch rows and, where they divide the model axis, its
+    channels (DTensor lays the scan's per-step outputs out so that the next
+    product cannot take them)."""
+    def scan(rec, gate_x, gate_a, a_param):
+        return ops.rglru(rec, gate_x, gate_a, a_param, impl=impl, return_state=return_state)
+
+    return rank_by_rank(scan, (rec, gate_x, gate_a, a_param), ((0, 2),) * 3 + ((None, 0),),
+                        ((0, 2), (0, 1)) if return_state else ((0, 2),))
+
+
 def rg_apply(p, x, *, cfg, impl="auto", cache=None, return_cache=True):
     """x [B, S, D].  The whole sequence through ``ops.rglru`` when ``cache``
     is None (prefill; training with ``return_cache=False``, which builds no
@@ -79,9 +92,9 @@ def rg_apply(p, x, *, cfg, impl="auto", cache=None, return_cache=True):
             conv_tail = F.pad(conv_tail, (0, 0, K - 1 - conv_tail.shape[1], 0))
         rec = _causal_conv(rec_in, p["conv_w"], p["conv_b"])
         if not return_cache:
-            h = ops.rglru(rec, *_gates(p, rec), p["a_param"], impl=impl)
+            h = _scan(rec, *_gates(p, rec), p["a_param"], impl=impl, return_state=False)
             return F.linear(h * gel, p["w_out"].to(x.dtype)), None
-        h, h_last = ops.rglru(rec, *_gates(p, rec), p["a_param"], impl=impl, return_state=True)
+        h, h_last = _scan(rec, *_gates(p, rec), p["a_param"], impl=impl, return_state=True)
         out = F.linear(h * gel, p["w_out"].to(x.dtype))
         # clone: a view of rec_in would keep all of it alive in the cache
         return out, {"conv": conv_tail.clone(), "h": h_last}
@@ -94,3 +107,13 @@ def rg_apply(p, x, *, cfg, impl="auto", cache=None, return_cache=True):
     h, h_last = ref.rglru(rec, *_gates(p, rec), p["a_param"], h0=cache["h"], return_state=True)
     out = F.linear(h * gel, p["w_out"].to(x.dtype))
     return out, {"conv": conv_win[:, 1:], "h": h_last}
+
+
+def rg_cache_shape(cfg, batch: int, dtype) -> dict:
+    """One layer's decode cache as meta tensors: ``conv`` in ``dtype``, the
+    state ``h`` in float32."""
+    lw = cfg.lru_width or cfg.d_model
+    return {
+        "conv": torch.empty((batch, RG_CONV - 1, lw), dtype=dtype, device="meta"),
+        "h": torch.empty((batch, lw), dtype=torch.float32, device="meta"),
+    }

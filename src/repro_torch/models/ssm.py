@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.models.common import rank_by_rank, split_last
 from repro_torch.models.layers import rms_norm, uniform_scale_init
 
 
@@ -67,9 +68,8 @@ def _split_proj(p, x, cfg):
 
 def _ssm_inputs(p, xbc, dt, cfg):
     """Split the conv output into the scan's x, b, c; dt and a in float32."""
-    B, S, _ = xbc.shape
     di, n = cfg.d_inner, cfg.ssm_state
-    x_ssm = xbc[..., :di].reshape(B, S, cfg.n_ssm_heads, cfg.ssm_head_dim)
+    x_ssm = split_last(xbc[..., :di], (cfg.n_ssm_heads, cfg.ssm_head_dim))
     dt = F.softplus(dt.float() + p["dt_bias"].float())
     a = -torch.exp(p["a_log"].float())
     return x_ssm, dt, a, xbc[..., di:di + n], xbc[..., di + n:]
@@ -80,14 +80,30 @@ def _finish(p, y_flat, z, cfg):
     return F.linear(y, p["out_proj"].to(y.dtype))
 
 
+def _ssd(x, dt, a, b, c, d, h0, *, impl, return_state):
+    """``ops.ssd`` with ``y`` flat (``[B, S, H * P]``); under a mesh rank by
+    rank (``common.rank_by_rank``), each rank its batch rows and, where they
+    divide the model axis, its heads.  ``y`` is flattened on each rank:
+    DTensor can neither flatten the heads with their head dim sharded nor,
+    in the backward, split a gradient whose heads divide unevenly."""
+    def scan(x, dt, a, b, c, d, h0):
+        if return_state:
+            y, state = ops.ssd(x, dt, a, b, c, d, h0=h0, impl=impl, return_state=True)
+            return y.flatten(2), state
+        return ops.ssd(x, dt, a, b, c, d, h0=h0, impl=impl).flatten(2)
+
+    dims = ((0, 2), (0, 2), (None, 0), (0, None), (0, None), (None, 0), (0, 1))
+    return rank_by_rank(scan, (x, dt, a, b, c, d, h0), dims,
+                        ((0, 2), (0, 1)) if return_state else ((0, 2),))
+
+
 def ssm_apply(p, x, *, cfg, impl="auto", cache=None, return_cache=True):
     """x [B, S, D].  The whole sequence through ``ops.ssd`` when ``cache``
     is None (prefill; training with ``return_cache=False``, which builds no
     cache and returns None for it), else one decode step (S == 1) through
     the recurrence from the cached state.  Returns ``(out [B, S, D],
     cache)``."""
-    B, S, _ = x.shape
-    K, di = cfg.ssm_conv, cfg.d_inner
+    S, K = x.shape[1], cfg.ssm_conv
     z, xbc, dt = _split_proj(p, x, cfg)
     d_skip = p["d_skip"].float()
 
@@ -98,11 +114,10 @@ def ssm_apply(p, x, *, cfg, impl="auto", cache=None, return_cache=True):
         xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]).float()).to(x.dtype)
         x_ssm, dt, a, b_mat, c_mat = _ssm_inputs(p, xbc, dt, cfg)
         if not return_cache:
-            y = ops.ssd(x_ssm, dt, a, b_mat, c_mat, d_skip, impl=impl)
-            return _finish(p, y.reshape(B, S, di), z, cfg), None
-        y, state = ops.ssd(x_ssm, dt, a, b_mat, c_mat, d_skip, impl=impl, return_state=True)
-        return _finish(p, y.reshape(B, S, di), z, cfg), {"conv": conv_tail.contiguous(),
-                                                         "ssm": state}
+            y = _ssd(x_ssm, dt, a, b_mat, c_mat, d_skip, None, impl=impl, return_state=False)
+            return _finish(p, y, z, cfg), None
+        y, state = _ssd(x_ssm, dt, a, b_mat, c_mat, d_skip, None, impl=impl, return_state=True)
+        return _finish(p, y, z, cfg), {"conv": conv_tail.contiguous(), "ssm": state}
 
     if S != 1:
         raise NotImplementedError("chunked append-prefill is not needed by the serving path")
@@ -110,6 +125,16 @@ def ssm_apply(p, x, *, cfg, impl="auto", cache=None, return_cache=True):
     xbc_t = torch.einsum("bkc,kc->bc", conv_win, p["conv_w"].to(x.dtype))
     xbc_t = F.silu((xbc_t + p["conv_b"].to(x.dtype)).float()).to(x.dtype)[:, None, :]
     x_ssm, dt, a, b_mat, c_mat = _ssm_inputs(p, xbc_t, dt, cfg)
-    y, state = ops.ssd(x_ssm, dt, a, b_mat, c_mat, d_skip, h0=cache["ssm"], impl=impl,
-                       return_state=True)
-    return _finish(p, y.reshape(B, 1, di), z, cfg), {"conv": conv_win[:, 1:], "ssm": state}
+    y, state = _ssd(x_ssm, dt, a, b_mat, c_mat, d_skip, cache["ssm"], impl=impl,
+                    return_state=True)
+    return _finish(p, y, z, cfg), {"conv": conv_win[:, 1:], "ssm": state}
+
+
+def ssm_cache_shape(cfg, batch: int, dtype) -> dict:
+    """One layer's decode cache as meta tensors: ``conv`` in ``dtype``, the
+    SSM state in float32."""
+    di, n, h, pp = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    return {
+        "conv": torch.empty((batch, cfg.ssm_conv - 1, di + 2 * n), dtype=dtype, device="meta"),
+        "ssm": torch.empty((batch, h, pp, n), dtype=torch.float32, device="meta"),
+    }

@@ -31,8 +31,8 @@ from repro_torch.models.attention import apply_attn, attn_init, cache_capacity
 from repro_torch.models.common import ModelOptions, constrain_batch, constrain_seq
 from repro_torch.models.layers import rms_norm, swiglu, swiglu_init
 from repro_torch.models.moe import moe_apply, moe_init
-from repro_torch.models.rglru import rg_apply, rg_init
-from repro_torch.models.ssm import ssm_apply, ssm_init
+from repro_torch.models.rglru import rg_apply, rg_cache_shape, rg_init
+from repro_torch.models.ssm import ssm_apply, ssm_cache_shape, ssm_init
 
 _MIXER_INIT = {"attn": attn_init, "ssm": ssm_init, "rglru": rg_init}
 
@@ -98,6 +98,11 @@ def _apply_sublayer(sp, x, kind, *, cfg, opts: ModelOptions, mode, positions, ca
     x = x + out
     aux = None
     if _has_mlp(cfg):
+        # Under a mesh the mixer's output projection leaves a partial sum over
+        # the model axis; summed here, so the MLP's products start from the
+        # batch-sharded layout GSPMD would pick (DTensor cannot flatten a
+        # partial [B, S, D] into the MLP's products on the production mesh).
+        x = constrain_batch(x, opts.parallel)
         h = rms_norm(x, sp["mlp_norm"], cfg.norm_eps)
         if cfg.n_experts:
             out, aux = moe_apply(sp["mlp"], h, cfg, impl=opts.moe_impl, parallel=opts.parallel)
@@ -200,3 +205,31 @@ def stack_apply(
         x, new_caches["tail"], aux_i = _block_apply(params["tail"], x, tail, caches=tc, **kw)
         aux = aux + aux_i
     return x, new_caches, aux
+
+
+def _sublayer_cache_spec(cfg, kind, batch: int, seq_len: int, dtype) -> dict:
+    if kind == "attn":
+        shape = (batch, cfg.n_kv_heads, cache_capacity(cfg, seq_len, cfg.window), cfg.head_dim)
+        return {"k": torch.empty(shape, dtype=dtype, device="meta"),
+                "v": torch.empty(shape, dtype=dtype, device="meta")}
+    if kind == "ssm":
+        return ssm_cache_shape(cfg, batch, dtype)
+    if kind == "rglru":
+        return rg_cache_shape(cfg, batch, dtype)
+    raise ValueError(kind)
+
+
+def stack_cache_specs(cfg, batch: int, seq_len: int, dtype) -> dict:
+    """Meta tensors in the layout of ``stack_apply``'s caches (a list of
+    blocks, then the tail), each cache sized for a ``seq_len``-token
+    conversation."""
+    n_blocks, tail = block_counts(cfg)
+
+    def block(kinds):
+        return {f"sub{i}": _sublayer_cache_spec(cfg, k, batch, seq_len, dtype)
+                for i, k in enumerate(kinds)}
+
+    specs = {"blocks": [block(cfg.block_pattern) for _ in range(n_blocks)]}
+    if tail:
+        specs["tail"] = block(tail)
+    return specs

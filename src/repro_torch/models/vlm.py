@@ -27,3 +27,9 @@ def vlm_loss_mask(cfg, batch_tokens: torch.Tensor) -> torch.Tensor:
     s = batch_tokens.shape[1]
     pos = torch.arange(s, device=batch_tokens.device)[None, :]
     return (pos >= cfg.n_patches).float()
+
+
+def patch_embed_spec(cfg, batch: int, dtype) -> torch.Tensor:
+    """The patch embeddings' stand-in: ``[B, n_patches, d_model]`` on the
+    meta device (a shape and a dtype, no storage)."""
+    return torch.empty((batch, cfg.n_patches, cfg.d_model), dtype=dtype, device="meta")

@@ -2,7 +2,8 @@
 
 - No module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax``
   or anything of the JAX package ``repro``: a fresh interpreter imports
-  them all and inspects ``sys.modules``.
+  them all and inspects ``sys.modules``; importing them starts no process
+  group (the dry run's fake world starts when it runs).
 - Entry points called without ``device=`` run on CUDA; where there is no
   card they raise instead of falling back to the CPU.
 - ``chip_smoke.py`` exits non-zero and prints no result without a card,
@@ -33,7 +34,8 @@ sys.path.insert(0, sys.argv[1])
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(json.dumps({"modules": names, "bad": bad}))
+import torch.distributed as dist
+print(json.dumps({"modules": names, "bad": bad, "world": dist.is_initialized()}))
 """
 
 
@@ -58,9 +60,11 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "models.encdec", "configs.shapes", "configs.mixtral_8x7b",
                  "configs.qwen3_moe_235b", "configs.internvl2_1b", "configs.whisper_base",
                  "launch.mesh", "launch.sharding", "train.compression", "sched.elastic",
-                 "launch.cluster_train"):
+                 "launch.cluster_train", "launch.dryrun", "launch.trace_analysis",
+                 "launch.roofline", "launch.reanalyze", "launch.report"):
         assert f"repro_torch.{name}" in got["modules"]
     assert got["bad"] == []
+    assert got["world"] is False  # the dry run starts its fake world only when run
 
 
 def _entry_points():

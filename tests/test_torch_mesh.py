@@ -410,6 +410,134 @@ def test_train_step_on_a_pod_data_model_mesh(spawn_b):
     _hold_params(spawn_b["params"], spawn_b["want_params"], spawn_b["start"])
 
 
+# ------------------------------------------------------------ spawn F
+# The mixer families' mesh paths: the SSD and RG-LRU scans rank by rank
+# (heads split over the model axis where they divide, whole where they do not:
+# "mamba2-odd" has 3 heads), the encoder-decoder's batch constraints, and
+# decode_fn's rank-by-rank attention over caches that prefill_fn placed.
+FAMILY_TRAIN = {"mamba2-130m": ("mamba2-130m", {}),
+                "mamba2-odd": ("mamba2-130m", {"d_model": 48, "ssm_head_dim": 32}),
+                "recurrentgemma-9b": ("recurrentgemma-9b", {}),
+                "whisper-base": ("whisper-base", {})}
+FAMILY_DECODE = ("phi4-mini-3.8b", "mamba2-130m", "recurrentgemma-9b", "whisper-base")
+DECODE_PROMPT, DECODE_STEPS = 16, 2
+
+_BODY_F = """
+from torch.distributed.tensor.experimental import implicit_replication
+from repro_torch.configs import smoke_config
+from repro_torch.launch import mesh as lm
+from repro_torch.launch.train import shard_batch, shard_state
+from repro_torch.models.common import ModelOptions, ParallelConfig
+from repro_torch.models.model import build_model
+from repro_torch.train import TrainConfig, make_train_step
+from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
+from repro_torch.train.tree import leaves_with_paths, tree_map
+
+mesh = lm.make_mesh((2, 2), ("data", "model"), device_type="cpu")
+par = ParallelConfig(mesh, ("data",), "model")
+inp = torch.load(D + "/f_in.pt")
+opts = ModelOptions(attn_impl="chunked", mixer_impl="chunked", activation_dtype="float32",
+                    remat="full", parallel=par)
+out = {}
+for name, (arch, scale, params, batch) in inp["train"].items():
+    cfg = smoke_config(arch).scaled(**scale)
+    model = build_model(cfg, opts, device="cpu")
+    p, o = shard_state(params, init_opt_state(params), cfg, mesh)
+    step = make_train_step(model, TrainConfig(microbatches=2,
+                                              optimizer=OptimizerConfig(**inp["ocfg"])))
+    p, o, m = step(p, o, shard_batch(batch, mesh))
+    out[name] = {"hist": [(m["loss"].item(), m["grad_norm"].item())],
+                 "params": dict(leaves_with_paths(tree_map(lambda t: t.full_tensor(), p)))}
+for arch, (params, batch, tokens) in inp["decode"].items():
+    cfg = smoke_config(arch)
+    model = build_model(cfg, opts, device="cpu")
+    p = shard_state(params, init_opt_state(params), cfg, mesh)[0]
+    with implicit_replication():
+        logits, caches = model.prefill_fn(p, shard_batch(batch, mesh))
+        got = [logits.full_tensor()]
+        for t in range(tokens.shape[1]):
+            tok = shard_batch({"tokens": tokens[:, t:t + 1]}, mesh)["tokens"]
+            logits, caches = model.decode_fn(p, tok, caches, inp["prompt"] + t)
+            got.append(logits.full_tensor())
+    out["decode/" + arch] = got
+if RANK == 0:
+    torch.save(out, D + "/f_out.pt")
+dist.destroy_process_group()
+"""
+
+
+def _family_batch(cfg, rng, rows, seq, labels=True) -> dict:
+    keys = ("tokens", "labels") if labels else ("tokens",)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, seq)).astype(np.int32))
+             for k in keys}
+    if cfg.is_encdec:
+        batch["frames"] = torch.from_numpy(
+            rng.standard_normal((rows, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+    return batch
+
+
+@pytest.fixture(scope="module")
+def spawn_f(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mesh_f")
+    opts = ModelOptions(attn_impl="chunked", mixer_impl="chunked", activation_dtype="float32",
+                        remat="full")
+    rng = np.random.default_rng(0)
+    inp, want = {"train": {}, "decode": {}, "ocfg": OCFG, "prompt": DECODE_PROMPT}, {}
+    for name, (arch, scale) in FAMILY_TRAIN.items():
+        cfg = tconfigs.smoke_config(arch).scaled(**scale)
+        tm = build_model(cfg, opts, device="cpu")
+        params = tm.init(torch.Generator().manual_seed(0))
+        batch = _family_batch(cfg, rng, 8, 32)
+        inp["train"][name] = (arch, scale, params, batch)
+        step = train_step.make_train_step(tm, train_step.TrainConfig(
+            microbatches=2, optimizer=optimizer.OptimizerConfig(**OCFG)))
+        pt, _, m = step(params, optimizer.init_opt_state(params), batch)
+        want[name] = {"hist": [(m["loss"].item(), m["grad_norm"].item())],
+                      "params": dict(leaves_with_paths(pt)),
+                      "start": dict(leaves_with_paths(params))}
+    for arch in FAMILY_DECODE:
+        cfg = tconfigs.smoke_config(arch)
+        tm = build_model(cfg, opts, device="cpu")
+        params = tm.init(torch.Generator().manual_seed(1))
+        batch = _family_batch(cfg, rng, 4, DECODE_PROMPT, labels=False)
+        tokens = torch.from_numpy(
+            rng.integers(0, cfg.vocab_size, (4, DECODE_STEPS)).astype(np.int32))
+        inp["decode"][arch] = (params, batch, tokens)
+        logits, caches = tm.prefill_fn(params, batch)
+        got = [logits]
+        for t in range(DECODE_STEPS):
+            logits, caches = tm.decode_fn(params, tokens[:, t:t + 1], caches, DECODE_PROMPT + t)
+            got.append(logits)
+        want["decode/" + arch] = got
+    torch.save(inp, d / "f_in.pt")
+    run_ranks(_BODY_F, 4, d)
+    return torch.load(d / "f_out.pt"), want
+
+
+@pytest.mark.parametrize("name", list(FAMILY_TRAIN))
+def test_family_train_step_on_a_2x2_mesh_matches_one_device(spawn_f, name):
+    """One step of each mixer family's smoke model (microbatches 2, remat)
+    on ``(2, 2)`` against the single-process step, held as spawn B's."""
+    got, want = spawn_f[0][name], spawn_f[1][name]
+    (loss, gnorm), = got["hist"]
+    (loss_w, gnorm_w), = want["hist"]
+    assert abs(loss - loss_w) <= STEP_REL * abs(loss_w)
+    assert abs(gnorm - gnorm_w) <= GRAD_REL * abs(gnorm_w)
+    _hold_params(got["params"], want["params"], want["start"])
+
+
+@pytest.mark.parametrize("arch", FAMILY_DECODE)
+def test_decode_on_a_2x2_mesh_matches_one_device(spawn_f, arch):
+    """``prefill_fn`` and ``DECODE_STEPS`` ``decode_fn`` steps on ``(2, 2)``,
+    the caches as the mesh prefill placed them, against one process: every
+    step's logits within ``STEP_REL`` (relative norm)."""
+    got, want = spawn_f[0]["decode/" + arch], spawn_f[1]["decode/" + arch]
+    assert len(got) == len(want) == DECODE_STEPS + 1
+    for g, w in zip(got, want, strict=True):
+        assert g.shape == w.shape
+        assert _rel(g, w) <= STEP_REL, _rel(g, w)
+
+
 # ------------------------------------------------------------ spawns C, D
 def _sweep_specs():
     """The smoke quantized lanes (unfused, fused) with 5 seeds, and with
