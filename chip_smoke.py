@@ -255,17 +255,20 @@ raises, and the exit code is not 0):
     a backward, here or in the reference, so training takes the chunked
     forms (``kernels/chunked.py``): (a) the chunked attention's forward and
     hand-written backward against autograd through the plain version, float32,
-    under a seeded cotangent, at phi4-mini's [2, 24 / 8, 1024, 128] causal
-    and recurrentgemma's [1, 16 / 1, 4096, 256] with window 2048: output, dq,
-    dk and dv within 2e-5 in relative norm, and fwd + bwd timed beside the
-    plain version's; ``ops.attention`` with ``impl="cuda"`` or ``"auto"`` on
+    under a seeded cotangent, at phi4-mini's [2, 24 / 8, 1024, 128] causal,
+    recurrentgemma's [1, 16 / 1, 4096, 256] with window 2048 and the shapes
+    of phase 35's steps (``VJP_SHAPES``: whisper's non-causal encoder and
+    cross attention and its decoder, internvl2's GQA group 7, qwen3-moe's
+    group 16, mixtral's window of 4096 at 4352): output, dq, dk and dv
+    within 2e-5 in relative norm, and fwd + bwd timed beside the plain
+    version's; ``ops.attention`` with ``impl="cuda"`` or ``"auto"`` on
     a tensor that requires grad raises; (b) phi4-mini at its published widths with the depth cut
-    from 32 to 8 layers (2.03e9 float32 parameters drawn on the card from a
+    from 32 to 4 layers (1.63e9 float32 parameters drawn on the card from a
     seed), built as ``launch/train.py`` builds it without ``--smoke`` (bf16
     activations, ``remat="full"``, AdamW with 10 warmup steps), batch 2 x
     1024 from ``make_stream_for``, 8 steps on ``run_with_recovery``'s
     schedule with a checkpoint before step 4 and a failure at step 6 (the
-    step donated: the optimizer updates in place; the one 24 GB state is
+    step donated: the optimizer updates in place; the one 20 GB state is
     written to disk by ``checkpoint.save`` and read back in place by
     ``checkpoint.restore``; ``run_with_recovery`` itself would also write the
     step-0 and final states, more than the 45 GiB of disk writes a run of
@@ -299,13 +302,13 @@ raises, and the exit code is not 0):
     causal, internvl2's GQA group 7, qwen3-moe's group 16, mixtral's window
     4096 at 4352), float32 and bf16 at phase 7's bars on the model's
     transposed views, each timed beside the plain version and SDPA with its
-    bound; (b) mixtral-8x7b (2 of 32 layers, batch 4 x 4352 + 32: the
-    prompt 256 past the window), qwen3-moe-235b-a22b (2 of 94 layers, 4 x
+    bound; (b) mixtral-8x7b (1 of 32 layers, batch 4 x 4352 + 32: the
+    prompt 256 past the window), qwen3-moe-235b-a22b (1 of 94 layers, 4 x
     1000 + 32), internvl2-1b (whole, 4 x 1024 + 32, the first 256
     positions patch embeddings) and whisper-base (whole, 4 x 1500 frames,
     a decoder prompt of 416 + 32) through ``generate``, float32, parameters
     drawn on the card from a seed: the counts zeroed just before and read
-    just after, exactly 2, 2, 24 and 18 flash launches (whisper: 6 encoder,
+    just after, exactly 1, 1, 24 and 18 flash launches (whisper: 6 encoder,
     6 decoder self- and 6 cross attention) and none of the other three
     kernels, no alignment copy; the prefill's last logits against
     ``attn_impl="ref"`` within 2e-4 on every row whose tokens both runs
@@ -333,7 +336,7 @@ raises, and the exit code is not 0):
     against ``ragged_local`` (smoke qwen3-moe) bit for bit, and the smoke
     phi4-mini's state as DTensors saved by ``checkpoint.save`` and restored
     into zeroed DTensors bit for bit (no full-width checkpoint: phase 29
-    writes 24.4 GB of the call's 45 GiB); then the group is destroyed.
+    writes 19.6 GB of the call's 45 GiB); then the group is destroyed.
 33. gradient compression and the elastic cluster (``phase_elastic``), no
     kernel launch (the four counts zeroed just before and read just after:
     all 0): first the reference test's three jobs (sizes 24, 12, 6; p 0.5;
@@ -366,7 +369,39 @@ raises, and the exit code is not 0):
     ``torch.cuda.max_memory_allocated()``; then ``ROOFLINE_STEPS`` (3) steps
     without the modes, timed, beside ``roofline.model_flops`` (6 N D), the
     three roofline terms at the H100 figures and the roofline fraction (no
-    bar is set on them).
+    bar is set on them);
+35. the moe, vlm and audio families trained at their published widths
+    (``phase_family_train``; ``FAMILY_TRAIN``: internvl2-1b whole, 2 x 1024;
+    whisper-base whole, 4 x 448 decoder tokens over 1500 frames;
+    mixtral-8x7b 2 of 32 layers, 1 x 4352; qwen3-moe-235b-a22b 1 of 94
+    layers, 2 x 1024), float32 masters and moments, each model built as
+    ``launch/train.py`` builds a full config (``train_options(smoke=False)``:
+    bf16 activations, remat, the chunked attention, the ``dense`` MoE
+    dispatch; ``make_step``: AdamW, the step donated): (a)
+    ``FAMILY_TRAIN_STEPS`` (3) steps on the stream's first batch (on three
+    of its batches the loss does not fall in three steps: they share few
+    tokens), the four kernel counts zeroed just
+    before and read just after (all 0: no kernel has a backward), each
+    step's ms, tokens/s, peak memory (under 80 GB) and, from the profiled
+    last step, the device's idle share; every loss finite, the last below
+    the first; then the first step replayed from the same seeded state: its
+    loss, grad norm and every parameter bit for bit the first pass's; (b)
+    the first step's loss within ``BF16_LOSS_REL`` (1e-3) of a float32
+    forward of the same parameters and batch (``torch.no_grad``); (c) for
+    mixtral and qwen3-moe, one MoE layer at full width and its true expert
+    count, 1 x 512 tokens, float32: the loss (the output against a seeded
+    cotangent, plus ``aux``), ``aux`` and the gradient of x, the router and
+    every expert weight under ``ragged_local`` against ``dense`` within
+    ``MOE_GRAD_REL`` (2e-4) in relative norm, ``ragged_local``'s twice bit
+    for bit, the experts that got no token and the smallest top-k margin
+    printed; (d) the trained internvl2 and whisper served through
+    ``generate`` in float32 with the prefill on the flash kernel (the count
+    zeroed just before and read just after: 24 and 18, no input copied),
+    their prefill logits within ``LOGIT_TOL`` of the plain path's; (e)
+    ``python -m repro_torch.launch.train --arch whisper-base`` (no
+    ``--smoke``: full width, on the card by default), 4 steps of 4 x 448
+    and its checkpoints, in a process of its own: exit 0, every step's loss
+    printed and finite, the last below the first.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -2636,19 +2671,30 @@ def phase_sched(alloc, lanes, sched, flowtime, policies, card, device) -> dict:
 
 
 # Phase 29: the training path.  phi4-mini at its published widths, depth cut
-# from 32 to 8 layers: its float32 masters, gradients and two moments take
-# 16 B a parameter, 71.2 GB at all 32 layers (4.45e9 parameters) and 32.5 GB
-# at 8 (2.03e9).  The cut was 16 layers (45.4 GB) until the dry run's phase
-# 34 came: its 34.1 GB checkpoint took ~112 s to save and restore, 24.4 GB
-# at 8 layers.  Batch 2 x 1024 from the
+# from 32 to 4 layers: its float32 masters, gradients and two moments take
+# 16 B a parameter, 71.2 GB at all 32 layers (4.45e9 parameters) and 26.1 GB
+# at 4 (1.63e9).  The cut was 16 layers (45.4 GB) until the dry run's phase
+# 34 came and 8 until phase 35 came: the checkpoint's save and restore took
+# ~112 s at 16 layers (34.1 GB), 81-87 s at 8 (24.4 GB), 67 s at 4 (19.6
+# GB).  Batch 2 x 1024 from the
 # synthetic stream; 8 steps through run_with_recovery, a checkpoint every 4,
 # a failure at step 6.
-TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "phi4-mini-3.8b", 8, 2, 1024
+TRAIN_ARCH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ = "phi4-mini-3.8b", 4, 2, 1024
 TRAIN_STEPS, TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 8, 4, 6
-# (b, hq, hkv, s, d, window), causal: the attention of phase 29 (b)'s step
-# (phi4-mini) and recurrentgemma's local attention at phase 16's prompt.
-VJP_SHAPES = {"phi4-mini": (TRAIN_BATCH, 24, 8, TRAIN_SEQ, 128, 0),
-              "recurrentgemma": (1, 16, 1, HYBRID_PROMPT, 256, 2048)}
+# (b, hq, hkv, sq, skv, d, causal, window): the attention of phase 29 (b)'s
+# step (phi4-mini), recurrentgemma's local attention at phase 16's prompt, and
+# the attention of phase 35's steps (FAMILY_TRAIN): whisper's non-causal
+# encoder over its 1500 frames, its cross attention from 448 decoder tokens
+# to them and its decoder's; internvl2's GQA group 7; qwen3-moe's group 16
+# at D 128; mixtral's window of 4096 at 4352.
+VJP_SHAPES = {"phi4-mini": (TRAIN_BATCH, 24, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0),
+              "recurrentgemma": (1, 16, 1, HYBRID_PROMPT, HYBRID_PROMPT, 256, True, 2048),
+              "whisper-encoder": (4, 8, 8, 1500, 1500, 64, False, 0),
+              "whisper-cross": (4, 8, 8, 448, 1500, 64, False, 0),
+              "whisper-decoder": (4, 8, 8, 448, 448, 64, True, 0),
+              "internvl2": (2, 14, 2, 1024, 1024, 64, True, 0),
+              "qwen3-moe": (2, 64, 4, 1024, 1024, 128, True, 0),
+              "mixtral": (1, 32, 8, 4352, 4352, 128, True, 4096)}
 # tests/test_torch_chunked_attention.py's float32 bar (relative norm); and
 # two float32 train steps on the CPU and the card, the losses and all the
 # parameters as one vector: two summation orders.  (One leaf alone is no
@@ -2672,15 +2718,15 @@ def phase_attention_vjp(chunked, ref, ops, card, device) -> dict:
 
     gen = torch.Generator(device=device).manual_seed(29)
     out = {}
-    for name, (b, hq, hkv, s, d, window) in VJP_SHAPES.items():
-        q = torch.randn((b, hq, s, d), generator=gen, device=device)
-        k = torch.randn((b, hkv, s, d), generator=gen, device=device)
-        v = torch.randn((b, hkv, s, d), generator=gen, device=device)
-        do = torch.randn((b, hq, s, d), generator=gen, device=device)
+    for name, (b, hq, hkv, sq, skv, d, causal, window) in VJP_SHAPES.items():
+        q = torch.randn((b, hq, sq, d), generator=gen, device=device)
+        k = torch.randn((b, hkv, skv, d), generator=gen, device=device)
+        v = torch.randn((b, hkv, skv, d), generator=gen, device=device)
+        do = torch.randn((b, hq, sq, d), generator=gen, device=device)
 
         def fwd_bwd(fn, dtype=torch.float32):
             leaves = [t.to(dtype, copy=True).requires_grad_(True) for t in (q, k, v)]
-            o = fn(*leaves, causal=True, window=window)
+            o = fn(*leaves, causal=causal, window=window)
             o.backward(do.to(dtype))
             return [o.detach()] + [t.grad for t in leaves]
 
@@ -2691,10 +2737,11 @@ def phase_attention_vjp(chunked, ref, ops, card, device) -> dict:
         ms = _time_ms(lambda: fwd_bwd(chunked.attention), 5)
         plain_ms = _time_ms(lambda: fwd_bwd(ref.attention), 5)
         bf16_ms = _time_ms(lambda: fwd_bwd(chunked.attention, torch.bfloat16), 5)
-        out[name] = {"shape": [b, hq, hkv, s, d], "window": window, "rel_gaps": gaps,
-                     "ms": ms, "plain_ms": plain_ms, "bf16_ms": bf16_ms}
-        print(f"phase 29 (a): chunked attention VJP {name} [{b}, {hq}, {s}, {d}] / [{b}, {hkv}, "
-              f"{s}, {d}] causal{f' window {window}' if window else ''} on {card}: relative "
+        out[name] = {"shape": [b, hq, hkv, sq, skv, d], "causal": causal, "window": window,
+                     "rel_gaps": gaps, "ms": ms, "plain_ms": plain_ms, "bf16_ms": bf16_ms}
+        print(f"phase 29 (a): chunked attention VJP {name} [{b}, {hq}, {sq}, {d}] / [{b}, {hkv}, "
+              f"{skv}, {d}] {'causal' if causal else 'non-causal'}"
+              f"{f' window {window}' if window else ''} on {card}: relative "
               "gaps to autograd through the plain version "
               + ", ".join(f"{n} {g:.3e}" for n, g in gaps.items())
               + f" (bar {VJP_REL:g}); fwd + bwd {ms:.4f} ms float32, {bf16_ms:.4f} ms bf16 "
@@ -3197,16 +3244,18 @@ def phase_serve_recurrent_bf16(flash, ssd_kernel, rglru_kernel, params, logits_f
 
 # Phase 31: the moe, vlm and audio families at their published widths.
 # (arch, layers kept (0: all), batch, prompt, generated tokens, flash
-# launches of one prefill).  mixtral: 2 of 32 layers (a layer is 5.81 GB in
+# launches of one prefill).  mixtral: 1 of 32 layers (a layer is 5.81 GB in
 # float32, the model 187 GB), a prompt of 4352, 256 past the window of 4096,
 # so the prefill folds the ring cache and decode runs through the ring.
-# qwen3-moe: 2 of 94 layers (9.95 GB a layer, 4.98 GB of embedding and
-# head).  internvl2 and whisper whole: 24 layers; 6 encoder layers + 6
+# qwen3-moe: 1 of 94 layers (9.95 GB a layer, 4.98 GB of embedding and
+# head).  Each was 2 layers until phase 35 came: one layer runs every check
+# (routing, the dispatches, the ring) and leaves the script's time for it.
+# internvl2 and whisper whole: 24 layers; 6 encoder layers + 6
 # decoder layers, each of the latter with self- and cross attention, and a
 # decoder prompt of 416 + 32 = 448, whisper's decoder context.
 FAMILY_SERVE = (
-    ("mixtral-8x7b", 2, 4, 4352, 32, 2),
-    ("qwen3-moe-235b-a22b", 2, 4, 1000, 32, 2),
+    ("mixtral-8x7b", 1, 4, 4352, 32, 1),
+    ("qwen3-moe-235b-a22b", 1, 4, 1000, 32, 1),
     ("internvl2-1b", 0, 4, 1024, 32, 24),
     ("whisper-base", 0, 4, 416, 32, 18),
 )
@@ -4088,6 +4137,333 @@ def phase_dryrun(flash, ssd_kernel, rglru_kernel, alloc, card, device) -> dict:
     return out
 
 
+# Phase 35: the moe, vlm and audio families trained at their published
+# widths, one card: (arch, layers kept or 0 for all, batch, sequence).
+# internvl2 (10.1 GB of float32 state) and whisper (1.1 GB) whole; mixtral 2
+# of 32 layers (5.81 GB of float32 parameters a layer, 1.05 GB embedding and
+# head: 50.7 GB of state) at phase 31's 4352, past its window of 4096;
+# qwen3-moe 1 of 94 (9.95 GB a layer, 4.98 GB embedding and head: 59.7 GB;
+# two layers would take 99.5 GB).  tools/family_train_reckon.py reckons each
+# step's peak on fake tensors.
+FAMILY_TRAIN = (
+    ("internvl2-1b", 0, 2, 1024),
+    ("whisper-base", 0, 4, 448),
+    ("mixtral-8x7b", 2, 1, 4352),
+    ("qwen3-moe-235b-a22b", 1, 2, 1024),
+)
+FAMILY_TRAIN_STEPS = 3
+# tests/test_torch_train.py's bar for a bf16 step's loss against float32's.
+BF16_LOSS_REL = 1e-3
+# (c): one MoE layer, 1 x MOE_GRAD_TOKENS tokens, float32; ragged_local held
+# to dense as tests/test_torch_mesh.py holds the mesh's ragged dispatch to it
+# (relative norm).
+MOE_GRAD_TOKENS, MOE_GRAD_REL = 512, 2e-4
+# (d): decode steps of the trained models' generate.
+TRAINED_SERVE_GEN = 8
+CLI_TRAIN = ("whisper-base", 4, 448, 4)  # (e): arch, steps, seq, global batch
+CLI_TIMEOUT_S = 300
+
+
+def _family_cfg(arch: str, layers: int):
+    from repro_torch.configs import get_config
+
+    full = get_config(arch)
+    return full, (full.scaled(n_layers=layers) if layers else full)
+
+
+def _host_copy(tensors) -> list:
+    """Each tensor's bytes copied to the host, for an exact comparison after
+    a replay of its step: the device has no room for them beside a replay
+    at full width (qwen3-moe's parameters are 14.9 GB, its step's peak 66.2
+    GB)."""
+    import torch
+
+    return [t.detach().reshape(-1).view(torch.uint8).cpu() for t in tensors]
+
+
+def _equal_bits(tensors, copies) -> bool:
+    """Every byte of each tensor equals its copy's (``_host_copy``), compared
+    on the tensor's device one tensor at a time."""
+    import torch
+
+    return all(torch.equal(t.detach().reshape(-1).view(torch.uint8), c.to(t.device))
+               for t, c in zip(tensors, copies, strict=True))
+
+
+def _family_train_one(flash, ssd_kernel, rglru_kernel, alloc, row, card, device) -> tuple:
+    """Phase 35 (a), (b) for one FAMILY_TRAIN row; returns the record and,
+    for internvl2 and whisper, the trained parameters."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import uncounted_params
+    from repro_torch.data.pipeline import make_stream_for
+    from repro_torch.launch.train import make_step, train_options
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+    from repro_torch.train.optimizer import init_opt_state
+
+    t_start = time.perf_counter()
+    arch, layers, batch_size, seq = row
+    full, cfg = _family_cfg(arch, layers)
+    model = build_model(cfg, train_options(smoke=False), device=device)
+    f32 = build_model(cfg, ModelOptions(attn_impl="chunked", mixer_impl="chunked",
+                                        activation_dtype="float32", remat="none"),
+                      device=device)
+    step_fn = make_step(model, steps=FAMILY_TRAIN_STEPS)
+    stream = make_stream_for(cfg, seq, batch_size)
+
+    # One batch for every step: the stream's sequences start at random points
+    # of an affine chain over the whole vocabulary, so at these vocabularies
+    # two batches share few tokens and one step barely moves the next batch's
+    # loss (on an H100 80GB HBM3 at 700 W, three steps on the stream's batches
+    # 0-2 left the loss where it was; on one batch they took it down by 0.38
+    # to 7.77).
+    batch = {k: torch.as_tensor(v, device=device) for k, v in stream.batch(0).items()}
+
+    def init():
+        params = model.init(torch.Generator(device=device).manual_seed(0))
+        return params, init_opt_state(params)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    (params, opt_state), init_s = _timed(init)
+    n_params = sum(t.numel() for t in _leaves(params))
+    assert n_params == cfg.param_count() + uncounted_params(cfg), (n_params, cfg.param_count())
+    with torch.no_grad():  # (b) the float32 forward of the first step's parameters and batch
+        loss32, f32_s = _timed(lambda: f32.loss_fn(params, batch)[0].item())
+
+    log, first = [], None
+    flash.LAUNCHES = ssd_kernel.LAUNCHES = rglru_kernel.LAUNCHES = alloc.LAUNCHES = 0
+    for step in range(FAMILY_TRAIN_STEPS):
+        (params, opt_state, m), s = _timed(lambda: step_fn(params, opt_state, batch))
+        log.append({"step": step, "loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+                    "lr": m["lr"].item(), "ms": s * 1e3})
+        if step == 0:  # the first step's parameters, for the replay
+            first, copy_s = _timed(lambda: _host_copy(_leaves(params)))
+    launches = {"flash": flash.LAUNCHES, "ssd": ssd_kernel.LAUNCHES,
+                "rglru": rglru_kernel.LAUNCHES, "alloc": alloc.LAUNCHES}
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    trained = params if arch in FAMILY_BF16 else None
+    del params, opt_state, m
+
+    # The first step again from the same seeded state, under the profiler:
+    # device time by kernel, and the idle share against the steps' walls.
+    t0 = time.perf_counter()
+    params, opt_state = init()
+    torch.cuda.synchronize()
+    # The device's activity alone: the host's op events would take the
+    # profiler 9-14 s to sum for a model of many layers.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, opt_state, m = step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+    replay = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
+    same_params, compare_s = _timed(lambda: _equal_bits(_leaves(params), first))
+    del first
+    replay_s = time.perf_counter() - t0
+    rows, rows_s = _timed(lambda: _kernel_device_rows(
+        prof, ("train_step.loss_and_grad", "train_step.apply_updates")))
+    del prof, params, opt_state, m, batch
+    torch.cuda.empty_cache()
+    device_ms = sum(r["device_us"] for r in rows) * 1e-3
+    step_ms = [r["ms"] for r in log]
+    steady = min(step_ms[1:])
+    idle = 1.0 - device_ms / steady
+
+    tokens = batch_size * seq
+    loss_gap = abs(log[0]["loss"] - loss32) / abs(loss32)
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "full_layers": full.n_layers,
+           "params": n_params, "state_gb": 16 * n_params / 1e9, "batch": batch_size,
+           "seq_len": seq, "init_s": init_s, "log": log, "step_ms": step_ms,
+           "tokens_per_s": [tokens / t * 1e3 for t in step_ms], "peak_mem_gb": peak_gb,
+           "device_ms": device_ms, "idle_share": idle, "launches": launches,
+           "loss_f32": loss32, "bf16_loss_rel_gap": loss_gap, "replay": replay,
+           "replay_params_bitwise": same_params, "top": rows[:8],
+           "parts_s": {"f32_forward": f32_s, "replay": replay_s, "profile_rows": rows_s,
+                       "params_to_host": copy_s, "params_compared": compare_s},
+           "seconds": time.perf_counter() - t_start}
+    for r in log:
+        print(f"phase 35 (a): {cfg.name} step {r['step']} loss {r['loss']:.6f} grad norm "
+              f"{r['grad_norm']:.4f} lr {r['lr']:.3e} {r['ms']:.1f} ms "
+              f"({tokens / r['ms'] * 1e3:.0f} tokens/s)", flush=True)
+    print(f"phase 35 (a): {cfg.name} at published widths, {cfg.n_layers} of {full.n_layers} "
+          f"layers ({n_params} parameters, {16 * n_params / 1e9:.2f} GB of float32 state, init "
+          f"{init_s:.2f} s), bf16 activations, remat, batch {batch_size} x {seq} on {card}: "
+          f"steps {[round(t, 1) for t in step_ms]} ms, {tokens / steady * 1e3:.0f} tokens/s "
+          f"(the fastest after the first), peak memory {peak_gb:.2f} GB; the step replayed "
+          f"under the profiler: device {device_ms:.1f} ms, idle share {idle:.4f} of the "
+          f"fastest step; "
+          f"kernel launches {launches}; step 0 replayed: loss {replay['loss']:.6f}, grad norm "
+          f"{replay['grad_norm']:.4f}, parameters bit for bit {same_params}; "
+          f"{rec['seconds']:.1f} s", flush=True)
+    print(f"phase 35 (b): {cfg.name} first loss bf16 {log[0]['loss']:.6f}, float32 forward "
+          f"{loss32:.6f}: relative gap {loss_gap:.3e} (bar {BF16_LOSS_REL:g})", flush=True)
+    for r in rows[:5]:
+        print(f"phase 35 (a):   {r['device_us'] / 1e3:9.2f} ms {r['count']:6d}x {r['name'][:90]}",
+              flush=True)
+    assert launches == {"flash": 0, "ssd": 0, "rglru": 0, "alloc": 0}, launches
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in log), log
+    assert log[-1]["loss"] < log[0]["loss"], log
+    assert peak_gb < 80.0, peak_gb
+    assert replay == {k: log[0][k] for k in replay}, (replay, log[0])
+    assert same_params, "the replayed step's parameters differ from the first pass's"
+    assert loss_gap <= BF16_LOSS_REL, (log[0]["loss"], loss32)
+    return rec, trained
+
+
+def _moe_grads(cfg, device) -> dict:
+    """Phase 35 (c): one MoE layer at ``cfg``'s widths, float32, its loss
+    and gradients under ``dense`` and twice under ``ragged_local``."""
+    import torch
+
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=device).manual_seed(35)
+    p = moe.moe_init(gen, cfg)
+    x = torch.randn((1, MOE_GRAD_TOKENS, cfg.d_model), generator=gen, device=device)
+    cot = torch.randn((1, MOE_GRAD_TOKENS, cfg.d_model), generator=gen, device=device)
+    names = ("x",) + tuple(sorted(p))
+
+    def grads(impl):
+        leaf = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        xs = x.detach().requires_grad_(True)
+        with moe.recording_routes() as routes:
+            (out, aux), s = _timed(lambda: moe.moe_apply(leaf, xs, cfg, impl=impl))
+        loss = (out * cot).sum() + aux
+        g, bwd_s = _timed(lambda: torch.autograd.grad(loss, [xs] + [leaf[k] for k in names[1:]]))
+        return {"loss": loss.detach(), "aux": aux.detach(), "grads": dict(zip(names, g)),
+                "routes": routes, "fwd_s": s, "bwd_s": bwd_s}
+
+    dense = grads("dense")
+    ragged = grads("ragged_local")
+    again = grads("ragged_local")
+    gaps = {"loss": _rel_norm(ragged["loss"], dense["loss"]),
+            "aux": _rel_norm(ragged["aux"], dense["aux"])}
+    gaps.update({k: _rel_norm(ragged["grads"][k], dense["grads"][k]) for k in names})
+    bitwise = torch.equal(ragged["loss"], again["loss"]) and all(
+        torch.equal(ragged["grads"][k], again["grads"][k]) for k in names)
+    (ids, margin), = ragged["routes"]
+    (ids_d, _), = dense["routes"]
+    idle_experts = cfg.n_experts - int(torch.unique(ids).numel())
+    rec = {"tokens": MOE_GRAD_TOKENS, "experts": cfg.n_experts, "top_k": cfg.top_k,
+           "rel_gaps": gaps, "ragged_twice_bitwise": bitwise,
+           "routed_apart": int((ids.sort(-1).values != ids_d.sort(-1).values).any(-1).sum()),
+           "experts_without_token": idle_experts, "min_topk_margin": float(margin.min()),
+           "dense_s": [dense["fwd_s"], dense["bwd_s"]],
+           "ragged_s": [ragged["fwd_s"], ragged["bwd_s"]]}
+    del dense, ragged, again, p, x, cot
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _serve_trained(flash, cfg, params, card, device) -> dict:
+    """Phase 35 (d): trained parameters through ``generate``, float32, the
+    prefill on the flash kernel; the prefill logits against the plain
+    path's."""
+    import torch
+
+    from repro_torch.launch.serve import generate, make_batch
+    from repro_torch.models.common import ModelOptions
+    from repro_torch.models.model import build_model
+
+    _, _, batch_size, prompt, _, want_launches = next(r for r in FAMILY_SERVE
+                                                      if r[0] == cfg.name)
+    f32 = dict(activation_dtype="float32")
+    model = build_model(cfg, ModelOptions(attn_impl="cuda", **f32), device=device)
+    plain = build_model(cfg, ModelOptions(attn_impl="ref", **f32), device=device)
+    batch = make_batch(cfg, batch_size, prompt, device)
+    timings = {}
+    torch.cuda.synchronize()
+    flash.LAUNCHES = flash.ALIGN_COPIES = 0
+    ids = generate(model, params, batch, gen_len=TRAINED_SERVE_GEN, timings=timings)
+    torch.cuda.synchronize()
+    launches, copies = flash.LAUNCHES, flash.ALIGN_COPIES
+    got, _ = model.prefill_fn(params, batch)
+    want, _ = plain.prefill_fn(params, batch)
+    err = (got - want).abs().max().item()
+    rec = {"batch": batch_size, "prompt_len": prompt, "gen_len": TRAINED_SERVE_GEN,
+           "flash_launches": launches, "align_copies": copies,
+           "prefill_s": timings["prefill_s"], "decode_s": timings["decode_s"],
+           "logits_max_abs_err_vs_plain": err, "max_abs_logit": want.abs().max().item(),
+           "sample_ids": ids[0].tolist()}
+    print(f"phase 35 (d): trained {cfg.name} through generate, float32, batch {batch_size} x "
+          f"prompt {prompt} + {TRAINED_SERVE_GEN} tokens on {card}: prefill "
+          f"{timings['prefill_s']:.4f} s, decode {timings['decode_s']:.4f} s; flash launches "
+          f"{launches}, alignment copies {copies}; prefill logits kernel vs plain max |err| "
+          f"{err:.3e} (max |logit| {rec['max_abs_logit']:.3f})", flush=True)
+    assert launches == want_launches and copies == 0, (launches, copies)
+    assert bool(torch.isfinite(got).all()) and ids.shape == (batch_size, TRAINED_SERVE_GEN)
+    torch.testing.assert_close(got, want, **LOGIT_TOL)
+    del got, want, batch
+    return rec
+
+
+def _train_cli(card) -> dict:
+    """Phase 35 (e): the training entry point as a user runs it, full width
+    on the card, in a process of its own."""
+    import os
+    import re
+    import tempfile
+
+    from repro_torch.train import checkpoint
+
+    arch, steps, seq, batch = CLI_TRAIN
+    with tempfile.TemporaryDirectory() as ckpt:
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch, "--steps",
+               str(steps), "--seq-len", str(seq), "--global-batch", str(batch), "--ckpt-dir",
+               ckpt, "--log-every", "1"]
+        run, wall = _timed(lambda: subprocess.run(
+            cmd, env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, cwd=ROOT,
+            capture_output=True, text=True, timeout=CLI_TIMEOUT_S))
+        assert run.returncode == 0, run.stderr[-3000:]
+        manifest_step = checkpoint.load_manifest(ckpt)["step"]
+    losses = [float(x) for x in re.findall(r"^step +\d+ loss (\S+)", run.stdout, re.M)]
+    print(f"phase 35 (e): python {' '.join(cmd[1:11])} --ckpt-dir <tmp> --log-every 1 on "
+          f"{card}: exit {run.returncode} in {wall:.1f} s; losses {losses}; checkpoint at step "
+          f"{manifest_step}; {run.stdout.strip().splitlines()[-1]}", flush=True)
+    assert len(losses) == steps and all(math.isfinite(v) for v in losses), run.stdout
+    assert losses[-1] < losses[0], losses
+    assert manifest_step == steps, manifest_step
+    return {"cmd": cmd[1:], "wall_s": wall, "losses": losses, "checkpoint_step": manifest_step}
+
+
+def phase_family_train(flash, ssd_kernel, rglru_kernel, alloc, card, device) -> dict:
+    """Phase 35: (a), (b) each FAMILY_TRAIN config; (c) each MoE layer's
+    dispatch backward; (d) the trained internvl2 and whisper served; (e)
+    the training CLI."""
+    t0 = time.perf_counter()
+    out = {"train": {}, "moe_grads": {}, "serve": {}}
+    for row in FAMILY_TRAIN:
+        rec, trained = _family_train_one(flash, ssd_kernel, rglru_kernel, alloc, row, card,
+                                         device)
+        out["train"][row[0]] = rec
+        _, cfg = _family_cfg(row[0], row[1])
+        if cfg.n_experts:
+            g = _moe_grads(cfg, device)
+            out["moe_grads"][row[0]] = g
+            print(f"phase 35 (c): one {cfg.name} MoE layer at full width ({cfg.n_experts} "
+                  f"experts, top {cfg.top_k}), 1 x {g['tokens']} tokens, float32 on {card}: "
+                  "ragged_local vs dense relative gaps "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in g["rel_gaps"].items())
+                  + f" (bar {MOE_GRAD_REL:g}); ragged_local twice bit for bit "
+                  f"{g['ragged_twice_bitwise']}; experts without a token "
+                  f"{g['experts_without_token']}, tokens routed apart {g['routed_apart']}, "
+                  f"smallest top-k margin {g['min_topk_margin']:.3e}; fwd, bwd s dense "
+                  f"{[round(t, 4) for t in g['dense_s']]}, ragged_local "
+                  f"{[round(t, 4) for t in g['ragged_s']]}", flush=True)
+            assert g["routed_apart"] == 0, g["routed_apart"]
+            assert max(g["rel_gaps"].values()) <= MOE_GRAD_REL, g["rel_gaps"]
+            assert g["ragged_twice_bitwise"], "ragged_local's backward is not deterministic"
+        if trained is not None:
+            out["serve"][row[0]] = _serve_trained(flash, cfg, trained, card, device)
+            del trained
+    out["cli"] = _train_cli(card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 35: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4192,6 +4568,7 @@ def main() -> int:
     mesh = phase_mesh(alloc, sweeps, dict(results)["quantized-fused"], card, device)
     elastic = phase_elastic(flash_attention, ssd_scan, rglru_scan, alloc, card, device)
     dry = phase_dryrun(flash_attention, ssd_scan, rglru_scan, alloc, card, device)
+    fam_train = phase_family_train(flash_attention, ssd_scan, rglru_scan, alloc, card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -4216,6 +4593,8 @@ def main() -> int:
         "launches_stream_probe": tel["launches"]["stream_fused_probe"],
         "launches_elastic": elastic["launches"]["alloc"],
         "launches_dryrun": dry["launches"]["alloc"],
+        "launches_family_train": {a: r["launches"]["alloc"]
+                                  for a, r in fam_train["train"].items()},
         "ms_fig4": fig["alloc_ms"],
         "plain_ms_fig4": fig["alloc_plain_ms"],
         "bound_ms_fig4": fig["alloc_bound_ms"],
@@ -4253,6 +4632,10 @@ def main() -> int:
         "launches_families": {a: r["launches"]["flash"] for a, r in families["serve"].items()},
         "launches_families_bf16": {a: r["bf16_launches"] for a, r in families["serve"].items()
                                    if "bf16_launches" in r},
+        "launches_family_train": {a: r["launches"]["flash"]
+                                  for a, r in fam_train["train"].items()},
+        "launches_family_trained_serve": {a: r["flash_launches"]
+                                          for a, r in fam_train["serve"].items()},
         "family_shapes": {name: {dt: {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                                          "bound_by", "library_ms",
                                                          "max_abs_err")}
@@ -4271,6 +4654,8 @@ def main() -> int:
         "launches_bf16": ssm_bf16["launches"]["ssd"],
         "launches_elastic": elastic["launches"]["ssd"],
         "launches_dryrun": dry["launches"]["ssd"],
+        "launches_family_train": {a: r["launches"]["ssd"]
+                                  for a, r in fam_train["train"].items()},
         "max_abs_err": ssd_err["float32"]["y"],
         "max_abs_err_bf16": ssd_err["bfloat16"]["y"],
         "max_abs_err_state": ssd_err["float32"]["state"],
@@ -4288,6 +4673,8 @@ def main() -> int:
         "launches_bf16": hybrid_bf16["launches"]["rglru"],
         "launches_elastic": elastic["launches"]["rglru"],
         "launches_dryrun": dry["launches"]["rglru"],
+        "launches_family_train": {a: r["launches"]["rglru"]
+                                  for a, r in fam_train["train"].items()},
         "max_abs_err": rglru_err["float32"]["y"],
         "max_abs_err_bf16": rglru_err["bfloat16"]["y"],
         "max_abs_err_state": rglru_err["float32"]["state"],
@@ -4346,6 +4733,7 @@ def main() -> int:
         "mesh": mesh,
         "elastic": elastic,
         "dryrun": dry,
+        "family_train": fam_train,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -1,6 +1,6 @@
 """Server-allocation policies: heSRPT and its competitors.
 
-Port of ``repro.core.policies``: ``hesrpt``, ``helrpt``, ``srpt``,
+Port of ``repro.core.policies``: ``size_ranks_desc``, ``hesrpt``, ``helrpt``, ``srpt``,
 ``equi``, the rank-space forms, the paper's Fig-4 competitors ``hell`` and
 ``knee``, and the class-aware ``hesrpt_per_class``, ``weighted_hesrpt`` and
 ``waterfill``.  Every policy maps remaining sizes ``x[..., M]`` (entries
@@ -86,12 +86,17 @@ def srpt_theta_from_ranks(ranks, m, p=None, *, dtype=torch.float64) -> torch.Ten
     return ((ranks == m) & (m > 0)).to(dtype)
 
 
+def size_ranks_desc(x: torch.Tensor) -> torch.Tensor:
+    """Each active job's rank by remaining size, descending: the largest
+    gets 1, the smallest the number of active jobs; departed jobs get 0.
+    Ties go by index (a stable sort)."""
+    return ranks_from_order(size_order_desc(x), x > 0)
+
+
 def hesrpt(x: torch.Tensor, p) -> torch.Tensor:
     """heSRPT (Theorem 7): the optimal allocation for total flow time."""
-    active = x > 0
-    m = active.sum(-1, keepdim=True)
-    ranks = ranks_from_order(size_order_desc(x), active)
-    return hesrpt_theta_from_ranks(ranks, m, p, dtype=x.dtype)
+    m = (x > 0).sum(-1, keepdim=True)
+    return hesrpt_theta_from_ranks(size_ranks_desc(x), m, p, dtype=x.dtype)
 
 
 def helrpt(x: torch.Tensor, p) -> torch.Tensor:

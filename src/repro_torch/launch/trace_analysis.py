@@ -202,13 +202,21 @@ class TraceMode(TorchDispatchMode):
                 self.trace.append({"free": sid})
         return cb
 
-    def _new_storages(self, outs) -> list:
+    def _new_storages(self, outs, ins) -> list:
+        """The storages ``outs`` bring that no earlier op of the trace made
+        and no input of this op holds: an in-place op's or a view's output
+        on a storage from before the trace (a parameter, a moment) is none
+        of the step's own bytes."""
+        held = {t.untyped_storage()._cdata for t in ins
+                if not (t.device.type == "meta" and not isinstance(t, self._fake))}
         new = []
         for t in outs:
             if t.device.type == "meta" and not isinstance(t, self._fake):
                 continue
             st = t.untyped_storage()
             key = st._cdata
+            if key in held:
+                continue
             seen = self._seen.get(key)
             if seen is not None and seen[0]() is st:
                 continue
@@ -239,7 +247,7 @@ class TraceMode(TorchDispatchMode):
             dest = outs if name.startswith("_c10d") else _tensors(args[0])
             rec["coll"] = kind
             rec["coll_bytes"] = sum(_nbytes(_desc(t)) for t in dest)
-        new = self._new_storages(outs)
+        new = self._new_storages(outs, ins)
         if new:
             rec["new"] = new
         self.trace.append(rec)

@@ -155,6 +155,32 @@ class _SumGrad(torch.autograd.Function):
         return grad, None
 
 
+class _DenseGrad(torch.autograd.Function):
+    """The identity on a DTensor, whose backward hands the gradient on with
+    its local tensor and its global strides both contiguous.  The backward
+    of ``local_map``'s input redistribution (an all-gather) gives a
+    contiguous local gradient the strides of the forward's input, a
+    transposed view; a later view that merges the heads back (``reshape``
+    after ``split_last``) is then allowed by the global strides and refused
+    by the local ones (whisper-base's K and V, held whole over the model
+    axis, on a mesh whose model axis divides its heads)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor
+
+        local = grad.to_local()
+        if grad.is_contiguous() and local.is_contiguous():
+            return grad
+        return DTensor.from_local(local.contiguous(), grad.device_mesh, grad.placements,
+                                  run_check=False, shape=grad.shape,
+                                  stride=torch.empty(grad.shape, device="meta").stride())
+
+
 def rank_by_rank(fn, args: tuple, dims: tuple, out_dims: tuple):
     """``fn(*args)``, on DTensors as a ``local_map`` rank by rank.  ``dims``
     gives each arg's ``(batch_dim, head_dim)`` and ``out_dims`` each
@@ -162,7 +188,8 @@ def rank_by_rank(fn, args: tuple, dims: tuple, out_dims: tuple):
     dims over the mesh's data axes where they divide, the head dims over its
     model axis where every one divides, every other dim whole on every rank.
     An arg whole over an axis that splits the work has its gradient summed
-    over that axis.  On plain tensors ``fn(*args)``."""
+    over that axis, and comes back with contiguous strides (:class:`_DenseGrad`).
+    On plain tensors ``fn(*args)``."""
     lead = next(a for a in args if a is not None)
     if not is_dtensor(lead):
         return fn(*args)
@@ -197,5 +224,6 @@ def rank_by_rank(fn, args: tuple, dims: tuple, out_dims: tuple):
                     for a, g in zip(local_args, sums, strict=True)))
 
     out_pl = tuple(place(*d) for d in out_dims)
+    args = tuple(_DenseGrad.apply(a) if a is not None and a.requires_grad else a for a in args)
     return local_map(local, out_placements=out_pl if len(out_pl) > 1 else list(out_pl[0]),
                      in_placements=in_pl, device_mesh=mesh, redistribute_inputs=True)(*args)

@@ -112,7 +112,7 @@ def _dec_block(bp, x, *, cfg, opts, mode, positions, enc_out, cache, cache_lengt
         impl=opts.attn_impl, cache=None if cache is None else cache["self"],
         cache_length=cache_length, return_cache=want,
     )
-    x = x + out
+    x = constrain_batch(x + out, opts.parallel)
     if mode == "prefill":
         sc = resize_kv_cache(sc, x.shape[1], prefill_capacity or x.shape[1], cfg, 0)
     out, cc = apply_attn(

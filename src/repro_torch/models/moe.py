@@ -12,11 +12,14 @@ so no ``[B, S, E, d_model]`` tensor is ever made.
 The ``B * S * top_k`` (token, expert) assignments are sorted by expert
 (a stable sort, so within an expert tokens keep their order), each expert
 runs its SwiGLU on its own rows (one product a projection), and the rows go
-back to their tokens through the inverse permutation.  The group sizes are
-read to the host once a layer, to slice the rows.  The products are PyTorch
-matrix products: the JAX package has no Pallas kernel here (its
-``lax.ragged_dot`` is XLA's), and a grouped GEMM for Hopper is a speed lever
-(ROADMAP.md "Speed of the port").
+back to their tokens through the inverse permutation.  Its backward
+gathers and scatters by unique indices only and sums each token's
+``top_k`` rows in a fixed order, so it adds no two values with float
+atomics: two backward passes on the card agree bit for bit.  The
+group sizes are read to the host once a layer, to slice the rows.  The
+products are PyTorch matrix products: the JAX package has no Pallas kernel
+here (its ``lax.ragged_dot`` is XLA's), and a grouped GEMM for Hopper is a
+speed lever (ROADMAP.md "Speed of the port").
 
 Under a mesh (``parallel``, a ``models.common.ParallelConfig``; the
 activations and weights DTensors):
@@ -152,6 +155,28 @@ def moe_apply_dense(p, x, cfg, *, mean=None, rows=None, experts=None, combine=No
     return (out if combine is None else combine(out)), aux
 
 
+class _GatherRepeated(torch.autograd.Function):
+    """``rows[order // k]``: each token's row at its ``k`` assignments, in
+    the order ``order`` (a permutation of the ``t k`` assignments).  The
+    backward takes the gradient back to assignment order by the inverse
+    permutation and sums each token's ``k`` rows in a fixed order, where
+    ``index_select``'s own backward would add them with float atomics on
+    the card (every token index appears ``k`` times)."""
+
+    @staticmethod
+    def forward(ctx, rows, order, k):
+        ctx.save_for_backward(order)
+        ctx.k = k
+        return rows.index_select(0, order // k)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (order,) = ctx.saved_tensors
+        inv = torch.empty_like(order).scatter_(
+            0, order, torch.arange(order.numel(), device=order.device))
+        return grad.index_select(0, inv).view(-1, ctx.k, grad.shape[-1]).sum(1), None, None
+
+
 def _ragged(router, gate, up, down, x, cfg, *, rows=None, combine=None):
     """The dropless dispatch on local tensors: routes ``x`` ``[b, S, D]``,
     runs each expert's SwiGLU on its rows of ``rows`` (``x`` by default;
@@ -166,16 +191,19 @@ def _ragged(router, gate, up, down, x, cfg, *, rows=None, combine=None):
     t = b * s
     flat_ids = ids.reshape(t * k)
     order = torch.argsort(flat_ids, stable=True)
-    xs = rows.reshape(t, d).index_select(0, order // k)  # [t k, D], grouped by expert
+    xs = _GatherRepeated.apply(rows.reshape(t, d), order, k)  # [t k, D], grouped by expert
     sizes = torch.bincount(flat_ids, minlength=e).tolist()  # the layer's one host read
+    # One unbind a weight: its backward stacks the experts' gradients in one
+    # pass, where an index an expert would make a whole-weight gradient each.
+    gates, ups, downs = gate.unbind(0), up.unbind(0), down.unbind(0)
     parts, start = [], 0
     for ex, n in enumerate(sizes):
         if n:
             r = xs[start:start + n]
-            g = F.linear(r, gate[ex].to(x.dtype))
-            u = F.linear(r, up[ex].to(x.dtype))
+            g = F.linear(r, gates[ex].to(x.dtype))
+            u = F.linear(r, ups[ex].to(x.dtype))
             h = F.silu(g.float()).to(x.dtype) * u
-            parts.append(F.linear(h, down[ex].to(x.dtype)))
+            parts.append(F.linear(h, downs[ex].to(x.dtype)))
         start += n
     part = torch.cat(parts) if parts else xs.new_zeros(0, d)
     if combine is not None:

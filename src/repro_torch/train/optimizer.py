@@ -82,6 +82,18 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: g * scale, grads), norm
 
 
+def _adamw_(master, g, m, v, lr, bc1, bc2, cfg: OptimizerConfig) -> None:
+    """One leaf's AdamW step, written into its float32 ``master``, ``m`` and
+    ``v``, with at most two temporaries of the leaf's size at a time (an
+    expert leaf of qwen3-moe is 3.2 GB)."""
+    m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+    v.mul_(cfg.b2).add_(((1 - cfg.b2) * g).mul_(g))
+    delta = m / bc1
+    delta.div_((v / bc2).sqrt_().add_(cfg.eps))
+    delta.add_(cfg.weight_decay * master)
+    master.sub_(delta.mul_(lr))
+
+
 def apply_updates(params, grads, opt_state, cfg: OptimizerConfig, *, inplace: bool = False):
     """One AdamW step: ``(params, opt_state, {"grad_norm", "lr"})``.
 
@@ -101,9 +113,8 @@ def apply_updates(params, grads, opt_state, cfg: OptimizerConfig, *, inplace: bo
 
     step = opt_state["step"] + 1
     lr = schedule(step, cfg)
-    b1, b2 = cfg.b1, cfg.b2
-    bc1 = 1.0 - torch.pow(b1, step.to(torch.float32))
-    bc2 = 1.0 - torch.pow(b2, step.to(torch.float32))
+    bc1 = 1.0 - torch.pow(cfg.b1, step.to(torch.float32))
+    bc2 = 1.0 - torch.pow(cfg.b2, step.to(torch.float32))
 
     masters = opt_state.get("master")
     flat_p = leaves(params)
@@ -113,21 +124,21 @@ def apply_updates(params, grads, opt_state, cfg: OptimizerConfig, *, inplace: bo
         raise ValueError("params, grads and optimizer state differ in structure")
     new = []
     for p, pm, g, m, v in zip(flat_p, flat_pm, flat_g, flat_m, flat_v):
-        pmf = (pm if pm is not None else p).to(torch.float32)
-        m_new = b1 * m + (1 - b1) * g
-        v_new = b2 * v + (1 - b2) * g * g
-        delta = (m_new / bc1) / (torch.sqrt(v_new / bc2) + cfg.eps) + cfg.weight_decay * pmf
-        master = pmf - lr * delta
-        del delta
+        src = pm if pm is not None else p
+        if not inplace:
+            m, v = m.clone(), v.clone()
+        # The step runs on a float32 master: the leaf itself where it is
+        # float32 and updated in place, else a float32 copy (a bf16 leaf
+        # with no master is updated in float32 and rounded once).
+        master = src if inplace and src.dtype == torch.float32 else src.to(
+            torch.float32, copy=True)
+        _adamw_(master, g, m, v, lr, bc1, bc2, cfg)
         if inplace:
-            p.copy_(master)
-            m.copy_(m_new)
-            v.copy_(v_new)
-            if pm is not None:
-                pm.copy_(master)
+            if master is not p:
+                p.copy_(master)
             new.append((p, m, v, pm))
         else:
-            new.append((master.to(p.dtype), m_new, v_new, master))
+            new.append((master.to(p.dtype), m, v, master))
 
     def rebuild(tree, k):
         it = iter(o[k] for o in new)

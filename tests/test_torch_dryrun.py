@@ -23,8 +23,9 @@ reference, on the CPU.
   ``analyze_record``'s terms equal to JAX's times the ratio of the H100 and
   TPU v5e constants.
 - The miniature dry run (JAX's ``test_miniature_dryrun``: smoke mixtral's
-  train step on a fake ``(2, 2, 2)`` pod/data/model mesh), a refused cell,
-  and the options a fake trace cannot run.
+  train step on a fake ``(2, 2, 2)`` pod/data/model mesh), the smoke
+  whisper's train step on the fake meshes that reproduce whisper-base's
+  train_4k cell, a refused cell, and the options a fake trace cannot run.
 
 Every fake world runs in a subprocess: the default process group is
 process-global, and the test workers share processes.
@@ -192,6 +193,24 @@ def test_bytes_and_peak_of_a_hand_counted_program(tmp_path):
     path = str(tmp_path / "t.trace.jsonl.gz")
     ta.write_trace(path, trace)
     assert ta.read_trace(path) == trace
+
+
+def test_peak_leaves_out_what_lands_on_an_arguments_storage():
+    """An in-place op on an argument (a donated step's AdamW on its moments)
+    and a view of one (the train step's detached aliases) bring no bytes of
+    the step's own: the peak is the one new [64, 32] float32 storage."""
+    a = torch.ones(64, 32)
+
+    def program():
+        a.mul_(2)
+        b = a.detach()
+        return (b + 1).sum()
+
+    _, trace = ta.trace_fn(program)
+    got = ta.analyze_trace(trace)
+    assert [r["op"] for r in trace if "op" in r] == ["aten.mul_", "aten.detach", "aten.add",
+                                                     "aten.sum"]
+    assert got["peak_live_bytes"] == 64 * 32 * 4 + 4
 
 
 def _run_fake_world(body: str, timeout: int = 240) -> dict:
@@ -419,6 +438,37 @@ def test_miniature_dryrun():
     mem = got["memory"]
     assert mem["temp_size_in_bytes"] > 0 and mem["argument_size_in_bytes"] > 0
     assert got["trace_ops"] > 0
+
+
+@pytest.mark.parametrize("model_axis,kv_heads", [(8, 2), (4, 4)])
+def test_whisper_train_step_traces_on_a_fake_mesh(model_axis, kv_heads):
+    """The smoke whisper's train step on a fake ``(2, model_axis)`` mesh,
+    the reproducer of whisper-base's train_4k cell on ``(16, 16)``.
+
+    - ``(8, 2)``: 4 query heads do not divide the model axis, as whisper's 8
+      do not divide 16.  The decoder's self-attention residual left a
+      partial sum that DTensor turned into a strided token shard over the
+      model axis, and a weight gradient's ``mm`` then failed its sharding
+      propagation (``aten._local_scalar_dense``); ``encdec._dec_block`` now
+      pins that residual to the batch layout as every other sublayer.
+    - ``(4, 4)``: as many K/V heads as query heads (whisper-base's 8 and 8),
+      dividing the model axis.  The backward of ``local_map``'s input
+      redistribution gave K's and V's gradients contiguous local tensors
+      under transposed global strides, and the view that merges the heads
+      back failed; ``common.rank_by_rank`` hands them on contiguous."""
+    got = _run_fake_world(f"""
+        from repro_torch.configs import ShapeConfig, smoke_config
+        dryrun.start_fake_world({2 * model_axis})
+        mesh = mesh_lib.make_mesh((2, {model_axis}), ("data", "model"), device_type="cpu")
+        cfg = smoke_config("whisper-base").scaled(n_kv_heads={kv_heads})
+        with FakeTensorMode():
+            fn, args = dryrun.build_cell(cfg, ShapeConfig("mini", 32, 4, "train"), mesh,
+                                         microbatches=1)
+            rec, trace = dryrun.trace_step(fn, args)
+        print(json.dumps(rec))
+    """)
+    assert got["cost"]["flops"] == got["cost"]["flop_counter_flops"] > 0
+    assert got["memory"]["temp_size_in_bytes"] > 0 and got["trace_ops"] > 0
 
 
 def test_a_refused_cell_is_recorded_as_skipped(tmp_path):

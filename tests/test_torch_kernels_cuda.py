@@ -16,7 +16,8 @@
   against ``kernels.chunked.rglru`` in float32;
 - the smoke models' prefills through the flash kernel against plain
   attention (logits 2e-4), the moe, vlm and audio ones included (routing
-  equal, the launches one per attention call).
+  equal, the launches one per attention call);
+- the MoE ``ragged_local`` dispatch's backward, twice: bit for bit.
 
 Needs an NVIDIA card and nvcc (the kernels have no CPU mode), so every test
 is marked ``cuda`` and skips where ``torch.cuda.is_available()`` is False.
@@ -775,3 +776,17 @@ def test_smoke_train_steps_on_card_match_the_cpu(cuda_device, arch):
     for a, b in zip(gg, gc, strict=True):
         assert rel(a, b) <= 1e-5
     assert rel(torch.cat([t.flatten() for t in pg]), torch.cat([t.flatten() for t in pc])) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "qwen3-moe-235b-a22b"])
+def test_ragged_local_backward_twice_is_bit_for_bit_on_card(cuda_device, arch):
+    """``models/moe.py::_ragged``'s backward gathers and scatters by unique
+    indices only, so it adds no two values with float atomics: two backward
+    passes of the smoke configs' MoE layer agree bit for bit on the card
+    (``tests/torch_moe_twice.py``, which the CPU test runs too)."""
+    from torch_moe_twice import ragged_local_twice
+
+    runs = ragged_local_twice(smoke_config(arch), cuda_device)
+    for a, b in zip(*runs, strict=True):
+        assert torch.equal(a, b)

@@ -415,10 +415,13 @@ def test_train_step_on_a_pod_data_model_mesh(spawn_b):
 # (heads split over the model axis where they divide, whole where they do not:
 # "mamba2-odd" has 3 heads), the encoder-decoder's batch constraints, and
 # decode_fn's rank-by-rank attention over caches that prefill_fn placed.
+# "whisper-mha" has as many K/V heads as query heads, as whisper-base has:
+# its K and V, whole over the model axis, are split into heads there.
 FAMILY_TRAIN = {"mamba2-130m": ("mamba2-130m", {}),
                 "mamba2-odd": ("mamba2-130m", {"d_model": 48, "ssm_head_dim": 32}),
                 "recurrentgemma-9b": ("recurrentgemma-9b", {}),
-                "whisper-base": ("whisper-base", {})}
+                "whisper-base": ("whisper-base", {}),
+                "whisper-mha": ("whisper-base", {"n_kv_heads": 4})}
 FAMILY_DECODE = ("phi4-mini-3.8b", "mamba2-130m", "recurrentgemma-9b", "whisper-base")
 DECODE_PROMPT, DECODE_STEPS = 16, 2
 
