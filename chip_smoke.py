@@ -401,7 +401,23 @@ raises, and the exit code is not 0):
     ``python -m repro_torch.launch.train --arch whisper-base`` (no
     ``--smoke``: full width, on the card by default), 4 steps of 4 x 448
     and its checkpoints, in a process of its own: exit 0, every step's loss
-    printed and finite, the last below the first.
+    printed and finite, the last below the first;
+36. the port's last gaps against the JAX package (``phase_gaps``): (a) the
+    smoke fused lane and the smoke fused stream lane, the alloc count
+    zeroed just before each and read just after (2M each), and phase 3's
+    full fused lane, each through ``SweepResult.to_json`` ->
+    ``from_json``: the spec equal and every stats array bit for bit; (b)
+    flash at ``FLASH_SCALES`` (0.1 and 1.0), float32 and bf16, at D = 128
+    and the zero-padded 80, against ``ref.attention`` with the same scale
+    (``FLASH_TOL``; bf16 also ``FLASH_BF16_TIGHT`` and ``FLASH_BF16_REL``),
+    and ``scale=None`` the call without it bit for bit; (c) the four
+    ``examples/*_torch.py`` at their defaults with ``--device cuda``
+    (train_100m at ``TRAIN_100M_STEPS``, 100 of its 300), each in a process
+    of its own, the four at once: exit 0; quickstart's simulated flow time
+    and makespan print as their closed forms; serve_batch's smoke mixtral
+    ring cache holds the window; train_100m's loss falling; the elastic
+    example's achieved total flow time within ``ELASTIC_BAR`` of the closed
+    form (``tests/test_torch_elastic.py``'s bar).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -2358,7 +2374,8 @@ def phase_multiclass(alloc, lanes, sweeps, multiclass, arrivals, policies, card,
             stats[name] = res.stats[name]
             for m, a in stats[name].items():
                 assert np.all(np.isfinite(a)), (label, name, m)
-        res = sweeps.SweepResult(spec, stats, sum(by_pol.values()), device.type, 1, device)
+        res = sweeps.SweepResult(spec, stats, sum(by_pol.values()), backend=device.type,
+                                 device=device)
         walls[label], results[label] = by_pol, res
         gaps[label] = lanes.gap_ratios(res)
         # Means over seeds: [R] overall, [R, K] per class.
@@ -4464,6 +4481,180 @@ def phase_family_train(flash, ssd_kernel, rglru_kernel, alloc, card, device) -> 
     return out
 
 
+FLASH_SCALES = (0.1, 1.0)
+# (b, hq, hkv, sq, skv, causal, window, transposed views) for phase 36 (b)
+SCALE_CASES = ((2, 8, 4, 256, 256, True, 0, False), (1, 4, 2, 190, 330, True, 100, True))
+SCALE_HEAD_DIMS = (128, 80)
+EXAMPLES = ("quickstart_torch", "serve_batch_torch", "train_100m_torch",
+            "train_cluster_elastic_torch")
+EXAMPLE_TIMEOUT_S = 300
+# train_100m's steps: its default is 300, cut to 100 for the script's time:
+# with 300 the script took 801.2 s on an H100 at 700 W, phase 36 78.3 s of
+# it and train_100m 77.3 s.
+TRAIN_100M_STEPS = 100
+ELASTIC_BAR = 0.35  # tests/test_torch_elastic.py: achieved / closed - 1
+
+
+def _same_result(res, back) -> bool:
+    """``back`` is ``res`` read back: the spec equal, every array bit for bit."""
+    import numpy as np
+
+    if back.spec != res.spec or set(back.stats) != set(res.stats):
+        return False
+    return all(np.ascontiguousarray(back.stats[n][m]).tobytes()
+               == np.ascontiguousarray(a, dtype=np.float64).tobytes()
+               and back.stats[n][m].shape == np.shape(a)
+               for n in res.stats for m, a in res.stats[n].items())
+
+
+def _json_round_trip(alloc, lanes, sweeps, fused_full, card, device) -> dict:
+    """Phase 36 (a)."""
+    import torch
+
+    out = {"launches": {}, "bytes": {}, "bitwise": {}}
+    specs = {"fused": dict(lanes.lane_specs(smoke=True))["quantized-fused"],
+             "stream": dict(lanes.stream_lane_specs(smoke=True))["stream-quantized-fused"]}
+    results = {"fused_full": fused_full}
+    for label, spec in specs.items():
+        torch.cuda.synchronize()
+        alloc.LAUNCHES = 0
+        results[label] = sweeps.run_sweep(spec, log=False, device=device)
+        torch.cuda.synchronize()
+        out["launches"][label] = alloc.LAUNCHES
+        assert out["launches"][label] == 2 * spec.n_jobs, (label, out["launches"])
+    for label, res in results.items():
+        text = res.to_json()
+        back = sweeps.SweepResult.from_json(text, device=device)
+        out["bytes"][label] = len(text)
+        out["bitwise"][label] = _same_result(res, back)
+        assert out["bitwise"][label], f"{label}: to_json -> from_json is not the result"
+        assert back.device == device and back.to_json() == text, label
+    print("phase 36 (a): SweepResult.to_json -> from_json on " + card + ": "
+          + ", ".join(f"{k} {out['bytes'][k]} bytes, spec equal and stats bit for bit "
+                      f"{out['bitwise'][k]}" for k in results)
+          + f"; alloc launches (counted from zero) smoke fused lane {out['launches']['fused']}"
+          f", smoke fused stream lane {out['launches']['stream']} (2M each)", flush=True)
+    return out
+
+
+def _flash_scale(flash, ref, card, device) -> dict:
+    """Phase 36 (b)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(36)
+    worst = {"float32": 0.0, "bfloat16": 0.0, "bf16_rel": 0.0, "bf16_tight_used": 0.0}
+    copies, n = flash.ALIGN_COPIES, 0
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for d in SCALE_HEAD_DIMS:
+            for b, hq, hkv, sq, skv, causal, window, views in SCALE_CASES:
+                def make(h, s):
+                    if views:
+                        return torch.randn((b, s, h, d), generator=gen,
+                                           device=device).to(dt).transpose(1, 2)
+                    return torch.randn((b, h, s, d), generator=gen, device=device).to(dt)
+                q, k, v = make(hq, sq), make(hkv, skv), make(hkv, skv)
+                kw = dict(causal=causal, window=window, q_offset=skv - sq)
+                for scale in FLASH_SCALES:
+                    got = flash.flash_attention(q, k, v, scale=scale, **kw)
+                    want = ref.attention(q, k, v, scale=scale, **kw)
+                    err = (got.float() - want.float()).abs().max().item()
+                    worst[dtype] = max(worst[dtype], err)
+                    if dtype == "bfloat16":
+                        worst["bf16_rel"] = max(worst["bf16_rel"], _rel(got, want))
+                        worst["bf16_tight_used"] = max(worst["bf16_tight_used"],
+                                                       _tol_used(got, want, **FLASH_BF16_TIGHT))
+                    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+                    n += 1
+                default = flash.flash_attention(q, k, v, **kw)
+                assert torch.equal(flash.flash_attention(q, k, v, scale=None, **kw), default)
+    assert worst["bf16_tight_used"] <= 1, "bf16 flash beyond 1e-2 + 1e-2 |want| at a scale"
+    assert worst["bf16_rel"] <= FLASH_BF16_REL, "bf16 flash beyond FLASH_BF16_REL at a scale"
+    assert flash.ALIGN_COPIES == copies, "an aligned input was copied"
+    print(f"phase 36 (b): flash at scales {list(FLASH_SCALES)}, head dims "
+          f"{list(SCALE_HEAD_DIMS)} (80 zero-padded), {n} calls on {card}: max |err| vs "
+          f"ref.attention(scale=) float32 {worst['float32']:.3e}, bfloat16 "
+          f"{worst['bfloat16']:.3e} (rel {worst['bf16_rel']:.3e}, limit {FLASH_BF16_REL}; "
+          f"share of 1e-2 + 1e-2 |want| {worst['bf16_tight_used']:.3f}); scale=None == no "
+          "scale bit for bit", flush=True)
+    return {"calls": n, **worst}
+
+
+def _run_examples(card) -> dict:
+    """Phase 36 (c): the four examples at their defaults on the card, the
+    four processes at once."""
+    import os
+    import re
+    import tempfile
+
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        extra = {"train_100m_torch": ["--steps", str(TRAIN_100M_STEPS), "--ckpt-dir",
+                                      os.path.join(tmp, "ckpt_100m")],
+                 "train_cluster_elastic_torch": ["--ckpt-root", os.path.join(tmp, "elastic")]}
+        t0 = time.perf_counter()
+        procs = {}
+        for name in EXAMPLES:
+            logs = [open(os.path.join(tmp, f"{name}.{k}"), "w") for k in ("out", "err")]
+            procs[name] = (subprocess.Popen(
+                [sys.executable, str(ROOT / "examples" / f"{name}.py"), "--device", "cuda",
+                 *extra.get(name, [])], env=env, cwd=ROOT, stdout=logs[0], stderr=logs[1]),
+                logs)
+        try:
+            while len(runs) < len(procs):
+                for name, (proc, logs) in procs.items():
+                    if name not in runs and proc.poll() is not None:
+                        runs[name] = (proc.returncode, *(Path(f.name).read_text() for f in logs),
+                                      time.perf_counter() - t0)
+                if time.perf_counter() - t0 > EXAMPLE_TIMEOUT_S:
+                    raise TimeoutError(f"examples still running after {EXAMPLE_TIMEOUT_S} s: "
+                                       f"{sorted(set(procs) - set(runs))}")
+                time.sleep(0.1)
+        finally:
+            for proc, logs in procs.values():
+                proc.kill()
+                proc.wait()
+                for f in logs:
+                    f.close()
+    for name, (rc, stdout, stderr, wall) in runs.items():
+        assert rc == 0, f"{name} exited {rc}: {stderr[-3000:]}"
+        print(f"phase 36 (c): examples/{name}.py --device cuda on {card}: exit {rc} after "
+              f"{wall:.1f} s; its output:\n  " + "\n  ".join(stdout.strip().splitlines()),
+              flush=True)
+    out = {"seconds": {name: r[3] for name, r in runs.items()}}
+    qs = runs["quickstart_torch"][1]
+    sim, closed = re.search(r"total flow time: simulated=(\S+) closed-form=(\S+)", qs).groups()
+    msim, mclosed = re.search(r"makespan: simulated=(\S+) closed-form=(\S+)", qs).groups()
+    assert sim == closed and msim == mclosed, qs
+    sb = runs["serve_batch_torch"][1]
+    cap, window = re.search(r"ring cache: capacity \((?:\d+, ){2}(\d+), \d+\) \(window=(\d+)",
+                            sb).groups()
+    assert cap == window, sb
+    first, last, steps = re.search(r"loss: (\S+) -> (\S+) over (\d+) steps",
+                                   runs["train_100m_torch"][1]).groups()
+    out["train_100m"] = {"first": float(first), "last": float(last), "steps": int(steps)}
+    assert int(steps) == TRAIN_100M_STEPS and float(last) < float(first), out["train_100m"]
+    el = runs["train_cluster_elastic_torch"][1]
+    achieved = float(re.search(r"achieved total flow time : (\S+)", el).group(1))
+    optimum = float(re.search(r"heSRPT fluid optimum     : (\S+)", el).group(1))
+    out["elastic"] = {"achieved": achieved, "closed": optimum,
+                      "gap": achieved / optimum - 1}
+    assert out["elastic"]["gap"] < ELASTIC_BAR, out["elastic"]
+    return out
+
+
+def phase_gaps(alloc, lanes, sweeps, flash, ref, fused_full, card, device) -> dict:
+    """Phase 36: (a) the JSON round trip, (b) flash's scale, (c) the examples."""
+    t0 = time.perf_counter()
+    out = {"json": _json_round_trip(alloc, lanes, sweeps, fused_full, card, device),
+           "flash_scale": _flash_scale(flash, ref, card, device),
+           "examples": _run_examples(card)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 36: {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4569,6 +4760,8 @@ def main() -> int:
     elastic = phase_elastic(flash_attention, ssd_scan, rglru_scan, alloc, card, device)
     dry = phase_dryrun(flash_attention, ssd_scan, rglru_scan, alloc, card, device)
     fam_train = phase_family_train(flash_attention, ssd_scan, rglru_scan, alloc, card, device)
+    gaps = phase_gaps(alloc, lanes, sweeps, flash_attention, ref,
+                      dict(results)["quantized-fused"], card, device)
 
     kernels = [{
         "name": "hesrpt_alloc",
@@ -4595,6 +4788,7 @@ def main() -> int:
         "launches_dryrun": dry["launches"]["alloc"],
         "launches_family_train": {a: r["launches"]["alloc"]
                                   for a, r in fam_train["train"].items()},
+        "launches_json_round_trip": gaps["json"]["launches"],
         "ms_fig4": fig["alloc_ms"],
         "plain_ms_fig4": fig["alloc_plain_ms"],
         "bound_ms_fig4": fig["alloc_bound_ms"],
@@ -4641,6 +4835,8 @@ def main() -> int:
                                                          "max_abs_err")}
                                  for dt, r in recs.items()}
                           for name, recs in families["flash"].items()},
+        "max_abs_err_scale": gaps["flash_scale"]["float32"],
+        "max_abs_err_scale_bf16": gaps["flash_scale"]["bfloat16"],
         "ms_bf16": bf16["ms"],
         "plain_ms_bf16": bf16["plain_ms"],
         "bound_ms_bf16": bf16["bound_ms"],
@@ -4734,6 +4930,7 @@ def main() -> int:
         "elastic": elastic,
         "dryrun": dry,
         "family_train": fam_train,
+        "gaps": gaps,
         "total_s": time.perf_counter() - t_start,
     }
     out = ROOT / "chiprun_out"

@@ -222,16 +222,20 @@ def load_sweep(
     n_seeds: int = 100, p: float = 0.5, n_servers: float = 256.0, size_alpha: float = 1.5,
     seed: int = 0, metric: str = "mean_flowtime", scenario: str = "poisson",
     scenario_kw: dict | None = None, n_chips: int | None = None, min_chips: int = 1,
-    chunk_seeds: int | None = None, max_jobs_in_flight: int | None = None, device="cuda",
+    chunk_seeds: int | None = None, max_jobs_in_flight: int | None = None,
+    shard: bool = False, device="cuda",
 ) -> dict:
     """Sweep arrival rates x seeds x policies, one batch run a policy (per
     seed chunk).  Seeds are shared across rates and policies (paired
-    comparison).  Returns ``{rate: {policy: mean-over-seeds of metric}}``."""
+    comparison).  Returns ``{rate: {policy: mean-over-seeds of metric}}``.
+    ``shard=True`` splits the seeds over the default process group's ranks
+    (``sweeps.run_sweep``); every rank gets the whole result."""
     per_seed = load_sweep_raw(
         policies, rates, n_jobs=n_jobs, n_seeds=n_seeds, p=p, n_servers=n_servers,
         size_alpha=size_alpha, seed=seed, metric=metric, scenario=scenario,
         scenario_kw=scenario_kw, n_chips=n_chips, min_chips=min_chips,
-        chunk_seeds=chunk_seeds, max_jobs_in_flight=max_jobs_in_flight, device=device,
+        chunk_seeds=chunk_seeds, max_jobs_in_flight=max_jobs_in_flight, shard=shard,
+        device=device,
     )
     return {
         float(rate): {name: float(np.mean(per_seed[name][ri])) for name in policies}
@@ -244,11 +248,12 @@ def load_sweep_raw(
     n_seeds: int = 100, p: float = 0.5, n_servers: float = 256.0, size_alpha: float = 1.5,
     seed: int = 0, metric: str = "mean_flowtime", scenario: str = "poisson",
     scenario_kw: dict | None = None, n_chips: int | None = None, min_chips: int = 1,
-    chunk_seeds: int | None = None, max_jobs_in_flight: int | None = None, device="cuda",
+    chunk_seeds: int | None = None, max_jobs_in_flight: int | None = None,
+    shard: bool = False, device="cuda",
 ) -> dict:
     """Like :func:`load_sweep` but the full ``[n_rates, n_seeds]`` array of
     per-seed metrics for each policy: a ``Sweep`` spec through
-    ``sweeps.run_sweep``, where the seed-chunking knobs live."""
+    ``sweeps.run_sweep``, where the seed-chunking and sharding knobs live."""
     from repro_torch.core.sweeps import Sweep, run_sweep
 
     spec = Sweep.create(
@@ -257,7 +262,7 @@ def load_sweep_raw(
         n_chips=n_chips, min_chips=min_chips, metrics=(metric,),
     )
     res = run_sweep(spec, chunk_seeds=chunk_seeds, max_jobs_in_flight=max_jobs_in_flight,
-                    device=device)
+                    shard=shard, device=device)
     return {name: res.stats[name][metric] for name in spec.policies}
 
 

@@ -374,13 +374,14 @@ def multiclass_sweep(
     n_servers: float = 256.0, seed: int = 0, scenario: str = "multiclass_poisson",
     scenario_kw: dict | None = None, n_chips: int | None = None, min_chips: int = 1,
     snap_slices: bool = False, chunk_seeds: int | None = None,
-    max_jobs_in_flight: int | None = None, device="cuda",
+    max_jobs_in_flight: int | None = None, shard: bool = False, device="cuda",
 ) -> dict:
     """Seeds x loads x class-aware policies, one batch run a policy (per seed
     chunk), seeds shared across rates and policies.  Returns ``{policy:
     {"mean_flowtime": [R, S], "mean_slowdown": [R, S], "class_flowtime":
     [R, S, K], "class_slowdown": [R, S, K]}}``: ``Sweep(classes=)``
-    through ``sweeps.run_sweep``."""
+    through ``sweeps.run_sweep`` (``shard=True`` splits the seeds over the
+    default process group's ranks; every rank gets the whole result)."""
     from repro_torch.core.sweeps import Sweep, run_sweep
 
     spec = Sweep.create(
@@ -390,7 +391,7 @@ def multiclass_sweep(
         metrics=("mean_flowtime", "mean_slowdown", "class_flowtime", "class_slowdown"),
     )
     res = run_sweep(spec, chunk_seeds=chunk_seeds, max_jobs_in_flight=max_jobs_in_flight,
-                    device=device)
+                    shard=shard, device=device)
     return {name: dict(res.stats[name]) for name in spec.policies}
 
 

@@ -49,9 +49,11 @@ wide load grids with few seeds): each rank draws its own seeds' tapes on
 its own device at every rate (the per-seed generators make a part's draw
 exactly the whole draw's), runs its part, and the ranks gather the parts in rank order, so
 every rank returns the whole result, equal to the unsharded run bit for
-bit.  Every run appends its compact record to :data:`RUN_LOG`, which
-:func:`write_bench_json` flushes (never to the JAX package's
-``BENCH_sweeps.json``).
+bit.  Every run appends its compact record to :data:`RUN_LOG` (unless
+``log=False``), which :func:`write_bench_json` flushes (never to the JAX
+package's ``BENCH_sweeps.json``).  :meth:`SweepResult.to_json` /
+:meth:`SweepResult.from_json` write and read the whole result in the JAX
+package's text, so either package reads the other's.
 """
 
 from __future__ import annotations
@@ -205,7 +207,7 @@ class Sweep(NamedTuple):
     ) -> Sweep:
         if classes is not None:
             classes = as_specs(classes)
-        stream = tuple(sorted(dict(stream or {}).items()))
+        stream = _hashable(dict(stream or {}))
         skw_items = _hashable(dict(scenario_kw or {}))
         scenario_kw = dict(skw_items)
         noisy = (_any_pos(scenario_kw.get("sigma_size", 0.0))
@@ -323,7 +325,7 @@ class Sweep(NamedTuple):
             classes=classes,
             metrics=metrics,
             arm=arm,
-            arm_kw=tuple(sorted(dict(arm_kw or {}).items())),
+            arm_kw=_hashable(dict(arm_kw or {})),
             fused=bool(fused),
             telemetry=telemetry,
             superstep=bool(superstep),
@@ -392,18 +394,30 @@ class SweepResult(NamedTuple):
     """A completed sweep: the spec, per-seed stats and where it ran.
 
     ``stats[policy][metric]`` is a numpy array ``[n_rates, n_seeds]`` (``[n_rates,
-    n_seeds, K]`` for a per-class metric); ``chunk_seeds`` the seed-chunk
-    size it ran in (None: one chunk).
+    n_seeds, K]`` for a per-class metric); ``compile_s`` is 0.0 (nothing is
+    traced: a kernel builds at its first use); ``chunk_seeds`` the seed-chunk
+    size it ran in (None: one chunk).  The fields before ``device`` are the
+    JAX package's, so :meth:`to_json` / :meth:`from_json` read and write its
+    text (an exact float round trip).
+
+    ``spec`` is a :class:`Sweep`, or a benchmark's own params dict with a
+    ``"kind"`` tag whose ``stats`` rows follow its own grid
+    (``lanes.sched_scale``), as in JAX.
     """
 
-    spec: Sweep
+    spec: Sweep | dict
     stats: dict[str, dict[str, np.ndarray]]
     wall_s: float
-    backend: str  # "cuda" or "cpu"
-    device_count: int
-    device: torch.device
+    compile_s: float = 0.0
+    backend: str = "cuda"  # "cuda" or "cpu"
+    device_count: int = 1
     chunk_seeds: int | None = None
     sharded: bool = False
+    device: torch.device = torch.device("cuda")
+
+    def per_seed(self, policy: str, metric: str | None = None) -> np.ndarray:
+        """``policy``'s per-seed array of ``metric`` (default: the spec's first)."""
+        return self.stats[policy][metric or self.spec.metrics[0]]
 
     def cell_means(self, metric: str | None = None) -> dict:
         """``{rate: {policy: mean-over-seeds}}``; a per-class metric keeps
@@ -420,20 +434,11 @@ class SweepResult(NamedTuple):
             for ri, rate in enumerate(self.spec.rates)
         }
 
-    def record(self) -> dict:
-        """Compact JSON-able record (per-cell mean/std, ``[R, K]`` lists for
-        a per-class metric), the JAX layout (its spec keys, ``classes`` as
-        rows of ``ClassSpec`` fields) with torch, CUDA and card provenance.
-        A benchmark's own spec dict (``lanes.sched_scale``) keeps its keys
-        and its ``kind``, with no job counts, as in JAX."""
-        cells = {name: {m: seed_axis_stats(a) for m, a in by_m.items()}
-                 for name, by_m in self.stats.items()}
+    def _spec_jsonable(self) -> dict:
+        """The spec as JAX writes it: kv tuples and ``classes`` as rows of
+        ``ClassSpec`` fields, sequences as lists; a dict spec as it is."""
         if not isinstance(self.spec, Sweep):
-            return {"kind": self.spec.get("kind", "bench"), "provenance": provenance(self.device),
-                    "spec": dict(self.spec), "cells": cells, "n_seeds": None,
-                    "total_jobs": None, "wall_s": self.wall_s, "compile_s": 0.0,
-                    "backend": self.backend, "device_count": self.device_count,
-                    "chunk_seeds": self.chunk_seeds, "sharded": self.sharded}
+            return dict(self.spec)
         spec = self.spec._asdict()
         for key in ("scenario_kw", "arm_kw", "stream"):
             spec[key] = [list(kv) for kv in spec[key]]
@@ -441,20 +446,57 @@ class SweepResult(NamedTuple):
             spec["classes"] = [list(c) for c in spec["classes"]]
         for key in ("policies", "rates", "metrics", "telemetry"):
             spec[key] = list(spec[key])
+        return spec
+
+    def _run_fields(self) -> dict:
+        return {"wall_s": self.wall_s, "compile_s": self.compile_s, "backend": self.backend,
+                "device_count": self.device_count, "chunk_seeds": self.chunk_seeds,
+                "sharded": self.sharded}
+
+    def record(self) -> dict:
+        """Compact JSON-able record (per-cell mean/std, ``[R, K]`` lists for
+        a per-class metric), the JAX layout with torch, CUDA and card
+        provenance.  A dict spec keeps its keys and its ``kind``, with no
+        job counts, as in JAX."""
+        is_sweep = isinstance(self.spec, Sweep)
         return {
-            "kind": "sweep",
+            "kind": "sweep" if is_sweep else self.spec.get("kind", "bench"),
             "provenance": provenance(self.device),
-            "spec": spec,
-            "cells": cells,
-            "n_seeds": self.spec.n_seeds,
-            "total_jobs": self.spec.total_jobs() * len(self.spec.policies),
-            "wall_s": self.wall_s,
-            "compile_s": 0.0,  # nothing is traced; kernel builds happen at first use
-            "backend": self.backend,
-            "device_count": self.device_count,
-            "chunk_seeds": self.chunk_seeds,
-            "sharded": self.sharded,
+            "spec": self._spec_jsonable(),
+            "cells": {name: {m: seed_axis_stats(a) for m, a in by_m.items()}
+                      for name, by_m in self.stats.items()},
+            "n_seeds": self.spec.n_seeds if is_sweep else None,
+            "total_jobs": (self.spec.total_jobs() * len(self.spec.policies)
+                           if is_sweep else None),
+            **self._run_fields(),
         }
+
+    def to_json(self) -> str:
+        """The whole result, per-seed arrays included, as the JAX package
+        writes it (``json`` writes each float's ``repr``: exact)."""
+        return json.dumps({
+            "spec": self._spec_jsonable(),
+            "stats": {name: {m: np.asarray(a).tolist() for m, a in by_m.items()}
+                      for name, by_m in self.stats.items()},
+            **self._run_fields(),
+        })
+
+    @classmethod
+    def from_json(cls, text: str, *, device="cuda") -> SweepResult:
+        """A result from :meth:`to_json`'s text or the JAX package's; the
+        arrays come back float64, the spec through :meth:`Sweep.from_spec_dict`
+        (a dict without ``"policies"`` stays a dict), ``device`` is the
+        result's ``device``."""
+        d = json.loads(text)
+        spec = d["spec"]
+        return cls(
+            spec=Sweep.from_spec_dict(spec) if "policies" in spec else spec,
+            stats={name: {m: np.asarray(v, dtype=np.float64) for m, v in by_m.items()}
+                   for name, by_m in d["stats"].items()},
+            wall_s=d["wall_s"], compile_s=d["compile_s"], backend=d["backend"],
+            device_count=d["device_count"], chunk_seeds=d["chunk_seeds"],
+            sharded=d["sharded"], device=torch.device(device),
+        )
 
 
 # --------------------------------------------------------------- executors
@@ -770,7 +812,7 @@ def _run_part(spec: Sweep, plan: ShardPlan, dev) -> dict:
 
 def run_sweep(
     spec: Sweep, *, chunk_seeds: int | None = None, max_jobs_in_flight: int | None = None,
-    shard: bool = False, shard_axis: str = "seeds", device="cuda",
+    shard: bool = False, shard_axis: str = "seeds", log: bool = True, device="cuda",
 ) -> SweepResult:
     """Execute a :class:`Sweep` on ``device``; the wall time covers the
     tapes' draw and every policy's batched run, synchronized.
@@ -784,7 +826,7 @@ def run_sweep(
     process group (:func:`shard_plan`; every rank calls ``run_sweep``, and
     without a group it is the one-device run).  The parts are gathered in
     rank order (``all_gather_object``), so every rank returns the whole
-    result.  The run's record goes to :data:`RUN_LOG`.
+    result.  The run's record goes to :data:`RUN_LOG` unless ``log=False``.
     """
     if shard_axis not in SHARD_AXES:
         raise ValueError(f"shard_axis must be 'seeds' or 'rates', not {shard_axis!r}")
@@ -808,11 +850,12 @@ def run_sweep(
         wall_s=wall_s,
         backend=dev.type,
         device_count=torch.cuda.device_count() if on_cuda else 1,
-        device=dev,
         chunk_seeds=plan.chunk,
         sharded=shard,
+        device=dev,
     )
-    log_record(result.record())
+    if log:
+        log_record(result.record())
     return result
 
 

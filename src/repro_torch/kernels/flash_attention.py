@@ -150,10 +150,12 @@ def flash_attention(
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
-    """Attention by the CUDA kernel, logits scaled by ``D ** -0.5``; the
-    output is in q's dtype and, for a D the kernel is built for, q's
-    layout."""
+    """Attention by the CUDA kernel, logits scaled by ``scale`` (default
+    ``D ** -0.5`` of q's own D, also where D is zero-padded for the
+    kernel); the output is in q's dtype and, for a D the kernel is built
+    for, q's layout."""
     global LAUNCHES
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":
@@ -167,6 +169,7 @@ def flash_attention(
     Hkv, Skv = k.shape[1], k.shape[2]
     if k.shape != (B, Hkv, Skv, D) or v.shape != k.shape or Hq % Hkv:
         raise ValueError(f"shapes q {q.shape}, k {k.shape}, v {v.shape} do not fit GQA")
+    scale = D ** -0.5 if scale is None else scale
     D_kernel = padded_head_dim(D)
     if D_kernel != D:
         q, k, v = (F.pad(t, (0, D_kernel - D)) for t in (q, k, v))
@@ -186,7 +189,7 @@ def flash_attention(
         LAUNCHES += 1
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, Hq, Hkv, Sq, Skv, D_kernel, strides, D ** -0.5, int(causal), int(window),
+            B, Hq, Hkv, Sq, Skv, D_kernel, strides, scale, int(causal), int(window),
             int(q_offset), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:

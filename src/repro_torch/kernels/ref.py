@@ -50,17 +50,18 @@ def attention(
     causal: bool = True,
     window: int = 0,
     q_offset: int = 0,
+    scale: float | None = None,
 ) -> torch.Tensor:
-    """GQA scaled-dot-product attention (logits scaled by ``D ** -0.5``):
-    float32 softmax arithmetic, output in q's dtype.  Query head ``h`` reads
-    KV head ``h // (Hq // Hkv)``."""
+    """GQA scaled-dot-product attention (logits scaled by ``scale``, default
+    ``D ** -0.5``): float32 softmax arithmetic, output in q's dtype.  Query
+    head ``h`` reads KV head ``h // (Hq // Hkv)``."""
     B, Hq, Sq, D = q.shape
     Hkv = k.shape[1]
     if Hq % Hkv:
         raise ValueError(f"query heads {Hq} are not a multiple of KV heads {Hkv}")
     group = Hq // Hkv
 
-    qf = q.float() * D ** -0.5
+    qf = q.float() * (D ** -0.5 if scale is None else scale)
     kf = k.float().repeat_interleave(group, dim=1)
     vf = v.float().repeat_interleave(group, dim=1)
     logits = torch.einsum("bhqd,bhkd->bhqk", qf, kf)

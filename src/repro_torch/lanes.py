@@ -536,7 +536,7 @@ def stream_oracle_check(*, n_jobs=120, n_slots=24, rate=2.0, p=0.5, n_chips=64, 
 
 
 def sched_scale(ms=(100, 1_000, 10_000, 100_000), p: float = 0.5, n_chips: int = 4096,
-                repeats: int = 5, device="cuda") -> SweepResult:
+                repeats: int = 5, log: bool = True, device="cuda") -> SweepResult:
     """``benchmarks/sched_scale.py``: one decision epoch at M jobs, heSRPT's
     theta (``policies.hesrpt``, synchronized) and whole chips
     (``sched.quantize.quantize_allocation``) on ``device``, for each M.
@@ -544,7 +544,7 @@ def sched_scale(ms=(100, 1_000, 10_000, 100_000), p: float = 0.5, n_chips: int =
     ``stats["hesrpt"]["theta_us"]`` is ``[len(ms), repeats]``, ``quantize_us``
     (one timed call) and ``chips_sum`` are ``[len(ms), 1]``; each is timed
     after a warm-up call at its M.
-    The record goes to the in-memory ``sweeps.RUN_LOG``.
+    The record goes to the in-memory ``sweeps.RUN_LOG`` unless ``log=False``.
     """
     dev = resolve_device(device)
 
@@ -581,5 +581,6 @@ def sched_scale(ms=(100, 1_000, 10_000, 100_000), p: float = 0.5, n_chips: int =
         wall_s=time.perf_counter() - t_start, backend=dev.type,
         device_count=torch.cuda.device_count() if dev.type == "cuda" else 1, device=dev,
     )
-    sweeps.log_record(result.record())
+    if log:
+        sweeps.log_record(result.record())
     return result

@@ -67,48 +67,63 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    device = resolve_device(args.device)
+    argv = sys.argv[1:] if argv is None else list(argv)
+    return run_in_world(
+        lambda device, n: _run(args, device, n), args.device, devices=args.devices,
+        init_method=args.init_method, timeout=args.timeout,
+        relaunch=[sys.executable, "-m", "repro_torch.launch.cluster_train", *argv],
+    )
+
+
+def run_in_world(run, device="cuda", *, devices: int | None = None,
+                 init_method: str | None = None, timeout: float = 600.0, relaunch: list):
+    """Start the chip pool's world and call ``run(device, n)`` on every rank
+    of the pool of ``n`` ranks (the module doc's three ways); returns what
+    ``run`` returns, or None where this process only spawned the ranks.
+
+    ``relaunch`` is the command that runs this launcher again with the
+    caller's arguments: each spawned CPU rank runs it with ``--devices n
+    --init-method file://...`` appended and ``RANK`` set.
+    """
+    device = resolve_device(device)
     if "RANK" in os.environ:  # under torchrun, or a rank this launcher spawned
         world = int(os.environ["WORLD_SIZE"])
-        n = world if args.devices is None else args.devices
+        n = world if devices is None else devices
         if not 1 <= n <= world:
             raise ValueError(f"--devices {n} over a world of {world} ranks")
         if device.type == "cuda" and n > torch.cuda.device_count():
             raise ValueError(f"--devices {n} over {torch.cuda.device_count()} visible cards")
-        mesh_lib.start_group(device.type, init_method=args.init_method)
+        mesh_lib.start_group(device.type, init_method=init_method)
         if device.type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
         try:
-            return _run(args, device, n)
+            return run(device, n)
         finally:
             dist.destroy_process_group()
     if device.type == "cpu":
-        return _spawn(args, sys.argv[1:] if argv is None else list(argv))
-    n = 1 if args.devices is None else args.devices
+        return _spawn(relaunch, SPAWN_DEVICES if devices is None else devices, timeout)
+    n = 1 if devices is None else devices
     if n != 1:
         raise ValueError(f"--devices {n} on one card without torchrun: run it under torchrun")
     if device.index is not None:
         torch.cuda.set_device(device)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
     try:
-        return _run(args, torch.device("cuda", torch.cuda.current_device()), 1)
+        return run(torch.device("cuda", torch.cuda.current_device()), 1)
     finally:
         dist.destroy_process_group()
 
 
-def _spawn(args, argv: list) -> None:
-    """``args.devices`` ``gloo`` ranks of this module
-    (``mesh.spawn_ranks``); rank 0's output is printed.  Raises if a rank
-    fails or time runs out."""
-    n = SPAWN_DEVICES if args.devices is None else args.devices
+def _spawn(relaunch: list, n: int, timeout: float) -> None:
+    """``n`` ``gloo`` ranks of ``relaunch`` (``mesh.spawn_ranks``); rank
+    0's output is printed.  Raises if a rank fails or time runs out."""
     if n < 1:
         raise ValueError(f"--devices {n}")
     src = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     path = os.pathsep.join(p for p in (src, os.environ.get("PYTHONPATH")) if p)
     with tempfile.TemporaryDirectory() as d:
-        cmd = [sys.executable, "-m", "repro_torch.launch.cluster_train", *argv,
-               "--devices", str(n), "--init-method", f"file://{d}/store"]
-        outs = mesh_lib.spawn_ranks(cmd, n, d, timeout=args.timeout, env={"PYTHONPATH": path})
+        cmd = [*relaunch, "--devices", str(n), "--init-method", f"file://{d}/store"]
+        outs = mesh_lib.spawn_ranks(cmd, n, d, timeout=timeout, env={"PYTHONPATH": path})
     print(outs[0], end="", flush=True)
 
 

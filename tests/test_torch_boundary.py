@@ -1,7 +1,8 @@
 """The port's package boundary and its no-fallback device rule.
 
-- No module of ``src/repro_torch`` (nor ``chip_smoke.py``) imports ``jax``
-  or anything of the JAX package ``repro``: a fresh interpreter imports
+- No module of ``src/repro_torch`` (nor ``chip_smoke.py``, nor the port's
+  ``examples/*_torch.py``) imports ``jax`` or anything of the JAX package
+  ``repro``: a fresh interpreter imports
   them all and inspects ``sys.modules``; importing them starts no process
   group (the dry run's fake world starts when it runs).
 - Entry points called without ``device=`` run on CUDA; where there is no
@@ -10,6 +11,7 @@
   and in a directory that holds nothing else of the repo.
 """
 
+import importlib.util
 import json
 import os
 import shutil
@@ -23,13 +25,19 @@ torch = pytest.importorskip("torch")
 
 ROOT = Path(__file__).resolve().parent.parent
 SRC = ROOT / "src"
+EXAMPLES = ("quickstart_torch", "serve_batch_torch", "train_100m_torch",
+            "train_cluster_elastic_torch")
 
 _IMPORT_ALL = """
-import importlib, json, pkgutil, sys
+import importlib, importlib.util, json, pkgutil, sys
 import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in names:
     importlib.import_module(name)
+for path in sys.argv[2:]:  # the port's examples, by file
+    spec = importlib.util.spec_from_file_location(path.rsplit("/", 1)[-1][:-3], path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(spec.name)
 sys.path.insert(0, sys.argv[1])
 import chip_smoke
 bad = sorted(m for m in sys.modules
@@ -45,7 +53,8 @@ def _env():
 
 def test_port_imports_nothing_of_jax_or_the_jax_package():
     out = subprocess.run(
-        [sys.executable, "-c", _IMPORT_ALL, str(ROOT)], env=_env(), cwd=ROOT,
+        [sys.executable, "-c", _IMPORT_ALL, str(ROOT),
+         *(str(ROOT / "examples" / f"{name}.py") for name in EXAMPLES)], env=_env(), cwd=ROOT,
         capture_output=True, text=True, timeout=300, check=True,
     )
     got = json.loads(out.stdout.strip().splitlines()[-1])
@@ -63,6 +72,7 @@ def test_port_imports_nothing_of_jax_or_the_jax_package():
                  "launch.cluster_train", "launch.dryrun", "launch.trace_analysis",
                  "launch.roofline", "launch.reanalyze", "launch.report"):
         assert f"repro_torch.{name}" in got["modules"]
+    assert set(EXAMPLES) <= set(got["modules"])
     assert got["bad"] == []
     assert got["world"] is False  # the dry run starts its fake world only when run
 
@@ -86,7 +96,16 @@ def _entry_points():
     x, a = [2.0, 1.0], [0.0, 0.5]
     mc_spec = sweeps.Sweep.create(("hesrpt_pc",), (1.0,), scenario="multiclass_poisson",
                                   n_jobs=4, n_seeds=1, classes=((0.3, 1.0), (0.7, 1.0)))
+    ex = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        ex[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(ex[name])
     return {
+        "example_quickstart": lambda: ex["quickstart_torch"].main([]),
+        "example_serve_batch": lambda: ex["serve_batch_torch"].main([]),
+        "example_train_100m": lambda: ex["train_100m_torch"].main([]),
+        "example_train_cluster_elastic": lambda: ex["train_cluster_elastic_torch"].main([]),
         "ClusterScheduler": lambda: ClusterScheduler(16),
         "ElasticClusterDriver": lambda: ElasticClusterDriver(
             [ElasticJobConfig("j0", smoke_config("phi4-mini-3.8b"), total_steps=1)]),

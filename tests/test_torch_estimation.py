@@ -442,7 +442,7 @@ def test_arm_and_noise_refusals():
         ta.simulate_stream(scn, 0.5, 4.0, tp.hesrpt, n_slots=4, device="cpu")
     spec = tsw.Sweep.create(("hesrpt",), (1.0,), arm="estimator",
                             arm_kw={"discount": 0.9}, **kw)
-    rec = tsw.SweepResult(spec, {}, 0.0, "cpu", 1, torch.device("cpu")).record()
+    rec = tsw.SweepResult(spec, {}, 0.0, backend="cpu", device=torch.device("cpu")).record()
     assert rec["spec"]["arm"] == "estimator" and rec["spec"]["arm_kw"] == [["discount", 0.9]]
     assert tsw.Sweep.from_spec_dict(rec["spec"]) == spec
 

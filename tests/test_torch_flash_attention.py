@@ -22,6 +22,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro_torch.kernels import chunked  # noqa: E402
 from repro_torch.kernels import flash_attention as tflash  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -192,3 +193,34 @@ def test_f32_copies_in_place_decides_which_float32_inputs_are_copied(make, in_pl
     """The float32 kernel's 16-byte copies need a 16-byte aligned start and
     batch, head and sequence strides that are multiples of 4 elements."""
     assert tflash.f32_copies_in_place(make()) is in_place
+
+
+# Summation order alone: 1e-6 where the logits are O(1) (a scale at most
+# D ** -0.5).  At scale 1.0 the logits of unit normals reach ~sqrt(D) * 4,
+# and the softmax turns float32's ~1e-7 relative gap in them into up to
+# 1.5e-5 in the output (D = 128, measured), so there the float32 TOL holds.
+SCALE_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("scale", [0.1, 1.0, None])
+@pytest.mark.parametrize("b,hq,hkv,sq,skv,d,causal,window", [
+    (2, 4, 2, 130, 190, 64, True, 0), (1, 4, 2, 96, 96, 80, True, 32),
+    (2, 2, 2, 64, 100, 128, False, 0),
+])
+def test_plain_attention_takes_the_reference_scale(scale, b, hq, hkv, sq, skv, d, causal,
+                                                   window):
+    """``ref.attention(scale=)`` against JAX's ``ref.attention(scale=)`` and
+    the port's ``chunked.attention(scale=)``, float32, at SCALE_TOL (TOL at
+    a scale above ``D ** -0.5``); ``None`` is ``D ** -0.5``, the call
+    without it bit for bit."""
+    (qj, kj, vj), (q, k, v) = _qkv((b, hq, sq, d), (b, hkv, skv, d), "float32", seed=d)
+    kw = dict(causal=causal, window=window, q_offset=max(skv - sq, 0))
+    tol = TOL["float32"] if scale is not None and scale > d ** -0.5 else SCALE_TOL
+    got = ref.attention(q, k, v, scale=scale, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jref.attention(qj, kj, vj, scale=scale,
+                                                                      **kw)), **tol)
+    torch.testing.assert_close(got, chunked.attention(q, k, v, scale=scale, **kw), **tol)
+    if scale is None:
+        assert torch.equal(got, ref.attention(q, k, v, **kw))
+    else:
+        assert not torch.allclose(got, ref.attention(q, k, v, **kw), **SCALE_TOL)

@@ -288,6 +288,25 @@ def test_flash_kernel_takes_head_dim_160_and_padded_head_dims(cuda_device, dtype
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [128, 80])
+@pytest.mark.parametrize("scale", [0.1, 1.0])
+def test_flash_kernel_takes_a_softmax_scale(cuda_device, dtype, d, scale):
+    """``scale=`` reaches the kernel as it is, also where D is zero-padded
+    (80 to 128); ``scale=None`` is the call without it, bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    q = torch.randn((2, 4, 190, d), generator=gen, device=cuda_device).to(dtype)
+    k = torch.randn((2, 2, 190, d), generator=gen, device=cuda_device).to(dtype)
+    v = torch.randn((2, 2, 190, d), generator=gen, device=cuda_device).to(dtype)
+    before = flash.LAUNCHES
+    got = flash.flash_attention(q, k, v, scale=scale)
+    assert flash.LAUNCHES == before + 1
+    torch.testing.assert_close(got.float(), ref.attention(q, k, v, scale=scale).float(),
+                               **FLASH_TOL[dtype])
+    assert torch.equal(flash.flash_attention(q, k, v, scale=None), flash.flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
 def test_flash_kernel_takes_the_models_transposed_views(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(1)
     q = torch.randn((2, 70, 6, 32), generator=gen, device=cuda_device).transpose(1, 2)

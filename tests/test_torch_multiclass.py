@@ -696,7 +696,7 @@ def test_sweep_classes_refusals_and_record_round_trip():
     with pytest.raises(ValueError, match="unknown multi-class policy"):
         tsw.Sweep.create(("equi",), (1.0,), scenario="multiclass_poisson", classes=TWO)
     spec = dict(lanes.multiclass_specs("smoke"))["snap-on"]
-    rec = tsw.SweepResult(spec, {}, 0.0, "cpu", 1, torch.device("cpu")).record()
+    rec = tsw.SweepResult(spec, {}, 0.0, backend="cpu", device=torch.device("cpu")).record()
     jrec = js.SweepResult(js.Sweep.create(("hesrpt_pc",), (1.0,), scenario="multiclass_poisson",
                                           classes=TWO), {}, 0.0, 0.0, "cpu", 1, None,
                           False).record()
