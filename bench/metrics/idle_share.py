@@ -1,0 +1,9 @@
+"""Percent of the traced window in which no operation ran on the device:
+one minus the union of the device's operation intervals over the window."""
+
+
+def read(ctx):
+    trace = ctx.get("trace")
+    if trace is None or trace["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - trace["busy_s"] / trace["window_s"])
