@@ -44,6 +44,10 @@ tensor value — so the loop is bound by launches, not by syncs.
   :func:`quantized_rule` take estimation noise (``size_factors``,
   ``p_hat``), and ``core/estimation.py`` builds the estimating
   :class:`StatefulRule`.
+- program spans (``repro_torch/spans.py``, recorded only while a profiler
+  runs): ``engine.loop`` around :func:`run`'s and :func:`run_ranked`'s loop,
+  ``engine.allocate`` around each step's allocation, and the counter
+  ``engine.steps``.
 """
 
 from __future__ import annotations
@@ -63,6 +67,7 @@ from repro_torch.kernels.alloc import (
     round_chips,
     stable_positions,
 )
+from repro_torch.spans import add, span
 
 # (x_active, p) -> (alloc, rate) per job: theta for continuous rules, integer
 # chips for quantized ones.
@@ -447,95 +452,98 @@ def run(
             pre_arrived=pre_arrived, horizon=horizon, t0=t0, p_drift=p_drift,
         )
     rule = _resolve_fused(rule, fused)
-    x0, arr_in, lead, dtype = _cells(x0, arrival_times)
-    C, M = x0.shape
-    dev = x0.device
+    with span("engine.loop"):
+        x0, arr_in, lead, dtype = _cells(x0, arrival_times)
+        C, M = x0.shape
+        dev = x0.device
 
-    # Event logic walks arrivals in time order; un-sort at the end.
-    order = loop_order(arr_in)
-    arr = arr_in.gather(-1, order)
-    x = x0.gather(-1, order)
-    per_job = is_per_job(p, M)
-    if per_job:  # per-job exponents travel with their jobs
-        p = to_loop_order(p.to(device=dev, dtype=dtype), order, lead)
-    drift = None if p_drift is None else _drift_rows(p_drift, lead, dtype, dev, order)
-    drift_per_job = drift is not None and drift[1].ndim == 3
-    n_drift = 0 if drift is None else drift[0].shape[-1] - 1
-    E = ((M if pre_arrived else 2 * M) + n_drift) if horizon is None else horizon
-    tol = rel_tol * x0.amax(-1, keepdim=True)
-    idx = torch.arange(M, device=dev)
-    i = torch.full((C, 1), M if pre_arrived else 0, dtype=torch.int64, device=dev)
-    t = torch.full((C, 1), float(t0), dtype=dtype, device=dev)
-    times = torch.zeros((C, M), dtype=dtype, device=dev)
-    inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
-    srule = as_stateful(rule)
-    st = srule.init()
-    trace = ([], [], []) if record else None
-    tel = None if telemetry is None else telemetry.init(tuple(lead), dev)
-    tel_outs = []
+        # Event logic walks arrivals in time order; un-sort at the end.
+        order = loop_order(arr_in)
+        arr = arr_in.gather(-1, order)
+        x = x0.gather(-1, order)
+        per_job = is_per_job(p, M)
+        if per_job:  # per-job exponents travel with their jobs
+            p = to_loop_order(p.to(device=dev, dtype=dtype), order, lead)
+        drift = None if p_drift is None else _drift_rows(p_drift, lead, dtype, dev, order)
+        drift_per_job = drift is not None and drift[1].ndim == 3
+        n_drift = 0 if drift is None else drift[0].shape[-1] - 1
+        E = ((M if pre_arrived else 2 * M) + n_drift) if horizon is None else horizon
+        tol = rel_tol * x0.amax(-1, keepdim=True)
+        idx = torch.arange(M, device=dev)
+        i = torch.full((C, 1), M if pre_arrived else 0, dtype=torch.int64, device=dev)
+        t = torch.full((C, 1), float(t0), dtype=dtype, device=dev)
+        times = torch.zeros((C, M), dtype=dtype, device=dev)
+        inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
+        srule = as_stateful(rule)
+        st = srule.init()
+        trace = ([], [], []) if record else None
+        tel = None if telemetry is None else telemetry.init(tuple(lead), dev)
+        tel_outs = []
+        add("engine.steps", E)
 
-    for _ in range(E):
-        active = (idx < i) & (x > 0)
-        x_act = torch.where(active, x, 0.0)
-        p_now = p
-        if drift is not None:
-            # The regime at each row's clock (right: a row landed on a
-            # boundary already reads the new exponent) and its next boundary.
-            r = torch.searchsorted(drift[0], t, right=True)
-            if drift_per_job:  # each job's exponent in its row's regime
-                p_now = drift[1].gather(1, r.unsqueeze(-1).expand(C, 1, M)).squeeze(1)
+        for _ in range(E):
+            active = (idx < i) & (x > 0)
+            x_act = torch.where(active, x, 0.0)
+            p_now = p
+            if drift is not None:
+                # The regime at each row's clock (right: a row landed on a
+                # boundary already reads the new exponent) and its next boundary.
+                r = torch.searchsorted(drift[0], t, right=True)
+                if drift_per_job:  # each job's exponent in its row's regime
+                    p_now = drift[1].gather(1, r.unsqueeze(-1).expand(C, 1, M)).squeeze(1)
+                else:
+                    p_now = drift[1].gather(-1, r)
+                t_next_drift = drift[0].gather(-1, r)
+                dt_drift = torch.clamp(t_next_drift - t, min=0.0)
+            with span("engine.allocate"):
+                alloc, rate = srule.allocate(st, x_act, p_now)
+            tt = torch.where(active & (rate > 0), x / rate, inf)
+            dt_dep = tt.amin(-1, keepdim=True)
+            first = tt.argmin(-1, keepdim=True)  # first index on ties, as jnp.argmin
+            t_next_arr = torch.where(i < M, arr.gather(-1, i.clamp(max=M - 1)), inf)
+            dt_arr = torch.clamp(t_next_arr - t, min=0.0)
+            dt = torch.minimum(dt_dep, dt_arr)
+            if drift is not None:
+                dt = torch.minimum(dt, dt_drift)
+            any_event = torch.isfinite(dt)
+            dt = torch.where(any_event, dt, 0.0)
+            # Landing on an arrival pins t to the exact arrival time so the
+            # searchsorted admission below cannot miss it to float rounding (and
+            # likewise a drift boundary); ties: arrival, departure, boundary.
+            if drift is None:
+                admit = any_event & (dt_arr <= dt_dep)
+                take_dep = any_event & (dt_dep <= dt_arr)
+                t_new = torch.where(admit, t_next_arr, t + dt)
             else:
-                p_now = drift[1].gather(-1, r)
-            t_next_drift = drift[0].gather(-1, r)
-            dt_drift = torch.clamp(t_next_drift - t, min=0.0)
-        alloc, rate = srule.allocate(st, x_act, p_now)
-        tt = torch.where(active & (rate > 0), x / rate, inf)
-        dt_dep = tt.amin(-1, keepdim=True)
-        first = tt.argmin(-1, keepdim=True)  # first index on ties, as jnp.argmin
-        t_next_arr = torch.where(i < M, arr.gather(-1, i.clamp(max=M - 1)), inf)
-        dt_arr = torch.clamp(t_next_arr - t, min=0.0)
-        dt = torch.minimum(dt_dep, dt_arr)
-        if drift is not None:
-            dt = torch.minimum(dt, dt_drift)
-        any_event = torch.isfinite(dt)
-        dt = torch.where(any_event, dt, 0.0)
-        # Landing on an arrival pins t to the exact arrival time so the
-        # searchsorted admission below cannot miss it to float rounding (and
-        # likewise a drift boundary); ties: arrival, departure, boundary.
-        if drift is None:
-            admit = any_event & (dt_arr <= dt_dep)
-            take_dep = any_event & (dt_dep <= dt_arr)
-            t_new = torch.where(admit, t_next_arr, t + dt)
-        else:
-            admit = any_event & (dt_arr <= torch.minimum(dt_dep, dt_drift))
-            take_dep = any_event & (dt_dep <= torch.minimum(dt_arr, dt_drift))
-            take_drift = any_event & ~admit & ~take_dep
-            t_new = torch.where(
-                admit, t_next_arr, torch.where(take_drift, t_next_drift, t + dt)
-            )
-        x_new = torch.where(active, x - dt * rate, x)
-        # The argmin job departs by construction when the departure is the
-        # next event; float residue (~eps*x) must not keep it alive.
-        departing = (idx == first) & active & take_dep
-        x_new = torch.where(departing | (active & (x_new <= tol)), 0.0, x_new)
-        times = torch.where(active & (x_new == 0.0), t_new, times)
-        i_new = torch.searchsorted(arr, t_new, right=True)
-        st_start = st
-        st = srule.observe(st, Observation(alloc=alloc, rate=rate, dt=dt, active=active))
-        if tel is not None:
-            tel, out = telemetry.step(tel, ProbeEvent(
-                t=t, dt=dt, alloc=alloc, rate=rate, active=active, x=x, p=p_now,
-                rule_state=st_start, p_per_job=per_job if drift is None else drift_per_job))
-            tel_outs.append(out)
-        if record:
-            trace[0].append(alloc)
-            trace[1].append(t)
-            trace[2].append(x)
-        x, t, i = x_new, t_new, torch.maximum(i, i_new)
+                admit = any_event & (dt_arr <= torch.minimum(dt_dep, dt_drift))
+                take_dep = any_event & (dt_dep <= torch.minimum(dt_arr, dt_drift))
+                take_drift = any_event & ~admit & ~take_dep
+                t_new = torch.where(
+                    admit, t_next_arr, torch.where(take_drift, t_next_drift, t + dt)
+                )
+            x_new = torch.where(active, x - dt * rate, x)
+            # The argmin job departs by construction when the departure is the
+            # next event; float residue (~eps*x) must not keep it alive.
+            departing = (idx == first) & active & take_dep
+            x_new = torch.where(departing | (active & (x_new <= tol)), 0.0, x_new)
+            times = torch.where(active & (x_new == 0.0), t_new, times)
+            i_new = torch.searchsorted(arr, t_new, right=True)
+            st_start = st
+            st = srule.observe(st, Observation(alloc=alloc, rate=rate, dt=dt, active=active))
+            if tel is not None:
+                tel, out = telemetry.step(tel, ProbeEvent(
+                    t=t, dt=dt, alloc=alloc, rate=rate, active=active, x=x, p=p_now,
+                    rule_state=st_start, p_per_job=per_job if drift is None else drift_per_job))
+                tel_outs.append(out)
+            if record:
+                trace[0].append(alloc)
+                trace[1].append(t)
+                trace[2].append(x)
+            x, t, i = x_new, t_new, torch.maximum(i, i_new)
 
-    # Safety: any job that never departed (pathological rule) -> inf.
-    times = torch.where(x > 0, inf, times)
-    times_in = torch.zeros_like(times).scatter_(-1, order, times)  # input order
+        # Safety: any job that never departed (pathological rule) -> inf.
+        times = torch.where(x > 0, inf, times)
+        times_in = torch.zeros_like(times).scatter_(-1, order, times)  # input order
     out_trace = None
     if record:
         out_trace = EngineTrace(
@@ -577,65 +585,69 @@ def run_ranked(
             "run_ranked needs a scalar p — per-job exponents break the carried-rank "
             "invariants; multi-class runs take the generic run()"
         )
-    x0, arr_in, lead, dtype = _cells(x0, arrival_times)
-    C, M = x0.shape
-    dev = x0.device
-    E = 2 * M if horizon is None else horizon
+    with span("engine.loop"):
+        x0, arr_in, lead, dtype = _cells(x0, arrival_times)
+        C, M = x0.shape
+        dev = x0.device
+        E = 2 * M if horizon is None else horizon
 
-    order = torch.argsort(arr_in, dim=-1, stable=True)  # one sort in total
-    arr = arr_in.gather(-1, order)
-    xs = x0.gather(-1, order)
-    x = xs
-    idx = torch.arange(M, device=dev)
-    t = torch.zeros((C, 1), dtype=dtype, device=dev)
-    i = torch.zeros((C, 1), dtype=torch.int64, device=dev)
-    ranks = torch.zeros((C, M), dtype=torch.int64, device=dev)
-    m = torch.zeros((C, 1), dtype=torch.int64, device=dev)
-    times = torch.zeros((C, M), dtype=dtype, device=dev)
-    inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
+        order = torch.argsort(arr_in, dim=-1, stable=True)  # one sort in total
+        arr = arr_in.gather(-1, order)
+        xs = x0.gather(-1, order)
+        x = xs
+        idx = torch.arange(M, device=dev)
+        t = torch.zeros((C, 1), dtype=dtype, device=dev)
+        i = torch.zeros((C, 1), dtype=torch.int64, device=dev)
+        ranks = torch.zeros((C, M), dtype=torch.int64, device=dev)
+        m = torch.zeros((C, 1), dtype=torch.int64, device=dev)
+        times = torch.zeros((C, M), dtype=dtype, device=dev)
+        inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
+        add("engine.steps", E)
 
-    for _ in range(E):
-        theta = rank_policy(ranks, m, p, dtype=dtype)
-        rate = speedup(theta * n_servers, p)
-        # Next departure: the smallest active job, rank m (argmax: ranks are
-        # unique with maximum m, 0 when inactive).
-        small = ranks.argmax(-1, keepdim=True)
-        has_active = m > 0
-        x_s = x.gather(-1, small)
-        r_s = rate.gather(-1, small)
-        dt_dep = torch.where(has_active & (r_s > 0), x_s / r_s, inf)
-        t_next_arr = torch.where(i < M, arr.gather(-1, i.clamp(max=M - 1)), inf)
-        dt_arr = torch.clamp(t_next_arr - t, min=0.0)
-        dt = torch.minimum(dt_dep, dt_arr)
-        any_event = torch.isfinite(dt)
-        dt = torch.where(any_event, dt, 0.0)
-        admit = any_event & (dt_arr <= dt_dep)
-        take_dep = any_event & (dt_dep <= dt_arr)
-        t_new = torch.where(admit, t_next_arr, t + dt)
-        active = ranks > 0
-        x_new = torch.where(active, torch.clamp(x - dt * rate, min=0.0), x)
-        # Departure: drop rank m; every other active rank stays valid.
-        departing = (idx == small) & active & take_dep
-        x_new = torch.where(departing, 0.0, x_new)
-        times = torch.where(departing, t_new, times)
-        ranks = torch.where(departing, 0, ranks)
-        m = m - (take_dep & has_active).to(m.dtype)
-        # Arrival: insert job i at its rank among the (post-departure)
-        # active set; ties break by index.
-        i_c = i.clamp(max=M - 1)
-        x_a = xs.gather(-1, i_c)
-        still = ranks > 0
-        ahead = still & ((x_new > x_a) | ((x_new == x_a) & (idx < i_c)))
-        r_a = 1 + ahead.sum(-1, keepdim=True)
-        bumped = torch.where(still & (ranks >= r_a), ranks + 1, ranks)
-        inserted = bumped.scatter(-1, i_c, r_a)
-        ranks = torch.where(admit, inserted, ranks)
-        m = m + admit.to(m.dtype)
-        i = i + admit.to(i.dtype)
-        x, t = x_new, t_new
+        for _ in range(E):
+            with span("engine.allocate"):
+                theta = rank_policy(ranks, m, p, dtype=dtype)
+                rate = speedup(theta * n_servers, p)
+            # Next departure: the smallest active job, rank m (argmax: ranks are
+            # unique with maximum m, 0 when inactive).
+            small = ranks.argmax(-1, keepdim=True)
+            has_active = m > 0
+            x_s = x.gather(-1, small)
+            r_s = rate.gather(-1, small)
+            dt_dep = torch.where(has_active & (r_s > 0), x_s / r_s, inf)
+            t_next_arr = torch.where(i < M, arr.gather(-1, i.clamp(max=M - 1)), inf)
+            dt_arr = torch.clamp(t_next_arr - t, min=0.0)
+            dt = torch.minimum(dt_dep, dt_arr)
+            any_event = torch.isfinite(dt)
+            dt = torch.where(any_event, dt, 0.0)
+            admit = any_event & (dt_arr <= dt_dep)
+            take_dep = any_event & (dt_dep <= dt_arr)
+            t_new = torch.where(admit, t_next_arr, t + dt)
+            active = ranks > 0
+            x_new = torch.where(active, torch.clamp(x - dt * rate, min=0.0), x)
+            # Departure: drop rank m; every other active rank stays valid.
+            departing = (idx == small) & active & take_dep
+            x_new = torch.where(departing, 0.0, x_new)
+            times = torch.where(departing, t_new, times)
+            ranks = torch.where(departing, 0, ranks)
+            m = m - (take_dep & has_active).to(m.dtype)
+            # Arrival: insert job i at its rank among the (post-departure)
+            # active set; ties break by index.
+            i_c = i.clamp(max=M - 1)
+            x_a = xs.gather(-1, i_c)
+            still = ranks > 0
+            ahead = still & ((x_new > x_a) | ((x_new == x_a) & (idx < i_c)))
+            r_a = 1 + ahead.sum(-1, keepdim=True)
+            bumped = torch.where(still & (ranks >= r_a), ranks + 1, ranks)
+            inserted = bumped.scatter(-1, i_c, r_a)
+            ranks = torch.where(admit, inserted, ranks)
+            m = m + admit.to(m.dtype)
+            i = i + admit.to(i.dtype)
+            x, t = x_new, t_new
 
-    times = torch.where((x > 0) | (ranks > 0), inf, times)
-    return torch.zeros_like(times).scatter_(-1, order, times).reshape(*lead, M)
+        times = torch.where((x > 0) | (ranks > 0), inf, times)
+        times_in = torch.zeros_like(times).scatter_(-1, order, times)
+    return times_in.reshape(*lead, M)
 
 
 # ----------------------------------------------------- bounded-slot streaming

@@ -54,6 +54,11 @@ bit.  Every run appends its compact record to :data:`RUN_LOG` (unless
 package's ``BENCH_sweeps.json``).  :meth:`SweepResult.to_json` /
 :meth:`SweepResult.from_json` write and read the whole result in the JAX
 package's text, so either package reads the other's.
+
+Under a profiler, :func:`run_sweep` records the program spans
+(``repro_torch/spans.py``) ``sweep`` (the grid), ``sweep.draw`` (a chunk's
+tapes) and ``sweep.to_host`` (a policy column's results copied back, which
+waits for the device).
 """
 
 from __future__ import annotations
@@ -93,6 +98,7 @@ from repro_torch.core.telemetry import (
     scalar_values,
 )
 from repro_torch.device import as_tensor, resolve_device
+from repro_torch.spans import span
 
 #: Layout version of :meth:`SweepResult.record` (the JAX package's v2 plus
 #: torch/CUDA provenance).
@@ -675,7 +681,8 @@ def simulate_cells(spec: Sweep, x0, arr, *, p_drift=None, size_factors=None, p_h
                 if m in CLASS_METRICS else getattr(res, f) for m, f in fields.items()}
         if tel is not None:
             cols.update(zip(scalar_columns(spec.telemetry), scalar_values(tel, spec.telemetry)))
-        stats[name] = {m: v.to(torch.float64).cpu().numpy() for m, v in cols.items()}
+        with span("sweep.to_host"):  # waits for the device's queue to drain
+            stats[name] = {m: v.to(torch.float64).cpu().numpy() for m, v in cols.items()}
     return stats
 
 
@@ -797,7 +804,8 @@ def _run_part(spec: Sweep, plan: ShardPlan, dev) -> dict:
     step = plan.chunk or len(seeds)
     parts = []
     for s0 in range(0, len(seeds), step):
-        scn = draw_scenario(spec, seeds=seeds[s0:s0 + step], device=dev)
+        with span("sweep.draw"):
+            scn = draw_scenario(spec, seeds=seeds[s0:s0 + step], device=dev)
         if plan.rates != list(range(len(spec.rates))):
             scn = _rate_rows(scn, plan.rates)
         parts.append(simulate_cells(  # .cpu() synchronizes
@@ -835,15 +843,16 @@ def run_sweep(
     rank, n = _rank_and_world() if shard else (0, 1)
     plan = shard_plan(spec, resolve_chunk(spec, chunk_seeds, max_jobs_in_flight), rank=rank,
                       n=n, shard_axis=shard_axis if shard else "seeds")
-    if on_cuda:
-        torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    parts = [_run_part(spec, plan, dev)]
-    if shard and dist.is_available() and dist.is_initialized():
-        local, parts = parts[0], [None] * n
-        dist.all_gather_object(parts, local)
-    stats = merge_parts(spec, parts, plan.axis)
-    wall_s = time.perf_counter() - t0
+    with span("sweep"):
+        if on_cuda:
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        parts = [_run_part(spec, plan, dev)]
+        if shard and dist.is_available() and dist.is_initialized():
+            local, parts = parts[0], [None] * n
+            dist.all_gather_object(parts, local)
+        stats = merge_parts(spec, parts, plan.axis)
+        wall_s = time.perf_counter() - t0
     result = SweepResult(
         spec=spec,
         stats=stats,

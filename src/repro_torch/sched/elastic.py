@@ -39,7 +39,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from repro_torch.data.pipeline import DataConfig, ShardedSyntheticStream
 from repro_torch.device import resolve_device
@@ -48,6 +47,7 @@ from repro_torch.models.common import ModelOptions
 from repro_torch.models.model import build_model
 from repro_torch.sched.cluster import ClusterScheduler, Job
 from repro_torch.sched.stragglers import StragglerDetector
+from repro_torch.spans import span
 from repro_torch.train import checkpoint
 from repro_torch.train.compression import init_error_state, make_grad_reducer, recip32
 from repro_torch.train.optimizer import OptimizerConfig, apply_updates, init_opt_state
@@ -84,11 +84,12 @@ def make_elastic_step(model, opt_cfg: OptimizerConfig, reducer, group=None):
     AdamW, and the loss averaged over the group.  The step owns its inputs:
     the reducer updates the gradients and ``err`` in place, and AdamW
     ``params`` and ``opt`` (``apply_updates(inplace=True)``).  Its three
-    parts run under ``record_function`` ranges a profiler trace reads."""
+    parts run under program spans (``repro_torch/spans.py``) a profiler
+    trace reads."""
     inv_n = recip32(1 if group is None else dist.get_world_size(group))
 
     def step(params, opt, err, batch):
-        with record_function("elastic.loss_and_grad"):
+        with span("elastic.loss_and_grad"):
             alias = tree_map(lambda p: p.detach().requires_grad_(True), params)
             loss, _ = model.loss_fn(alias, batch)
             flat = leaves(alias)
@@ -96,9 +97,9 @@ def make_elastic_step(model, opt_cfg: OptimizerConfig, reducer, group=None):
                                              materialize_grads=True))
             grads = tree_map(lambda _: next(grads), alias)
             del alias, flat
-        with record_function("elastic.reduce"):
+        with span("elastic.reduce"):
             grads, err = reducer(grads, err)
-        with record_function("elastic.apply_updates"):
+        with span("elastic.apply_updates"):
             params, opt, _ = apply_updates(params, grads, opt, opt_cfg, inplace=True)
         loss = loss.detach()
         if group is not None:

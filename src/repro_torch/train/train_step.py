@@ -9,9 +9,9 @@ is split along its first axis and the microbatches run one after another,
 so one microbatch's activations are live at a time (the reference's
 ``lax.scan``): their gradients are summed in float32 and divided by their
 count, and the loss returned is their mean.  The step's two halves run
-under ``torch.profiler.record_function`` ranges, ``train_step.loss_and_grad``
-and ``train_step.apply_updates``, which a profiler trace reads (free when no
-profiler runs).
+under program spans (``repro_torch/spans.py``), ``train_step.loss_and_grad``
+and ``train_step.apply_updates``, which a profiler trace reads (a flag read
+when no profiler runs).
 
 Under a mesh the parameters, optimizer state and batch are DTensors
 (``launch/sharding.py::distribute``).  The step then runs under
@@ -28,9 +28,9 @@ from contextlib import nullcontext
 from dataclasses import dataclass, field
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.device import is_dtensor
+from repro_torch.spans import span
 from repro_torch.train.optimizer import OptimizerConfig, apply_updates, init_opt_state
 from repro_torch.train.serve_step import make_decode_step, make_prefill_step
 from repro_torch.train.tree import leaves, tree_map
@@ -134,9 +134,9 @@ def make_train_step(model, tc: TrainConfig, *, donate: bool = False):
         if mesh:
             from torch.distributed.tensor.experimental import implicit_replication
         with implicit_replication() if mesh else nullcontext():
-            with record_function("train_step.loss_and_grad"):
+            with span("train_step.loss_and_grad"):
                 loss, metrics, grads = loss_and_grad(params, batch)
-            with record_function("train_step.apply_updates"):
+            with span("train_step.apply_updates"):
                 params, opt_state, opt_metrics = apply_updates(params, grads, opt_state,
                                                                tc.optimizer, inplace=donate)
         metrics = {"loss": loss, **metrics, **opt_metrics}
