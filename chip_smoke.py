@@ -2,14 +2,15 @@
 """Quickest proof that the PyTorch/CUDA port runs on a GPU.
 
 ``python3 chip_smoke.py`` from the repo root, on a machine with one NVIDIA
-card (sm_90a, nvcc under ``CUDA_HOME``).  It builds the port's four
+card (sm_90a, nvcc under ``CUDA_HOME``).  It builds the port's five
 kernels, ``src/repro_torch/kernels/csrc/alloc.cu`` (the fused allocate),
-``csrc/flash_attention.cu``, ``csrc/ssd_scan.cu`` and ``csrc/rglru_scan.cu``,
-with one nvcc each, started together, and runs, in order (any failure
-raises, and the exit code is not 0):
+``csrc/event_step.cu`` (the event loop's step), ``csrc/flash_attention.cu``,
+``csrc/ssd_scan.cu`` and ``csrc/rglru_scan.cu``, with one nvcc each, started
+together, and runs, in order (any failure raises, and the exit code is not
+0):
 
 1. environment: the card's name and power limit, torch and CUDA versions,
-   the allocate kernel's build time;
+   the allocate and event-step kernels' build times;
 2. the kernel against its plain PyTorch version on the card, bit for bit
    (theta bitwise, chips equal) over sizes with zeros and exact ties, f64
    and f32, M from 1 to ``MAX_JOBS`` (4096), rows of sizes in {1, 2, 3},
@@ -17,11 +18,18 @@ raises, and the exit code is not 0):
    behaviours ROADMAP.md's Queue C records; then with one p a cell read from
    device memory (the drifting p), every mode of the power (c = 1, 2, 3 and
    two of pow) mixed in one launch, f64 and f32, in 1, 6 and 192 cells,
-   also against each cell's scalar-p launch;
+   also against each cell's scalar-p launch; then the event loop's step
+   (``csrc/event_step.cu``) against its plain version bit for bit, step by
+   step along plain trajectories run to their ends (f64 and f32, M = 1, 33,
+   1000 and 4097, [192, 1000] in both, tied sizes arriving in pairs, and
+   three with drift boundaries on and between arrivals), and its time a
+   call at the sweeps' [6144, 1000] f64 beside the plain version's and its
+   byte bound, and its result there against the plain version's;
 3. the three canonical sweep lanes at full size (24 rates x 8 seeds x 1000
-   jobs, 256 chips, p = 0.5); the launch count is zeroed just before and
-   read just after, and the fused lane must launch the kernel once per
-   event step (2M = 2000);
+   jobs, 256 chips, p = 0.5); the launch counts are zeroed just before and
+   read just after: the fused lane must launch the alloc kernel once per
+   event step (2M = 2000), and the two lanes through ``engine.run`` the
+   event-step kernel once per step each (2 x 2000);
 4. one smoke-size lane on the same tapes on the CPU and on the card: flows
    within 1e-12 relative, chips equal at every event;
 5. Thm 8: a batch heSRPT tape simulated on the card against the closed form;
@@ -213,9 +221,10 @@ raises, and the exit code is not 0):
     within 1e-12; (f) ``trace_export.export_sample(n_chips=16)`` on the
     card (heSRPT through the fused allocate) passes
     ``validate_trace_events`` (24 alloc launches);
-27. multi-class workloads (``core/multiclass.py``), which launch no kernel,
-    as in the reference (the alloc count is zeroed before (a) and must read
-    0 after it): (a) ``lanes.multiclass_specs``, ``benchmarks/
+27. multi-class workloads (``core/multiclass.py``), which launch no alloc
+    kernel, as in the reference (the alloc count is zeroed before (a) and
+    must read 0 after it; ``engine.run``'s steps take the event-step
+    kernel): (a) ``lanes.multiclass_specs``, ``benchmarks/
     multiclass.py``'s grid: K = 4 at its full size (1000 jobs x 10 seeds x
     rates 0.5, 2, 8, 256 servers, continuous), K = 2 and 3 at its quick size
     (300 x 8; cut for the time budget), each of the four class-aware
@@ -231,10 +240,11 @@ raises, and the exit code is not 0):
     ``Sweep(classes=)``, its snapped twin, a ``drift_multiclass`` sweep and
     ``simulate_multiclass(estimator_kw=)``, CPU against card within 1e-12
     relative;
-28. the cluster scheduler (``sched/``), which launches no kernel, as in the
-    reference (the alloc count is zeroed before (a) and must read 0 after
-    (e)): (a) ``examples/quickstart.py``'s cluster step (64 chips, sizes 8,
-    5, 3, 2, 1, heSRPT on whole chips): the allocation, and the total flow
+28. the cluster scheduler (``sched/``), which launches no alloc kernel, as
+    in the reference (the alloc count is zeroed before (a) and must read 0
+    after (e); ``engine.run``'s steps take the event-step kernel): (a)
+    ``examples/quickstart.py``'s cluster step (64 chips, sizes 8, 5, 3, 2,
+    1, heSRPT on whole chips): the allocation, and the total flow
     beside Thm 8's fluid optimum; (b) a backlog of 1000 Pareto(1.5) + 1 jobs
     (``default_rng(0)``) on 4096 chips, heSRPT and the class-aware
     ``hesrpt_pc`` over ``lanes.class_grid(4)``'s exponents, each delegated
@@ -251,7 +261,7 @@ raises, and the exit code is not 0):
     at M = 100 .. 1e5 on 4096 chips: theta us (median of 5), quantize us,
     4096 chips at every M, and the card's chips at 1e5 equal to the CPU's;
 29. the training path (``models/model.py::loss_fn``, ``train/``,
-    ``data/pipeline.py``), which launches none of the four kernels: none has
+    ``data/pipeline.py``), which launches none of the kernels: none has
     a backward, here or in the reference, so training takes the chunked
     forms (``kernels/chunked.py``): (a) the chunked attention's forward and
     hand-written backward against autograd through the plain version, float32,
@@ -631,19 +641,152 @@ def phase_per_cell_p(alloc, device) -> int:
     return checked
 
 
-def phase_lanes(alloc, lanes, device):
-    """Phase 3: the three lanes at full size; returns (results, launches)."""
+# Phase 2 (c): the event step's trajectories (dtype, cells, M, sizes, drift),
+# each run to its end (2M + 3 steps, and one more a boundary).
+EVENT_STEP_CASES = (("f64", 6, 1, "pareto", False), ("f64", 6, 33, "pareto", False),
+                    ("f64", 6, 1000, "pareto", False), ("f64", 192, 1000, "pareto", False),
+                    ("f64", 3, 4097, "pareto", False), ("f64", 6, 40, "ties", False),
+                    ("f32", 192, 1000, "pareto", False), ("f64", 6, 1000, "pareto", True),
+                    ("f32", 6, 33, "pareto", True), ("f64", 6, 40, "ties", True))
+# The sweeps' grid: 24 rates x 256 seeds, 1000 jobs a row.
+EVENT_STEP_SHAPE = (6144, 1000)
+
+
+def _online_tapes(gen, cells, M, device, dtype, kind):
+    """Sizes and ascending arrivals: Pareto(1.5) sizes >= 1 over Poisson
+    arrivals at rates 0.25 .. 16 across the rows, or ("ties") sizes in
+    {1, 2} arriving in pairs at equal times."""
+    import torch
+
+    if kind == "ties":
+        x = torch.randint(1, 3, (cells, M), generator=gen, device=device).to(torch.float64)
+        gaps = torch.empty((cells, (M + 1) // 2), dtype=torch.float64, device=device)
+        arr = gaps.exponential_(0.5, generator=gen).cumsum(-1).repeat_interleave(2, -1)[:, :M]
+    else:
+        x = torch.exp(torch.empty((cells, M), dtype=torch.float64, device=device)
+                      .exponential_(generator=gen) / 1.5)
+        rates = torch.logspace(math.log10(0.25), math.log10(16.0), cells, dtype=torch.float64,
+                               device=device)[:, None]
+        arr = (torch.empty((cells, M), dtype=torch.float64, device=device)
+               .exponential_(generator=gen) / rates).cumsum(-1)
+    return x.to(dtype).contiguous(), arr.to(dtype).contiguous()
+
+
+def _drift_bounds(arr):
+    """Four regime boundaries a row and ``+inf`` past them, as
+    ``engine.run`` gathers them: two on arrival times (ties with the
+    arrival) and two between arrivals; and the five regimes' exponents."""
+    import torch
+
+    M = arr.shape[-1]
+    a, b = M // 4, M // 2
+    mid = lambda k: (arr[:, k:k + 1] + arr[:, k + 1:k + 2]) / 2  # noqa: E731
+    bounds = torch.cat([arr[:, a:a + 1], mid(M // 3), arr[:, b:b + 1], mid(2 * M // 3)], -1)
+    bounds = torch.cat([bounds.sort(-1).values, torch.full_like(bounds[:, :1], torch.inf)], -1)
+    regimes = torch.tensor([0.5, 0.8, 0.3, 0.6, 0.9], dtype=arr.dtype, device=arr.device)
+    return bounds.contiguous(), regimes.expand(arr.shape[0], 5)
+
+
+def _equal_step(event_step, got, want, what):
+    import torch
+
+    for field in event_step.Step._fields:
+        if not torch.equal(getattr(got, field), getattr(want, field)):
+            raise AssertionError(f"event step kernel != plain: {what} field {field}")
+
+
+def phase_event_step(event_step, engine, policies, device) -> dict:
+    """Phase 2 (c): the event-step kernel against its plain version, step by
+    step along plain trajectories to their ends, bit for bit, with and
+    without drift boundaries; then its time a call at ``EVENT_STEP_SHAPE``
+    f64 from a mid-run state, beside the plain version's and the bytes'
+    bound, and its result there against the plain version's."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    dtypes = {"f64": torch.float64, "f32": torch.float32}
+    steps = 0
+    for name, cells, M, kind, drift in EVENT_STEP_CASES:
+        dtype = dtypes[name]
+        x, arr = _online_tapes(gen, cells, M, device, dtype, kind)
+        rule = engine.quantized_rule(policies.hesrpt, 256, dtype=dtype)
+        rule = rule.fused_variant if M <= 4096 else rule  # the alloc kernel's MAX_JOBS
+        bounds, regimes = _drift_bounds(arr) if drift else (None, None)
+        t = torch.zeros((cells, 1), dtype=dtype, device=device)
+        i = torch.zeros((cells, 1), dtype=torch.int64, device=device)
+        times, tol = torch.zeros_like(x), 1e-9 * x.amax(-1, keepdim=True)
+        x_act = torch.zeros_like(x)
+        for _ in range(2 * M + 3 + (4 if drift else 0)):
+            p, t_drift = 0.5, None
+            if drift:  # the regime at each row's clock and its next boundary
+                r = torch.searchsorted(bounds, t, right=True)
+                p, t_drift = regimes.gather(-1, r), bounds.gather(-1, r)
+            _, rate = rule(x_act, p)
+            got = event_step.event_step(x, rate, arr, t, i, tol, times.clone(), t_drift)
+            want = event_step.event_step_ref(x, rate, arr, t, i, tol, times, t_drift)
+            _equal_step(event_step, got, want, f"{name} [{cells}, {M}] {kind} "
+                        f"{'drift ' if drift else ''}step {steps}")
+            x, x_act, t, i, times = want.x, want.x_act, want.t, want.i, want.times
+            steps += 1
+        if not (bool((x == 0).all()) and bool((want.dt == 0).all())):
+            raise AssertionError(f"event step: {name} [{cells}, {M}] {kind} left jobs behind")
+    print(f"phase 2: event-step kernel == plain version bit for bit on {steps} steps "
+          f"({len(EVENT_STEP_CASES)} trajectories to their ends, f64 and f32, M = 1 .. 4097, "
+          f"with and without drift)", flush=True)
+
+    # Mid-run state at the sweeps' shape: half the jobs admitted, a third of
+    # those departed; the rate from the fused allocate.
+    cells, M = EVENT_STEP_SHAPE
+    x, arr = _online_tapes(gen, cells, M, device, torch.float64, "pareto")
+    i = torch.full((cells, 1), M // 2, dtype=torch.int64, device=device)
+    x = torch.where(torch.arange(M, device=device) % 3 == 0, 0.0, x)
+    t = arr[:, M // 2 - 1:M // 2].clone()
+    tol, times = 1e-9 * x.amax(-1, keepdim=True), torch.zeros_like(x)
+    active = (torch.arange(M, device=device) < i) & (x > 0)
+    _, rate = engine.quantized_rule(policies.hesrpt, 256).fused_variant(
+        torch.where(active, x, 0.0), 0.5)
+    args = (x, rate, arr, t, i, tol)
+    before = event_step.LAUNCHES
+    ms = _time_ms(lambda: event_step.event_step(*args, times), 200)
+    plain_ms = _time_ms(lambda: event_step.event_step_ref(*args, times), 20)
+    event_step.LAUNCHES = before  # timing launches are not the main path's
+    _equal_step(event_step, event_step.event_step(*args, torch.zeros_like(x)),
+                event_step.event_step_ref(*args, torch.zeros_like(x)), f"[{cells}, {M}] f64")
+    event_step.LAUNCHES = before
+    # Least bytes: x read, the new x and x_act written, the rate read for the
+    # active jobs, t, i, tol read and t, i, dt written; the departures' times
+    # (at most one a row) left out.
+    n_active = int(active.sum())
+    n_bytes = 8 * (3 * cells * M + n_active) + cells * 6 * 8
+    bound_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"phase 2: event-step kernel {ms:.4f} ms/launch at [{cells}, {M}] f64 "
+          f"({n_active} active jobs), plain version {plain_ms:.4f} ms, bound {bound_ms:.6f} ms "
+          f"({n_bytes} bytes); its result == the plain version's bit for bit", flush=True)
+    return {"steps_checked": steps, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bytes": n_bytes, "active": n_active, "shape": [cells, M]}
+
+
+def phase_lanes(alloc, lanes, device, event_step):
+    """Phase 3: the three lanes at full size; returns (results, launches)
+    and reads the event-step kernel's launches."""
     import numpy as np
     import torch
 
     torch.cuda.synchronize()
     alloc.LAUNCHES = 0
+    event_step.LAUNCHES = 0
     results = lanes.run_lanes(device=device)
     torch.cuda.synchronize()
     launches = alloc.LAUNCHES
     by_label = dict(results)
     M = by_label["quantized-fused"].spec.n_jobs
     assert launches == 2 * M, f"fused lane launched the kernel {launches} times, not {2 * M}"
+    # The quantized lanes, fused and not, run engine.run: one step launch an
+    # event; the continuous lane's carried-rank loop launches none.
+    assert event_step.LAUNCHES == 2 * 2 * M, (
+        f"the event-step kernel launched {event_step.LAUNCHES} times, not {2 * 2 * M}")
+    print(f"phase 3: event-step kernel launches during the lanes: {event_step.LAUNCHES} "
+          f"({2 * M} a lane through engine.run)", flush=True)
     assert lanes.fused_equals_unfused(results), "fused lane != unfused lane"
     for label, res in results:
         a = res.stats["hesrpt"]["mean_flowtime"]
@@ -2347,9 +2490,9 @@ def phase_telemetry(alloc, lanes, sweeps, engine, policies, telemetry, analysis,
 
 def phase_multiclass(alloc, lanes, sweeps, multiclass, arrivals, policies, card,
                      device) -> dict:
-    """Phase 27: multi-class workloads.  The path launches no kernel, as in
-    the reference: the alloc count is zeroed before (a) and must read 0
-    after it."""
+    """Phase 27: multi-class workloads.  The path launches no alloc kernel,
+    as in the reference: the alloc count is zeroed before (a) and must read
+    0 after it."""
     import numpy as np
     import torch
 
@@ -2522,7 +2665,7 @@ def _both_ways(make, device) -> dict:
 
 def phase_sched(alloc, lanes, sched, flowtime, policies, card, device) -> dict:
     """Phase 28: the cluster scheduler (``sched/``) and the benchmarks that
-    hold the engine against it.  It launches no kernel, as in the
+    hold the engine against it.  It launches no alloc kernel, as in the
     reference (``ClusterScheduler`` never passes ``fused=``): the alloc
     count is zeroed before (a) and must read 0 after (e)."""
     import numpy as np
@@ -4666,7 +4809,8 @@ def main() -> int:
         return 1
     csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
     if not all((csrc / f).is_file()
-               for f in ("alloc.cu", "flash_attention.cu", "ssd_scan.cu", "rglru_scan.cu")):
+               for f in ("alloc.cu", "event_step.cu", "flash_attention.cu", "ssd_scan.cu",
+                         "rglru_scan.cu")):
         print("chip_smoke: run it from a checkout of the repo (src/repro_torch missing)",
               file=sys.stderr)
         return 1
@@ -4677,7 +4821,9 @@ def main() -> int:
         superstep, sweeps, telemetry,
     )
     from repro_torch.launch import trace_export
-    from repro_torch.kernels import alloc, chunked, flash_attention, ops, ref, rglru_scan, ssd_scan
+    from repro_torch.kernels import (
+        alloc, chunked, event_step, flash_attention, ops, ref, rglru_scan, ssd_scan,
+    )
 
     # Float32 products in full float32 (these are PyTorch's defaults, stated).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4689,17 +4835,20 @@ def main() -> int:
     print(card, flush=True)
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
-    kernel_modules = (alloc, flash_attention, ssd_scan, rglru_scan)
+    kernel_modules = (alloc, event_step, flash_attention, ssd_scan, rglru_scan)
     with ThreadPoolExecutor(len(kernel_modules)) as pool:  # one nvcc per source, together
         builds = [pool.submit(k.load_library) for k in kernel_modules]
         for b in builds:
             b.result()
-    print(f"phase 1: built {alloc._SRC.name} in {alloc.BUILD_SECONDS:.2f} s "
+    print(f"phase 1: built {alloc._SRC.name} in {alloc.BUILD_SECONDS:.2f} s and "
+          f"{event_step._SRC.name} in {event_step.BUILD_SECONDS:.2f} s "
           f"(nvcc {' '.join(alloc.NVCC_FLAGS)})", flush=True)
 
     max_err = phase_kernel_vs_plain(alloc, engine, device)
     per_cell_cases = phase_per_cell_p(alloc, device)
-    results, launches = phase_lanes(alloc, lanes, device)
+    step = phase_event_step(event_step, engine, policies, device)
+    results, launches = phase_lanes(alloc, lanes, device, event_step)
+    step_launches = event_step.LAUNCHES
     cpu_gap = phase_cpu_vs_cuda(lanes, sweeps, engine, policies, device)
     thm8_gap = phase_theorem8(simulator, flowtime, policies, device)
     timing = phase_timing(alloc, device)
@@ -4764,6 +4913,19 @@ def main() -> int:
                       dict(results)["quantized-fused"], card, device)
 
     kernels = [{
+        "name": "fluid_event_step",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/event_step.cu",
+        "replaces": None,
+        "launches": step_launches,
+        "steps_checked": step["steps_checked"],
+        "ms": step["ms"],
+        "plain_ms": step["plain_ms"],
+        "bound_ms": step["bound_ms"],
+        "bound_by": "bytes",
+        "shape": step["shape"],
+        "library_ms": None,
+    }, {
         "name": "hesrpt_alloc",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/alloc.cu",

@@ -44,10 +44,13 @@ tensor value — so the loop is bound by launches, not by syncs.
   :func:`quantized_rule` take estimation noise (``size_factors``,
   ``p_hat``), and ``core/estimation.py`` builds the estimating
   :class:`StatefulRule`.
+- the step after the allocate (``kernels/event_step.py``): one launch of
+  its CUDA kernel a step on the card, its plain version on the CPU.
 - program spans (``repro_torch/spans.py``, recorded only while a profiler
   runs): ``engine.loop`` around :func:`run`'s and :func:`run_ranked`'s loop,
-  ``engine.allocate`` around each step's allocation, and the counter
-  ``engine.steps``.
+  ``engine.allocate`` around each step's allocation, and the counters
+  ``engine.steps`` and ``engine.step_kernel`` (the steps that launched the
+  event-step kernel).
 """
 
 from __future__ import annotations
@@ -61,6 +64,7 @@ import torch
 from repro_torch.core.flowtime import speedup
 from repro_torch.core import policies
 from repro_torch.core.policies import Policy, hesrpt, knee
+from repro_torch.kernels import event_step as kstep
 from repro_torch.kernels.alloc import (
     hesrpt_alloc_fused,
     hesrpt_theta_fused,
@@ -134,6 +138,11 @@ class StatefulRule(NamedTuple):
     allocate: Callable[[Any, torch.Tensor, Any], tuple[torch.Tensor, torch.Tensor]]
 
 
+def _keep_state(state, obs):
+    """The trivial rule's ``observe``: the state as it was."""
+    return state
+
+
 def as_stateful(rule: AllocRule | StatefulRule) -> StatefulRule:
     """Wrap a plain ``(x_active, p) -> (alloc, rate)`` rule as the trivial
     :class:`StatefulRule` (empty state, identity ``observe``)."""
@@ -141,7 +150,7 @@ def as_stateful(rule: AllocRule | StatefulRule) -> StatefulRule:
         return rule
     return StatefulRule(
         init=lambda: (),
-        observe=lambda state, obs: state,
+        observe=_keep_state,
         allocate=lambda state, x_act, p: rule(x_act, p),
     )
 
@@ -440,6 +449,14 @@ def run(
     step hands it the epoch's :class:`ProbeEvent` after the step's own ops,
     and its read-out comes back on ``EngineResult.telemetry``.  With
     ``telemetry=None`` the loop body is the probe-free one, op for op.
+
+    Each step after the allocate is
+    :func:`~repro_torch.kernels.event_step.event_step`, with the drift
+    boundary as a third candidate event under ``p_drift``: one launch of its
+    CUDA kernel on the card, its plain version on the CPU.  The kernel takes
+    the sizes and the rule's rate in one dtype and raises otherwise (build
+    the rule with the tapes' ``dtype``), where the CPU's plain version
+    promotes a rate of another dtype.
     """
     if superstep:
         pol_name, n_srv = _resolve_superstep(
@@ -469,21 +486,22 @@ def run(
         n_drift = 0 if drift is None else drift[0].shape[-1] - 1
         E = ((M if pre_arrived else 2 * M) + n_drift) if horizon is None else horizon
         tol = rel_tol * x0.amax(-1, keepdim=True)
-        idx = torch.arange(M, device=dev)
         i = torch.full((C, 1), M if pre_arrived else 0, dtype=torch.int64, device=dev)
         t = torch.full((C, 1), float(t0), dtype=dtype, device=dev)
         times = torch.zeros((C, M), dtype=dtype, device=dev)
-        inf = torch.tensor(torch.inf, dtype=dtype, device=dev)
         srule = as_stateful(rule)
         st = srule.init()
+        # The epoch's active set is built only for a rule's observe or a probe.
+        watched = telemetry is not None or srule.observe is not _keep_state
         trace = ([], [], []) if record else None
         tel = None if telemetry is None else telemetry.init(tuple(lead), dev)
         tel_outs = []
         add("engine.steps", E)
+        if kstep.on_kernel(x):
+            add("engine.step_kernel", E)
 
+        x_act = torch.where((torch.arange(M, device=dev) < i) & (x > 0), x, 0.0)
         for _ in range(E):
-            active = (idx < i) & (x > 0)
-            x_act = torch.where(active, x, 0.0)
             p_now = p
             if drift is not None:
                 # The regime at each row's clock (right: a row landed on a
@@ -493,56 +511,29 @@ def run(
                     p_now = drift[1].gather(1, r.unsqueeze(-1).expand(C, 1, M)).squeeze(1)
                 else:
                     p_now = drift[1].gather(-1, r)
-                t_next_drift = drift[0].gather(-1, r)
-                dt_drift = torch.clamp(t_next_drift - t, min=0.0)
             with span("engine.allocate"):
                 alloc, rate = srule.allocate(st, x_act, p_now)
-            tt = torch.where(active & (rate > 0), x / rate, inf)
-            dt_dep = tt.amin(-1, keepdim=True)
-            first = tt.argmin(-1, keepdim=True)  # first index on ties, as jnp.argmin
-            t_next_arr = torch.where(i < M, arr.gather(-1, i.clamp(max=M - 1)), inf)
-            dt_arr = torch.clamp(t_next_arr - t, min=0.0)
-            dt = torch.minimum(dt_dep, dt_arr)
-            if drift is not None:
-                dt = torch.minimum(dt, dt_drift)
-            any_event = torch.isfinite(dt)
-            dt = torch.where(any_event, dt, 0.0)
-            # Landing on an arrival pins t to the exact arrival time so the
-            # searchsorted admission below cannot miss it to float rounding (and
-            # likewise a drift boundary); ties: arrival, departure, boundary.
-            if drift is None:
-                admit = any_event & (dt_arr <= dt_dep)
-                take_dep = any_event & (dt_dep <= dt_arr)
-                t_new = torch.where(admit, t_next_arr, t + dt)
-            else:
-                admit = any_event & (dt_arr <= torch.minimum(dt_dep, dt_drift))
-                take_dep = any_event & (dt_dep <= torch.minimum(dt_arr, dt_drift))
-                take_drift = any_event & ~admit & ~take_dep
-                t_new = torch.where(
-                    admit, t_next_arr, torch.where(take_drift, t_next_drift, t + dt)
-                )
-            x_new = torch.where(active, x - dt * rate, x)
-            # The argmin job departs by construction when the departure is the
-            # next event; float residue (~eps*x) must not keep it alive.
-            departing = (idx == first) & active & take_dep
-            x_new = torch.where(departing | (active & (x_new <= tol)), 0.0, x_new)
-            times = torch.where(active & (x_new == 0.0), t_new, times)
-            i_new = torch.searchsorted(arr, t_new, right=True)
-            st_start = st
-            st = srule.observe(st, Observation(alloc=alloc, rate=rate, dt=dt, active=active))
-            if tel is not None:
-                tel, out = telemetry.step(tel, ProbeEvent(
-                    t=t, dt=dt, alloc=alloc, rate=rate, active=active, x=x, p=p_now,
-                    rule_state=st_start, p_per_job=per_job if drift is None else drift_per_job))
-                tel_outs.append(out)
+            step = kstep.event_step(x, rate, arr, t, i, tol, times,
+                                    None if drift is None else drift[0].gather(-1, r))
+            if watched:
+                active = x_act > 0  # arrived and unfinished: x_act holds their sizes
+                st_start = st
+                st = srule.observe(st, Observation(alloc=alloc, rate=rate, dt=step.dt,
+                                                   active=active))
+                if tel is not None:
+                    tel, out = telemetry.step(tel, ProbeEvent(
+                        t=t, dt=step.dt, alloc=alloc, rate=rate, active=active, x=x, p=p_now,
+                        rule_state=st_start,
+                        p_per_job=per_job if drift is None else drift_per_job))
+                    tel_outs.append(out)
             if record:
                 trace[0].append(alloc)
                 trace[1].append(t)
                 trace[2].append(x)
-            x, t, i = x_new, t_new, torch.maximum(i, i_new)
+            x, x_act, t, i, times = step.x, step.x_act, step.t, step.i, step.times
 
         # Safety: any job that never departed (pathological rule) -> inf.
-        times = torch.where(x > 0, inf, times)
+        times = torch.where(x > 0, torch.inf, times)
         times_in = torch.zeros_like(times).scatter_(-1, order, times)  # input order
     out_trace = None
     if record:

@@ -26,7 +26,10 @@ Names are ``<module>.<part>``.  The sweep path's:
 - ``engine.loop``: one event loop (``engine.run`` / ``engine.run_ranked``),
   from its set-up to the un-sort;
 - ``engine.allocate``: one step's allocation, the rule or the rank policy;
-- counter ``engine.steps``: the event steps those loops ran.
+- counter ``engine.steps``: the event steps those loops ran;
+- counter ``engine.step_kernel``: the steps of ``engine.run`` that launched
+  the event-step kernel (``kernels/event_step.py``), ``E`` a run on the
+  card; over ``engine.steps``, the share of steps it covers.
 """
 
 from __future__ import annotations

@@ -2,6 +2,12 @@
 
 - the fused allocate: bit for bit, with one p a launch or one a cell read
   from device memory (a drifting p), and through the engine under drift;
+- the event loop's step (``kernels/event_step.py``): bit for bit, step by
+  step along a trajectory and through ``engine.run`` against the same run
+  with the plain step, at the sweeps' [6144, 1000] and over the callers'
+  options (``record``, ``pre_arrived``, ``horizon``, a stateful rule,
+  per-job exponents, a drifting p per cell and per job), one launch a
+  step;
 - flash attention: within the tolerances of ``tests/test_kernels.py``
   (float32 2e-5, bfloat16 5e-2: the kernel sums in another order than the
   plain version's einsum, and bf16 rounds the float32 result once), float32
@@ -35,8 +41,9 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import smoke_config  # noqa: E402
-from repro_torch.core import engine, policies  # noqa: E402
+from repro_torch.core import engine, estimation, multiclass, policies  # noqa: E402
 from repro_torch.kernels import alloc, chunked, ops, ref  # noqa: E402
+from repro_torch.kernels import event_step as kstep  # noqa: E402
 from repro_torch.kernels import flash_attention as flash  # noqa: E402
 from repro_torch.kernels import rglru_scan as rglru_kernel  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd_kernel  # noqa: E402
@@ -242,6 +249,189 @@ FLASH_CASES = (
     (1, 4, 2, 200, 200, 16, False, 100), (2, 6, 3, 77, 77, 256, True, 0),
     (1, 3, 1, 5, 300, 128, True, 0),
 )
+
+
+def _online_tapes(rng, cells, m, *, ties=False):
+    """Sizes and ascending arrivals ``[cells, m]``: Pareto(1.5) sizes >= 1
+    over Poisson arrivals at rates from 0.25 to 16 across the rows, or with
+    ``ties`` sizes in {1, 2} arriving in pairs at equal times."""
+    if ties:
+        x = rng.integers(1, 3, (cells, m)).astype(float)
+        arr = np.repeat(np.cumsum(rng.exponential(0.5, (cells, (m + 1) // 2)), -1), 2, -1)
+        return x, arr[:, :m]
+    rates = np.geomspace(0.25, 16.0, cells)[:, None]
+    return rng.pareto(1.5, (cells, m)) + 1.0, np.cumsum(rng.exponential(1.0, (cells, m)) / rates,
+                                                        -1)
+
+
+def _equal_steps(got, want):
+    for name in kstep.Step._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+def _drift_bounds(arr):
+    """Four regime boundaries a row and ``+inf`` past them, as ``engine.run``
+    gathers them: two on arrival times (ties with the arrival) and two
+    between arrivals; and the five regimes' exponents."""
+    m = arr.shape[-1]
+    mid = lambda k: (arr[:, k:k + 1] + arr[:, k + 1:k + 2]) / 2  # noqa: E731
+    bounds = torch.cat([arr[:, m // 4:m // 4 + 1], mid(m // 3), arr[:, m // 2:m // 2 + 1],
+                        mid(2 * m // 3)], -1).sort(-1).values
+    bounds = torch.cat([bounds, torch.full_like(bounds[:, :1], torch.inf)], -1).contiguous()
+    regimes = torch.tensor([0.5, 0.8, 0.3, 0.6, 0.9], dtype=arr.dtype, device=arr.device)
+    return bounds, regimes.expand(arr.shape[0], 5)
+
+
+# (dtype, cells, M, tapes, rule, drift): one job a row, a warp and one more,
+# the sweeps' 1000, more than a CTA keeps in registers; ties in x / rate
+# (EQUI gives equal sizes equal rates) with arrivals at equal times;
+# float32; regime boundaries as a third candidate event, on arrivals too.
+TRAJECTORIES = (
+    (torch.float64, 6, 1, "pareto", "fused", False),
+    (torch.float64, 6, 33, "pareto", "fused", False),
+    (torch.float64, 6, 1000, "pareto", "fused", False),
+    (torch.float64, 3, 4097, "pareto", "plain", False),
+    (torch.float64, 6, 40, "ties", "equi", False),
+    (torch.float32, 192, 1000, "pareto", "fused", False),
+    (torch.float64, 6, 1000, "pareto", "fused", True),
+    (torch.float32, 6, 33, "pareto", "fused", True),
+    (torch.float64, 6, 40, "ties", "equi", True),
+)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype, cells, m, tapes, rule, drift", TRAJECTORIES)
+def test_event_step_kernel_equals_plain_step_along_a_trajectory(cuda_device, dtype, cells, m,
+                                                                tapes, rule, drift):
+    """Step by step, each from the plain trajectory's state: the kernel's
+    x, x_act, t, i, times and dt equal the plain version's bit for bit, one
+    launch a step, to the trajectory's end (dt = 0) up to 1000 jobs."""
+    rng = np.random.default_rng(m)
+    x0, arr = (torch.tensor(v, device=cuda_device).to(dtype)
+               for v in _online_tapes(rng, cells, m, ties=tapes == "ties"))
+    if rule == "equi":
+        allocate = engine.continuous_rule(policies.equi, 64.0, dtype=dtype)
+    else:
+        allocate = engine.quantized_rule(policies.hesrpt, 256, dtype=dtype)
+        allocate = allocate.fused_variant if rule == "fused" else allocate
+    bounds, regimes = _drift_bounds(arr) if drift else (None, None)
+    x, t = x0, torch.zeros((cells, 1), dtype=dtype, device=cuda_device)
+    i = torch.zeros((cells, 1), dtype=torch.int64, device=cuda_device)
+    times = torch.zeros_like(x)
+    tol = 1e-9 * x0.amax(-1, keepdim=True)
+    x_act = torch.where((torch.arange(m, device=cuda_device) < i) & (x > 0), x, 0.0)
+    to_end = m <= 1000
+    for _ in range(2 * m + 3 + 4 * drift if to_end else 603):
+        p, t_drift = 0.5, None
+        if drift:  # the regime at each row's clock and its next boundary
+            r = torch.searchsorted(bounds, t, right=True)
+            p, t_drift = regimes.gather(-1, r), bounds.gather(-1, r)
+        _, rate = allocate(x_act, p)
+        before = kstep.LAUNCHES
+        got = kstep.event_step(x, rate, arr, t, i, tol, times.clone(), t_drift)
+        assert kstep.LAUNCHES == before + 1
+        want = kstep.event_step_ref(x, rate, arr, t, i, tol, times, t_drift)
+        _equal_steps(got, want)
+        x, x_act, t, i, times = want.x, want.x_act, want.t, want.i, want.times
+    if to_end:
+        assert bool((x == 0).all()) and bool((want.dt == 0).all())
+
+
+def _e2e_runs(device):
+    """name -> (run(), E): ``engine.run`` at the sweeps' size and over every
+    caller's options."""
+    rng = np.random.default_rng(11)
+
+    def tapes(cells, m, dtype=torch.float64, ties=False):
+        return (torch.tensor(v, device=device).to(dtype)
+                for v in _online_tapes(rng, cells, m, ties=ties))
+
+    q256 = engine.quantized_rule(policies.hesrpt, 256)
+    x_g, a_g = tapes(6144, 1000)
+    x_32, a_32 = tapes(192, 1000, torch.float32)
+    q32 = engine.quantized_rule(policies.hesrpt, 256, dtype=torch.float32)
+    small = {m: tapes(4, m) for m in (1, 33, 1000)}
+    x_w, a_w = tapes(2, 4097)
+    x_t, a_t = tapes(6, 40, ties=True)
+    x_e, a_e = tapes(8, 200)
+    p_job = torch.where(torch.arange(200, device=device) % 3 == 0, 0.3, 0.8).expand(8, 200)
+    est = estimation.estimating_rule(policies.hesrpt, 256.0, prior_p=0.8, n_jobs=200,
+                                     n_chips=256, device=device)
+    x_d, a_d = tapes(192, 1000)
+    drift_cells = engine.PDrift(torch.stack([a_d[:, 250], (a_d[:, 600] + a_d[:, 601]) / 2], -1),
+                                torch.tensor([0.8, 0.3, 0.6], dtype=torch.float64, device=device))
+    drift_jobs = engine.PDrift(
+        a_e[:, 50:51].clone(),
+        torch.stack([p_job, 1.1 - p_job], -2).contiguous())  # [8, 2, 200]: each job's two regimes
+    runs = {
+        "fused_6144x1000_f64": (lambda: engine.run(x_g, a_g, 0.5, q256, fused=True), 2000),
+        "fused_192x1000_f32": (lambda: engine.run(x_32, a_32, 0.5, q32, fused=True), 2000),
+        "plain_2x4097_record": (lambda: engine.run(
+            x_w, a_w, 0.5, engine.continuous_rule(policies.hesrpt, 256.0), record=True), 8194),
+        "pre_arrived_record": (lambda: engine.run(
+            x_e, a_e, 0.5, q256, pre_arrived=True, record=True, fused=True), 200),
+        "ties_equi_horizon": (lambda: engine.run(
+            x_t, a_t, 0.5, engine.continuous_rule(policies.equi, 64.0), horizon=100,
+            record=True), 100),
+        "estimating_rule": (lambda: engine.run(x_e, a_e, 0.5, est, record=True), 400),
+        "per_job_p": (lambda: engine.run(
+            x_e, a_e, p_job, multiclass.class_rule("hesrpt_pc", n_chips=32), record=True), 400),
+        "drift_fused_192x1000_record": (lambda: engine.run(
+            x_d, a_d, 0.5, q256, fused=True, record=True, p_drift=drift_cells), 2002),
+        "drift_per_job_p": (lambda: engine.run(
+            x_e, a_e, p_job, multiclass.class_rule("hesrpt_pc", n_chips=32), record=True,
+            p_drift=drift_jobs), 401),
+    }
+    for m, (x, a) in small.items():
+        runs[f"fused_4x{m}_record"] = (lambda x=x, a=a: engine.run(x, a, 0.5, q256, fused=True,
+                                                                  record=True), 2 * m)
+    return runs
+
+
+E2E = ("fused_6144x1000_f64", "fused_192x1000_f32", "plain_2x4097_record", "pre_arrived_record",
+       "ties_equi_horizon", "estimating_rule", "per_job_p", "fused_4x1_record",
+       "fused_4x33_record", "fused_4x1000_record", "drift_fused_192x1000_record",
+       "drift_per_job_p")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", E2E)
+def test_run_through_the_event_step_kernel_equals_the_plain_step(cuda_device, monkeypatch,
+                                                                  case):
+    """``engine.run`` with the kernel against the same run with the plain
+    step on the card: completion times, final sizes and the recorded trace
+    bit for bit; the kernel launched once a step."""
+    run, E = _e2e_runs(cuda_device)[case]
+    before = kstep.LAUNCHES
+    got = run()
+    torch.cuda.synchronize()
+    assert kstep.LAUNCHES == before + E
+    monkeypatch.setattr(kstep, "event_step", kstep.event_step_ref)
+    want = run()
+    assert kstep.LAUNCHES == before + E
+    assert torch.equal(got.completion_times, want.completion_times)
+    assert torch.equal(got.x_final, want.x_final)
+    assert bool(torch.isfinite(got.completion_times).all())
+    if want.trace is not None:
+        for name in engine.EngineTrace._fields:
+            assert torch.equal(getattr(got.trace, name), getattr(want.trace, name)), name
+
+
+@pytest.mark.cuda
+def test_event_step_kernel_refuses_what_it_does_not_take(cuda_device):
+    x = torch.ones((2, 5), dtype=torch.float64, device=cuda_device)
+    arr, times = torch.zeros_like(x), torch.zeros_like(x)
+    t, tol = torch.zeros((2, 1), dtype=torch.float64, device=cuda_device), torch.zeros(
+        (2, 1), dtype=torch.float64, device=cuda_device)
+    i = torch.zeros((2, 1), dtype=torch.int64, device=cuda_device)
+    with pytest.raises(TypeError, match="dtype"):
+        kstep.event_step(x, x.float(), arr, t, i, tol, times)
+    with pytest.raises(ValueError, match="lies on"):
+        kstep.event_step(x, x, arr.cpu(), t, i, tol, times)
+    with pytest.raises(TypeError, match="float64 or float32"):
+        kstep.event_step(x.half(), x, arr, t, i, tol, times)
+    with pytest.raises(TypeError, match="t_next_drift"):
+        kstep.event_step(x, x, arr, t, i, tol, times, t.float())
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """Host ops an event step costs in the port's loops, with and without a probe.
 
 ``PYTHONPATH=src python tools/torch_step_ops.py`` from the repo root runs,
-on the CPU at the smoke size (the fused allocate takes its plain version
-there), the fused lane through ``engine.run``, the fused stream lane through
+on the CPU at the smoke size (the fused allocate and the event step take
+their plain versions there; on the card the step is one kernel launch),
+the fused lane through ``engine.run``, the fused stream lane through
 ``engine.run_stream`` (16 slots, a window), and continuous heSRPT with and
 without the estimating rule, each under ``torch.profiler``, and prints the
 top-level aten ops a step (views included): what a probe or the estimator
