@@ -33,8 +33,9 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core.analysis import _class_mask
-from repro_torch.core.policies import Policy
+from repro_torch.core.policies import BisectGraph, Policy
 from repro_torch.device import resolve_device
+from repro_torch.spans import span
 
 #: Clip bounds shared with the NumPy estimator (p = 0 and p = 1 are both
 #: degenerate for the Thm-7 brackets).
@@ -217,13 +218,16 @@ def estimating_class_rule(
         init_state = init_est_state(class_ids.shape[-1], dtype, device=class_ids.device)
     n_alloc = float(n_chips) if n_chips is not None else float(n_servers)
     finish, observe = _rule_parts(n_alloc, n_chips, min_chips, snap_slices, dtype, discount)
+    graph = BisectGraph()
 
     def allocate(state, x_act, p):
         p_k = p_hat_classes(state, class_ids, n_classes, prior_p,
                             prior_weight=prior_weight, base=base_class_state)
         ids = class_ids.expand(*p_k.shape[:-1], class_ids.shape[-1])
         p_seen = p_k.gather(-1, ids)
-        return finish(class_theta(name, x_act, p_seen, n_servers=n_alloc, w=w), p)
+        with span("multiclass.theta"):
+            theta = class_theta(name, x_act, p_seen, n_servers=n_alloc, w=w, graph=graph)
+        return finish(theta, p)
 
     return engine.StatefulRule(init=lambda: init_state, observe=observe, allocate=allocate)
 

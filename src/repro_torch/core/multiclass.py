@@ -31,8 +31,12 @@ differ in speedup exponent and size distribution.  Here:
 - :func:`per_class_metrics` and :func:`multiclass_sweep` (a thin spec over
   ``core/sweeps.py``'s ``Sweep(classes=)``).
 
-This path launches no kernel, as in the reference: ``class_theta`` is plain
-tensor ops, and ``Sweep.create`` refuses ``fused`` with ``classes``.
+This path launches no kernel of its own, as in the reference:
+``class_theta`` is plain tensor ops (in an engine loop on the card,
+water-filling's bisection replays them as one CUDA graph), and
+``Sweep.create`` refuses ``fused`` with ``classes``.  Under
+a profiler, ``class_rule`` records each step's ``class_theta`` as the span
+``multiclass.theta`` (``repro_torch/spans.py``).
 """
 
 from __future__ import annotations
@@ -52,7 +56,13 @@ from repro_torch.core.arrivals import (
     simulate_online_quantized,
 )
 from repro_torch.core.engine import PDrift
-from repro_torch.core.policies import hesrpt, hesrpt_per_class, waterfill, weighted_hesrpt
+from repro_torch.core.policies import (
+    BisectGraph,
+    hesrpt,
+    hesrpt_per_class,
+    waterfill,
+    weighted_hesrpt,
+)
 from repro_torch.core.scenarios import (
     SCENARIOS,
     Scenario,
@@ -61,6 +71,7 @@ from repro_torch.core.scenarios import (
     unit_gaps,
 )
 from repro_torch.device import DTYPE, as_tensor
+from repro_torch.spans import span
 
 #: Class-aware policy names accepted by :func:`class_theta` and friends.
 MULTICLASS_POLICY_NAMES = ("hesrpt_pc", "waterfill", "hesrpt_sd", "hesrpt_blind")
@@ -212,17 +223,19 @@ SCENARIOS.setdefault("drift_multiclass", _drift_multiclass)
 
 
 # ------------------------------------------------- class-aware allocation
-def class_theta(name: str, x: torch.Tensor, p, *, n_servers, w=None) -> torch.Tensor:
+def class_theta(name: str, x: torch.Tensor, p, *, n_servers, w=None,
+                graph=None) -> torch.Tensor:
     """The class-aware allocation ``(x, p[, w]) -> theta`` row by row:
     ``x`` ``[..., M]``, ``p`` and ``w`` per job (``w`` from
     :func:`policy_weights`, ignored by the unweighted policies).
     ``hesrpt_blind`` takes each row's active-job mean exponent at every call
-    (the class-blind scheduler's view)."""
+    (the class-blind scheduler's view).  ``graph`` is water-filling's
+    ``policies.BisectGraph``, for a caller whose shape recurs."""
     name = name.lower()
     if name == "hesrpt_pc":
         return hesrpt_per_class(x, p)
     if name == "waterfill":
-        return waterfill(x, p, n_servers, w)
+        return waterfill(x, p, n_servers, w, graph=graph)
     if name == "hesrpt_sd":
         if w is None:
             raise ValueError("hesrpt_sd needs per-job weights (1/x0)")
@@ -261,10 +274,12 @@ def class_rule(
     per-job ``p_hat`` are ``[C, M]`` in the loop's arrival-sorted order (a
     ``p_hat`` column ``[C, 1]`` is one belief a row)."""
     n_alloc = float(n_chips) if n_chips is not None else float(n_servers)
+    graph = BisectGraph()
 
     def rule(x_act, p):
         x_seen, p_seen = engine._seen(x_act, p, size_factors, p_hat)
-        theta = class_theta(name, x_seen, p_seen, n_servers=n_alloc, w=w)
+        with span("multiclass.theta"):
+            theta = class_theta(name, x_seen, p_seen, n_servers=n_alloc, w=w, graph=graph)
         return engine.finish_alloc(theta, p, n_alloc=n_alloc, n_chips=n_chips,
                                    min_chips=min_chips, snap_slices=snap_slices, dtype=dtype)
 

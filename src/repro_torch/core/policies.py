@@ -22,6 +22,7 @@ from collections.abc import Callable
 import torch
 
 from repro_torch.core.ranking import inv_rank, ranks_from_order, size_order_desc
+from repro_torch.spans import add
 
 Policy = Callable[..., torch.Tensor]  # (x, p) -> theta
 
@@ -203,11 +204,18 @@ def weighted_hesrpt(x: torch.Tensor, p, w: torch.Tensor) -> torch.Tensor:
     return th / th.sum(-1, keepdim=True).clamp(min=_tiny(x))
 
 
-def waterfill(x: torch.Tensor, p, n_servers, w=None, *, n_iter: int = 64) -> torch.Tensor:
+def waterfill(x: torch.Tensor, p, n_servers, w=None, *, n_iter: int = 64,
+              graph: BisectGraph | None = None) -> torch.Tensor:
     """Class-weighted water-filling: ``theta`` maximizing ``sum_i w_i / x_i
     s(theta_i N)`` subject to ``sum theta = 1``, by ``n_iter`` bisection
     steps on the log water level (a fixed number of batched steps, each row
-    its own bracket), then renormalized.  ``p`` and ``w`` may be per job."""
+    its own bracket), then renormalized.  ``p`` and ``w`` may be per job.
+    Under a profiler the counter ``policy.waterfill_iters`` takes ``n_iter``
+    a call.
+
+    ``graph``, on a CUDA tensor, runs the bisection as its replay
+    (:class:`BisectGraph`), the same kernels bit for bit; elsewhere, and
+    while a stream is capturing, it is ignored."""
     active = x > 0
     dtype = x.dtype
     p = torch.as_tensor(p, dtype=dtype, device=x.device).expand_as(x)
@@ -221,16 +229,66 @@ def waterfill(x: torch.Tensor, p, n_servers, w=None, *, n_iter: int = 64) -> tor
     lo = torch.where(active, log_g, -torch.inf).amax(-1, keepdim=True)
     hi = torch.where(active, log_g + one_minus_p * torch.log(m), -torch.inf).amax(-1, keepdim=True)
 
-    def theta_of(log_lam):
-        return torch.where(active, torch.exp((log_g - log_lam) / one_minus_p), 0.0)
-
-    for _ in range(n_iter):
-        mid = 0.5 * (lo + hi)
-        too_big = theta_of(mid).sum(-1, keepdim=True) > 1.0
-        lo, hi = torch.where(too_big, mid, lo), torch.where(too_big, hi, mid)
-    th = theta_of(0.5 * (lo + hi))
+    add("policy.waterfill_iters", n_iter)
+    replay = graph is not None and x.is_cuda and not torch.cuda.is_current_stream_capturing()
+    bisect = graph if replay else _bisect
+    lo, hi = bisect(log_g, one_minus_p, active, lo, hi, n_iter)
+    th = _water(log_g, one_minus_p, active, 0.5 * (lo + hi))
     th = th / th.sum(-1, keepdim=True).clamp(min=_tiny(x))
     return torch.where(active.any(-1, keepdim=True), th, 0.0)
+
+
+def _water(log_g, one_minus_p, active, log_lam):
+    """Each active job's share at the log water level ``log_lam``."""
+    return torch.where(active, torch.exp((log_g - log_lam) / one_minus_p), 0.0)
+
+
+def _bisect(log_g, one_minus_p, active, lo, hi, n_iter: int):
+    """``n_iter`` bisection steps of each row's log water level in
+    ``[lo, hi]``: the level where the shares sum to 1."""
+    for _ in range(n_iter):
+        mid = 0.5 * (lo + hi)
+        too_big = _water(log_g, one_minus_p, active, mid).sum(-1, keepdim=True) > 1.0
+        lo, hi = torch.where(too_big, mid, lo), torch.where(too_big, hi, mid)
+    return lo, hi
+
+
+class BisectGraph:
+    """Water-filling's bisection (:func:`_bisect`) as one CUDA graph, for a
+    caller whose shape recurs call after call, as an engine loop's rule
+    does (the JAX package runs the bisection inside its jitted step): 64
+    steps are ~640 launches from the host, a replay is one.
+
+    The first call of a shape, dtype, device and step count runs the steps
+    once on a side stream (lazy initialisation stays out of the capture),
+    then captures them; a call of another key captures anew in its place.
+    The pair a call returns lives in the graph's pool until the next
+    replay."""
+
+    def __init__(self):
+        self._key = None
+
+    def __call__(self, log_g, one_minus_p, active, lo, hi, n_iter: int):
+        args = (log_g, one_minus_p, active, lo, hi)
+        key = (tuple(log_g.shape), log_g.dtype, log_g.device, n_iter)
+        if key != self._key:
+            self._key = None
+            dev = log_g.device
+            self._static = tuple(t.clone() for t in args)
+            with torch.cuda.device(dev):
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    _bisect(*self._static, n_iter)
+                torch.cuda.current_stream(dev).wait_stream(side)
+                self._graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(self._graph):
+                    self._out = _bisect(*self._static, n_iter)
+            self._key = key
+        for dst, src in zip(self._static, args, strict=True):
+            dst.copy_(src)
+        self._graph.replay()
+        return self._out
 
 
 #: Policies whose allocation is a pure function of the descending-size ranks;

@@ -299,9 +299,12 @@ def stream_tape(scn: Scenario) -> tuple[torch.Tensor, torch.Tensor]:
 
 def seed_generator(seed: int, index: int, *, device="cuda") -> torch.Generator:
     """The ``index``-th independent generator of a sweep seeded by ``seed``
-    (numpy's ``SeedSequence`` spawn tree), on ``device``."""
+    (numpy's ``SeedSequence`` spawn tree), on ``device``.  The child is
+    built from its spawn key, the state of
+    ``SeedSequence(seed).spawn(index + 1)[index]`` without the ``index``
+    siblings before it: a sweep's seeds cost linear time, not quadratic."""
     dev = resolve_device(device)
-    child = np.random.SeedSequence(seed).spawn(index + 1)[index]
+    child = np.random.SeedSequence(seed, spawn_key=(index,))
     return torch.Generator(device=dev).manual_seed(int(child.generate_state(1)[0]))
 
 

@@ -30,6 +30,15 @@ Names are ``<module>.<part>``.  The sweep path's:
 - counter ``engine.step_kernel``: the steps of ``engine.run`` that launched
   the event-step kernel (``kernels/event_step.py``), ``E`` a run on the
   card; over ``engine.steps``, the share of steps it covers.
+
+The class-aware allocate's (inside ``engine.allocate``):
+
+- ``multiclass.theta``: one step's class-aware shares, the ``class_theta``
+  call of ``core.multiclass.class_rule`` or of
+  ``core.estimation.estimating_class_rule``;
+- counter ``policy.waterfill_iters``: the bisection steps of the water
+  level, ``n_iter`` once a ``core.policies.waterfill`` call, whatever its
+  rows.
 """
 
 from __future__ import annotations

@@ -6,6 +6,9 @@
   counter, whole and chunked, on the fused loop and on the carried-rank
   loop; self times and totals add up; the spans are rows of the profiler's
   own trace, on the clock of the aten ops inside them.
+- The class-aware allocate records ``multiclass.theta`` once a step (the
+  sweep's rule and the estimating rule) and ``policy.waterfill_iters`` 64
+  a water-fill call.
 - The profiler moves no result.
 """
 
@@ -138,3 +141,68 @@ def test_the_profiler_moves_no_result(path):
     traced, _, _ = _traced(lambda: run_sweep(_spec(path), log=False, device="cpu"))
     for metric, v in plain.stats["hesrpt"].items():
         assert np.array_equal(v, traced.stats["hesrpt"][metric]), metric
+
+
+# ------------------------------------------------- the class-aware allocate
+def _class_spec() -> Sweep:
+    from repro_torch.lanes import class_grid
+
+    return Sweep.create(("waterfill",), RATES, scenario="multiclass_poisson", n_jobs=M,
+                        n_seeds=3, seed=2**33 + 7, n_servers=16.0, classes=class_grid(4),
+                        metrics=("mean_flowtime", "mean_slowdown", "makespan",
+                                 "class_flowtime"))
+
+
+def test_a_water_filling_sweep_records_one_theta_a_step():
+    _, snap, events = _traced(lambda: run_sweep(_class_spec(), log=False, device="cpu"))
+    steps = snap["counters"]["engine.steps"]
+    assert steps == 2 * M
+    theta, alloc = snap["spans"]["multiclass.theta"], snap["spans"]["engine.allocate"]
+    assert theta["count"] == alloc["count"] == steps
+    assert theta["total_s"] <= alloc["total_s"]
+    assert alloc["self_s"] == pytest.approx(alloc["total_s"] - theta["total_s"], abs=1e-9)
+    assert snap["counters"]["policy.waterfill_iters"] == 64 * theta["count"]
+    assert sum(e.name() == "multiclass.theta" for e in events) == steps
+
+
+def test_waterfill_iters_count_the_bisection_steps_of_a_call():
+    from repro_torch.core.policies import waterfill
+
+    x = torch.rand(5, 7, dtype=torch.float64) + 0.1
+    p = torch.full_like(x, 0.6)
+
+    def calls():
+        waterfill(x, p, 16.0)
+        waterfill(x[:1], p[:1], 16.0)
+        waterfill(x, p, 16.0, n_iter=10)
+
+    _, snap, _ = _traced(calls)
+    assert snap["counters"] == {"policy.waterfill_iters": 64 + 64 + 10}
+
+
+def test_the_estimating_class_rule_records_one_theta_a_step():
+    from repro_torch.core.multiclass import simulate_multiclass
+    from repro_torch.core.sweeps import draw_scenario
+    from repro_torch.lanes import class_grid
+
+    scn = draw_scenario(_class_spec(), device="cpu")
+    _, snap, _ = _traced(lambda: simulate_multiclass(
+        scn, classes=class_grid(4), policy="waterfill", n_servers=16.0, estimator_kw={},
+        device="cpu"))
+    steps = snap["counters"]["engine.steps"]
+    assert snap["spans"]["multiclass.theta"]["count"] == steps == 2 * M
+    assert snap["counters"]["policy.waterfill_iters"] == 64 * steps
+
+
+def test_without_a_profiler_the_class_path_records_nothing(monkeypatch):
+    monkeypatch.setattr(torch.profiler, "record_function", _refuse)
+    spans.reset()
+    run_sweep(_class_spec(), log=False, device="cpu")
+    assert spans.snapshot() == {"spans": {}, "counters": {}}
+
+
+def test_the_profiler_moves_no_class_answer():
+    plain = run_sweep(_class_spec(), log=False, device="cpu")
+    traced, _, _ = _traced(lambda: run_sweep(_class_spec(), log=False, device="cpu"))
+    for metric, v in plain.stats["waterfill"].items():
+        assert np.array_equal(v, traced.stats["waterfill"][metric], equal_nan=True), metric
